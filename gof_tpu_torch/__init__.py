@@ -1,0 +1,23 @@
+"""gof_tpu_torch — Gaussian Opacity Fields in PyTorch, with CUDA kernels for Hopper.
+
+The PyTorch counterpart of `gof_tpu`, module for module: the same module
+paths, public names, shapes and channel layouts, so the same inputs can be fed
+to both packages and compared. Plain tensor code is PyTorch; every kernel that
+`gof_tpu` writes in Pallas is hand-written CUDA C++ here (`csrc/`), built with
+nvcc for sm_90a on first use and bound through ctypes. On CPU tensors each
+kernel wrapper runs the kernel's plain PyTorch version instead.
+
+Ported so far (the serving path): constants, transforms, sh, cameras,
+config, model.gaussians, utils.ply, data.{colmap,readers,scene},
+ops.{quadrics,class_gather,binning,rasterize,tiled_ref,render} and
+render_cli. This package never imports jax or gof_tpu.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# gof_tpu pins "highest" f32 matmul precision; the counterpart here is to
+# forbid TF32 in matmuls and cuDNN convolutions.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
