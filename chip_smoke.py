@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Build and drive gof_tpu_torch's serving path once on one CUDA GPU.
+"""Build and drive gof_tpu_torch's serving and training paths once on one
+CUDA GPU.
 
     python3 chip_smoke.py
 
 1. preflight: torch, CUDA, the card's name and power limit, nvcc;
-2. build the CUDA kernels of gof_tpu_torch/csrc with nvcc (sm_90a);
+2. build the CUDA kernels of gof_tpu_torch/csrc with nvcc (sm_90a, one nvcc
+   per source, in parallel);
 3. make a 100k-gaussian model (bench.py's make_state recipe, seed 1, SH
    degree 3, kernel_size 0.1, filter_3d 1e-4) as a gof_tpu-format model
    directory, and a Blender-format source scene with 4 test views at
@@ -13,10 +15,25 @@
    the 4 views; the PNGs, the image values and each kernel's launch count
    over that run are checked, and a small scene's CUDA render is held
    against the plain CPU path;
-5. hold each kernel against its plain PyTorch version on the card, at the
-   shapes of one of those views, and time both with CUDA events; time each
-   layer of that view's render, and profile a steady pass over the views;
-6. print the kernels' JSON line, the card's name and power limit, and as
+5. hold the forward kernels against their plain PyTorch versions on the
+   card, at the shapes of one of those views, and time both with CUDA
+   events; time each layer of that view's render, and profile a steady pass
+   over the views;
+6. train: a Blender-format scene with 8 training and 4 test views at
+   1237x822 on the same orbit (seeded random ground truth) and a
+   points3d.ply of bench's 100k-point recipe; gof_tpu_torch.train.main runs
+   12 steps (statistics on throughout, the regularizers from step 7), evals
+   and saves the PLY; the four kernels' launch counts over that run, the
+   losses, the log and the PLY are checked, and render_cli serves the PLY;
+7. the bench design point: bench.py's model, look-at camera and seeded
+   random ground truth, through the port's build_train_step in bench's two
+   phases (statistics on, regularizers off, step 5000; statistics off,
+   regularizers on, step 20000): the median step time, the time of each
+   layer of the step by CUDA events, the device idle share from
+   torch.profiler, and all four kernels held against their plain versions
+   at that view's shapes (K3's gaussian-id stream exactly; K3 and K4
+   bit-identical across two launches), each timed beside its plain version;
+8. print the kernels' JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, if there is no CUDA device, if any
@@ -44,6 +61,14 @@ SEED = 1
 # tolerance of the blend kernel against its plain version: gof_tpu's own
 # Pallas-vs-XLA tolerance (tests/test_rasterize.py); K2 must be bit-exact
 ATOL, RTOL = 1e-5, 1e-4
+# the backward blend and the reduce against their plain versions: max |kernel
+# - plain| <= GRAD_BOUND * max |plain| per output group, gof_tpu's Pallas-vs-
+# XLA gradient bound (tests/test_rasterize.py:154-157)
+GRAD_BOUND = 1e-4
+TRAIN_VIEWS = 8
+TRAIN_ITERS = 12
+REG_FROM = 7  # the regularizers join at step 7 of the 12
+BENCH_REPS = 10
 
 
 def preflight() -> str:
@@ -412,6 +437,358 @@ def check_kernels(expand_in, raster_in, launches) -> list:
     return results
 
 
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def write_train_scene(root: str, n: int, width: int, height: int):
+    """Blender source scene for training: 8 training and 4 test views on the
+    orbit, seeded random ground truth, and a points3d.ply of bench's
+    n-point recipe (make_model's xyz, random colours). Returns (dir, xyz)."""
+    from PIL import Image
+
+    from gof_tpu_torch.utils import ply
+
+    src = os.path.join(root, "train_scene")
+    os.makedirs(os.path.join(src, "images"))
+    rng = np.random.default_rng(SEED)
+    for split, c2ws in (("train", orbit_c2w(TRAIN_VIEWS)), ("test", orbit_c2w(N_VIEWS))):
+        frames = []
+        for i, c2w in enumerate(c2ws):
+            name = f"images/{split}_{i:03d}"
+            img = rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
+            Image.fromarray(img).save(os.path.join(src, name + ".png"), compress_level=1)
+            frames.append({"file_path": name, "transform_matrix": c2w.tolist()})
+        with open(os.path.join(src, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.8, "frames": frames}, f)
+    params, _ = make_model(n, SEED)
+    cols = rng.integers(0, 256, (n, 3), dtype=np.uint8)
+    xyz = params.xyz
+    ply.write_ply(os.path.join(src, "points3d.ply"),
+                  {"x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+                   "red": cols[:, 0], "green": cols[:, 1], "blue": cols[:, 2]})
+    return src, xyz
+
+
+def train_entry(src: str, out: str, xyz0: np.ndarray):
+    """The training path through its entry point, train.main, with the four
+    kernels' launch counts taken over exactly that run and each step timed
+    on the host clock between synchronisations."""
+    from unittest import mock
+
+    from gof_tpu_torch import train
+    from gof_tpu_torch.ops import class_gather, rasterize, reduce
+
+    steps = []
+    build = train.build_train_step
+
+    def timed_build(*a, **k):
+        step = build(*a, **k)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step(*args)
+            loss = float(res[3]["loss"])
+            torch.cuda.synchronize()
+            steps.append(((time.perf_counter() - t0) * 1e3, loss))
+            return res
+
+        return timed
+
+    counters = (class_gather.EXPAND, rasterize.FWD, rasterize.BWD, reduce.REDUCE)
+    for k in counters:
+        k.launches = 0
+    argv = ["-s", src, "-m", out, "--iterations", str(TRAIN_ITERS), "--sh_degree", "3",
+            "--kernel_size", "0.1", "--distortion_from_iter", str(REG_FROM),
+            "--depth_normal_from_iter", str(REG_FROM), "--test_iterations", str(TRAIN_ITERS),
+            "--save_iterations", str(TRAIN_ITERS), "--quiet"]
+    t0 = time.perf_counter()
+    with mock.patch.object(train, "build_train_step", timed_build):
+        tp, gstate = train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in counters}
+    print(f"train: {TRAIN_ITERS} steps through gof_tpu_torch.train.main in {wall:.2f} s "
+          f"(scene read, init, 3D filter, steps, eval, PLY); launches {launches}")
+    print(f"  step ms (host clock, synchronised): {[round(ms, 3) for ms, _ in steps]}")
+    print(f"  loss first {steps[0][1]:.6f}, last {steps[-1][1]:.6f}")
+
+    recs = [json.loads(line) for line in open(os.path.join(out, "train_log.jsonl"))]
+    evals = [r["eval"] for r in recs if "eval" in r]
+    logged = [r for r in recs if "loss" in r]
+    print(f"  train_log: {len(logged)} step records {[r['iter'] for r in logged]}, eval {evals}")
+    if len(steps) != TRAIN_ITERS or not all(np.isfinite(l) for _, l in steps):
+        raise RuntimeError(f"train losses: {steps}")
+    if [r["iter"] for r in logged] != [1, 10] or not all(np.isfinite(r["loss"]) for r in logged):
+        raise RuntimeError(f"train_log records: {logged}")
+    if len(evals) != 1 or not np.isfinite(evals[0]["psnr"]):
+        raise RuntimeError(f"eval records: {evals}")
+    low = {k: v for k, v in launches.items() if v < TRAIN_ITERS}
+    if low:
+        raise RuntimeError(f"kernels launched fewer times than steps: {low}")
+    ply = os.path.join(out, "point_cloud", f"iteration_{TRAIN_ITERS}", "point_cloud.ply")
+    if not os.path.exists(ply):
+        raise RuntimeError(f"no PLY at {ply}")
+    n = xyz0.shape[0]
+    moved = float((tp.gauss.xyz[:n].detach().cpu() - torch.from_numpy(xyz0)).abs().max())
+    finite = all(bool(torch.isfinite(getattr(tp.gauss, f)).all()) for f in train.GAUSS_FIELDS)
+    print(f"  params: max |xyz - init| {moved:.3e}, all finite {finite}, active "
+          f"{int(gstate.active.sum())} of {gstate.active.shape[0]}")
+    if not moved > 0 or not finite:
+        raise RuntimeError("training left the params unchanged or non-finite")
+    return launches, steps, evals[0]
+
+
+def serve_trained(out: str) -> None:
+    from PIL import Image
+
+    from gof_tpu_torch import render_cli
+
+    stats = render_cli.main(["-m", out, "--skip_train"])["test"]
+    rdir = os.path.join(out, "test", f"ours_{TRAIN_ITERS}", "renders")
+    pngs = sorted(os.listdir(rdir))
+    if len(pngs) != N_VIEWS or any(np.asarray(Image.open(os.path.join(rdir, p))).std() == 0
+                                   for p in pngs):
+        raise RuntimeError(f"serving the trained PLY: {pngs}")
+    print(f"served the trained PLY: {len(pngs)} views, ms {[round(s['ms'], 2) for s in stats]}")
+
+
+def bench_state():
+    """bench.py's bench_config inputs on the card: make_state's model (seed
+    1), the look-at camera, a seeded random ground truth."""
+    from gof_tpu_torch import cameras
+    from gof_tpu_torch.model import gaussians as gm
+
+    params, state = make_model(N_GAUSSIANS, SEED)
+    g, s = gm.from_numpy(params, state, "cuda")
+    cam = cameras.look_at_camera(eye=(0, 0, 0), target=(0, 0, 5.0), width=WIDTH, height=HEIGHT,
+                                 device="cuda")
+    gt = np.random.default_rng(SEED).uniform(0, 1, (3, HEIGHT, WIDTH)).astype(np.float32)
+    return g, s, cam, torch.from_numpy(gt).cuda()
+
+
+def step_layers(g, s, st, tx, gt, cam, opt, model_cfg, with_stats, with_reg, step_i, reps=5):
+    """The train step cut at its layers (build_train_step's operations, the
+    rasterize Function opened up), each between CUDA events; medians over
+    `reps` steps. Returns (layer ms, the backward kernels' inputs of the
+    last step, the state)."""
+    from gof_tpu_torch import train
+    from gof_tpu_torch.model import gaussians as gm
+    from gof_tpu_torch.ops import binning, quadrics, tiled_ref
+    from gof_tpu_torch.ops import rasterize as rz
+
+    sh = model_cfg.sh_degree
+    P = g.xyz.shape[0]
+    ntx, nty = binning.tile_grid(cam.width, cam.height)
+    ntiles = ntx * nty
+    bg = torch.zeros(3, device="cuda")
+    times = {}
+    for _ in range(reps):
+        evs = []
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            evs.append((name, e))
+
+        torch.cuda.synchronize()
+        mark("start")
+        leaves = [getattr(g, f).requires_grad_(True) for f in train.GAUSS_FIELDS]
+        scales_f = gm.filtered_scaling(g, s.filter_3d)
+        opac_f = gm.filtered_opacity(g, s.filter_3d)
+        shs = train.masked_shs(g, min(step_i // 1000, sh), sh)
+        pre = quadrics.preprocess(g.xyz, scales_f, g.rotation, shs, sh, cam,
+                                  model_cfg.kernel_size, s.active, opacities=opac_f)
+        mark("preprocess")
+        with torch.no_grad():
+            rects = binning.gaussian_rects(pre.mean2d, pre.radius, pre.valid, ntx, nty,
+                                           radius_xy=pre.radius_xy)
+            b = binning.bin_gaussians(pre.depth, rects, ntx, nty, mean2d=pre.mean2d,
+                                      radius=pre.radius)
+        mark("binning (class layout, K2 expand, sorts; slot-demand read)")
+        coef = pre.coef.detach()
+        op_eff = opac_f * torch.where(pre.valid, coef, torch.zeros_like(coef))
+        with torch.no_grad():
+            payload = rz.build_payload16(pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0, b,
+                                         conic=pre.conic if with_stats else None,
+                                         mean2d=pre.mean2d if with_stats else None)
+            meta = rz._meta_vec(cam.focal_x, cam.focal_y, bg, cam.width, cam.height)
+        mark("payload gather")
+        with torch.no_grad():
+            fout = rz.rasterize_fwd(payload, b, meta, ntx, ntiles, with_reg=with_reg)
+        mark("K1 forward blend")
+        tile_out = fout.detach().requires_grad_(True)
+        image = tiled_ref.assemble_image(tile_out, ntx, nty, cam.width, cam.height)
+        loss = train.train_loss(image[:9], gt, cam, opt, step_i, with_reg)[0]
+        loss.backward(inputs=[tile_out])
+        gout = tile_out.grad.contiguous()
+        mark("loss and its backward")
+        last = fout[ntiles - 1]
+        demand = int(last[rz.CH_CSTART, 0] + last[rz.CH_LIVEC, 0] * rz.CHUNK_SIZE)
+        half = (cam.width / 2.0, cam.height / 2.0)
+        dslot, gid, stats = rz.rasterize_bwd(payload, fout, gout, b, meta, ntx, ntiles, *half,
+                                             with_stats=with_stats, with_reg=with_reg,
+                                             compact_cap=max(demand, rz.CHUNK_SIZE))
+        mark("K3 backward blend (compact-demand read)")
+        per_g, per_s = rz.reduce_compact_rows(dslot, gid, stats, P)
+        mark("K4 reduce (id sort, segment starts)")
+        dM, du0 = rz.quadric_chain(per_g, pre.v2g_M, pre.v2g_u0)
+        torch.autograd.backward([pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0],
+                                [per_g[:, 0:3], per_g[:, 3], dM, du0])
+        mark("quadric chain + preprocess backward")
+        with torch.no_grad():
+            radii = torch.where(pre.valid, pre.radius, torch.zeros_like(pre.radius))
+            cg = per_s if per_s is not None else torch.zeros((P, 3), device="cuda")
+            s = gm.add_densification_stats(s, cg, radii, radii > 0)
+            upd, st = tx.update(gm.GaussianParams(*[x.grad for x in leaves]), st)
+            for x, f in zip(leaves, train.GAUSS_FIELDS):
+                x.add_(getattr(upd, f))
+                x.grad = None
+        mark("Adam + statistics")
+        evs[-1][1].synchronize()
+        for (_, e0), (name, e1) in zip(evs, evs[1:]):
+            times.setdefault(name, []).append(e0.elapsed_time(e1))
+    ex = binning.class_expansion(pre.depth.detach(), rects, ntiles, pre.mean2d.detach(),
+                                 pre.radius.detach())
+    tbl = torch.stack(ex.cols).contiguous()
+    gidx = torch.clamp(ex.gidx, 0, P - 1).to(torch.int32).contiguous()
+    ins = dict(payload=payload, b=b, meta=meta, ntx=ntx, ntiles=ntiles, fout=fout, gout=gout,
+               demand=demand, half=half, P=P, dslot=dslot, gid=gid, stats=stats,
+               expand=(tbl, gidx))
+    return {k: statistics.median(v) for k, v in times.items()}, ins, st, s
+
+
+def profile_steps(step, args, n: int = 3):
+    """torch.profiler over n steady train steps: host wall, device busy time
+    (kernels and copies), idle share, busiest device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tp, st, s, gt, step_i, cam, bg = args
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tp, st, s, _ = step(tp, st, s, gt, step_i, cam, bg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        print("  profile: no device events recorded; idle share not measured")
+        return None, (tp, st, s)
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    idle = 1 - busy / wall
+    print(f"  profile of {n} steady steps: {wall / n:.3f} ms/step host wall, device busy "
+          f"{busy / n:.3f} ms/step, idle share {idle:.3f}, "
+          f"{sum(e.count for e in dev) / n:.0f} device ops/step")
+    for e in sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
+        print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms/step x{e.count // n:4d}  "
+              f"{e.key[:80]}")
+    return idle, (tp, st, s)
+
+
+def check_backward_kernels(ins, with_stats: bool, with_reg: bool, launches) -> list:
+    """K3 and K4 against their plain versions at one view's shapes."""
+    from gof_tpu_torch.ops import rasterize as rz
+    from gof_tpu_torch.ops import reduce as red
+
+    args = (ins["payload"], ins["fout"], ins["gout"], ins["b"], ins["meta"], ins["ntx"],
+            ins["ntiles"], *ins["half"])
+    kw = dict(with_stats=with_stats, with_reg=with_reg,
+              compact_cap=max(ins["demand"], rz.CHUNK_SIZE))
+    got = rz.rasterize_bwd(*args, **kw)
+    again = rz.rasterize_bwd(*args, **kw)
+    want = rz.rasterize_bwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    gid_exact = torch.equal(got[1], want[1])
+    same = all(torch.equal(x, y) for x, y in zip(got, again) if x is not None)
+    groups = [("dslot", got[0], want[0])] + ([("stats", got[2], want[2])] if with_stats else [])
+    errs = {n: (float((a - w).abs().max()), float(w.abs().max())) for n, a, w in groups}
+    ok = gid_exact and same and all(e <= GRAD_BOUND * m for e, m in errs.values())
+    print(f"  rasterize_bwd: payload {tuple(ins['payload'].shape)}, compact rows "
+          f"{ins['demand']}: " + ", ".join(f"{n} max |err| {e:.3e} (max |plain| {m:.3e})"
+                                            for n, (e, m) in errs.items())
+          + f"; gid stream exact {gid_exact}; bit-identical across launches {same}")
+    if not ok:
+        raise RuntimeError("rasterize_bwd kernel disagrees with its plain version")
+    ms = cuda_ms(lambda: rz.rasterize_bwd(*args, **kw), 10)
+    plain_ms = cuda_ms(lambda: rz.rasterize_bwd_reference(*args, **kw), 3)
+    print(f"  rasterize_bwd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    out = [{"name": "rasterize_bwd", "route": "cuda",
+            "source": "gof_tpu_torch/csrc/rasterize_bwd.cu",
+            "replaces": "gof_tpu/ops/rasterize_pallas.py:508",
+            "launches": launches["rasterize_bwd"], "max_abs_err": max(e for e, _ in errs.values()),
+            "ms": ms, "plain_ms": plain_ms}]
+
+    rows = got[0] if not with_stats else torch.cat([got[0], got[2]], dim=0)
+    gid, P = got[1], ins["P"]
+    r1 = red.reduce_rows_by_gid(rows, gid, P)
+    r2 = red.reduce_rows_by_gid(rows, gid, P)
+    rp = red.reduce_rows_by_gid_reference(rows, gid, P)
+    torch.cuda.synchronize()
+    same = torch.equal(r1, r2)
+    err, mx = float((r1 - rp).abs().max()), float(rp.abs().max())
+    print(f"  reduce: rows {tuple(rows.shape)}, P {P}: max |err| {err:.3e} (max |plain| "
+          f"{mx:.3e}); bit-identical across launches {same}")
+    if not same or err > GRAD_BOUND * mx:
+        raise RuntimeError("reduce kernel disagrees with its plain version")
+    ms = cuda_ms(lambda: red.reduce_rows_by_gid(rows, gid, P), 20)
+    plain_ms = cuda_ms(lambda: red.reduce_rows_by_gid_reference(rows, gid, P), 5)
+    print(f"  reduce (id sort + segment starts + kernel): {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    out.append({"name": "reduce", "route": "cuda", "source": "gof_tpu_torch/csrc/reduce.cu",
+                "replaces": "gof_tpu/ops/reduce.py:53", "launches": launches["reduce"],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    return out
+
+
+def bench_phase(label: str, with_stats: bool, with_reg: bool, step_i: int, launches) -> list:
+    """One of bench.py's two phases on the port: step time, layer split,
+    idle share, and the kernels against their plain versions."""
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch import train
+
+    g, s, cam, gt = bench_state()
+    bg = torch.zeros(3, device="cuda")
+    opt = config_lib.OptimizationParams()
+    model_cfg = config_lib.ModelParams(sh_degree=3, kernel_size=0.1)
+    tx = train.make_optimizer(opt, 5.0)
+    tp = train.TrainParams(gauss=g)
+    st = tx.init(tp)
+    step = train.build_train_step(opt, model_cfg, config_lib.PipelineParams(), tx,
+                                  with_stats=with_stats, with_reg=with_reg)
+    print(f"bench phase {label} (with_stats={with_stats}, with_reg={with_reg}, step {step_i}), "
+          f"{N_GAUSSIANS} gaussians at {WIDTH}x{HEIGHT}:")
+    for _ in range(2):
+        tp, st, s, m = step(tp, st, s, gt, step_i, cam, bg)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(BENCH_REPS):
+        t0 = time.perf_counter()
+        tp, st, s, m = step(tp, st, s, gt, step_i, cam, bg)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    loss = float(m["loss"])
+    print(f"  step ms (host clock, synchronised, {BENCH_REPS} steps after 2 warm-up): median "
+          f"{statistics.median(ms):.3f}, all {[round(x, 3) for x in ms]}; loss {loss:.6f}, "
+          f"key slots {int(m['num_keys'])}, compact rows {int(m['compact_demand'])}")
+    if not np.isfinite(loss):
+        raise RuntimeError("non-finite bench loss")
+    layers, ins, st, s = step_layers(tp.gauss, s, st, tx, gt, cam, opt, model_cfg, with_stats,
+                                     with_reg, step_i)
+    total = sum(layers.values())
+    print(f"  layers (CUDA events, median of 5, ms): total {total:.3f}")
+    for name, v in layers.items():
+        print(f"    {name}: {v:.3f}")
+    profile_steps(step, (tp, st, s, gt, step_i, cam, bg))
+    return ins
+
+
+def train_kernels(ins, with_stats, with_reg, launches) -> list:
+    kernels = check_kernels(ins["expand"], (ins["payload"], ins["b"], ins["meta"], ins["ntx"],
+                                            ins["ntiles"]), launches)
+    return kernels + check_backward_kernels(ins, with_stats, with_reg, launches)
+
+
 def main() -> None:
     smi = preflight()
     build()
@@ -421,12 +798,26 @@ def main() -> None:
         model = write_inputs(root, N_GAUSSIANS, WIDTH, HEIGHT, N_VIEWS)
         print(f"model: {N_GAUSSIANS} gaussians, {N_VIEWS} views at {WIDTH}x{HEIGHT} "
               f"written in {time.perf_counter() - t0:.1f} s")
-        stats, launches = serve(model, N_VIEWS, "cuda")
+        stats, serve_launches = serve(model, N_VIEWS, "cuda")
         out, expand_in, raster_in = view_inputs(model, "cuda")
         check_render(out, WIDTH, HEIGHT)
         check_small_scene()
-        kernels = check_kernels(expand_in, raster_in, launches)
+        check_kernels(expand_in, raster_in, serve_launches)
         profile_renders(model, N_VIEWS)
+
+        t0 = time.perf_counter()
+        src, xyz0 = write_train_scene(root, N_GAUSSIANS, WIDTH, HEIGHT)
+        print(f"train scene: {TRAIN_VIEWS} + {N_VIEWS} views at {WIDTH}x{HEIGHT}, "
+              f"{N_GAUSSIANS} points, written in {time.perf_counter() - t0:.1f} s")
+        trained = os.path.join(root, "trained")
+        launches, _, _ = train_entry(src, trained, xyz0)
+        serve_trained(trained)
+        ins = bench_phase("densify", True, False, 5000, launches)
+        print("  kernels against their plain versions at this view's shapes:")
+        kernels = train_kernels(ins, True, False, launches)
+        ins = bench_phase("regularize", False, True, 20000, launches)
+        print("  kernels against their plain versions at this view's shapes:")
+        train_kernels(ins, False, True, launches)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"render ms per view: {[s['ms'] for s in stats]}")

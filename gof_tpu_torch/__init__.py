@@ -7,10 +7,12 @@ to both packages and compared. Plain tensor code is PyTorch; every kernel that
 nvcc for sm_90a on first use and bound through ctypes. On CPU tensors each
 kernel wrapper runs the kernel's plain PyTorch version instead.
 
-Ported so far (the serving path): constants, transforms, sh, cameras,
+Ported so far: the serving path (constants, transforms, sh, cameras,
 config, model.gaussians, utils.ply, data.{colmap,readers,scene},
-ops.{quadrics,class_gather,binning,rasterize,tiled_ref,render} and
-render_cli. This package never imports jax or gof_tpu.
+ops.{quadrics,class_gather,binning,rasterize,tiled_ref,render}, render_cli)
+and one training step with its host loop (ops.{rasterize backward, reduce,
+blend, knn}, utils.{losses,schedules}, train). This package never imports
+jax or gof_tpu.
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,16 @@
 """Configuration (counterpart of gof_tpu/config.py).
 
 Reads and writes the `cfg_args.json` that gof_tpu persists in a model
-directory. The port ignores the pipeline's `backend`, `key_capacity`,
-`compact_capacity` and `live_capacity`: it sizes its buffers from each
-view's real demand and always runs its CUDA kernels on CUDA tensors.
+directory, and turns the dataclasses into argparse flags with gof_tpu's names
+and defaults (`add_group`, `extract`). The port accepts and ignores the
+pipeline's `backend`, `key_capacity`, `compact_capacity` and `live_capacity`:
+it sizes its buffers from each view's real demand and always runs its CUDA
+kernels on CUDA tensors.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -66,6 +69,28 @@ class OptimizationParams:
     densify_from_iter: int = 500
     densify_until_iter: int = 15_000
     densify_grad_threshold: float = 0.0002
+
+
+def add_group(parser: argparse.ArgumentParser, cls) -> None:
+    """Register a dataclass's fields as CLI flags (gof_tpu's ParamGroup-style
+    reflection: a bool becomes a store_true flag), with the short aliases
+    -s, -m and -r."""
+    for f in dataclasses.fields(cls):
+        name = f"--{f.name}"
+        if f.type in ("bool", bool):
+            parser.add_argument(name, action="store_true", default=f.default)
+        else:
+            typ = {"int": int, "float": float, "str": str}.get(str(f.type), type(f.default))
+            parser.add_argument(name, type=typ, default=f.default)
+    for short, long in (("-s", "--source_path"), ("-m", "--model_path"), ("-r", "--resolution")):
+        for a in parser._actions:
+            if a.option_strings == [long]:
+                a.option_strings.insert(0, short)
+                parser._option_string_actions[short] = a
+
+
+def extract(cls, ns: argparse.Namespace):
+    return cls(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(cls)})
 
 
 def save_cfg(model_path: str, model: ModelParams, pipe: PipelineParams, opt: OptimizationParams) -> None:

@@ -75,6 +75,37 @@ class Scene:
                                       uid=info.uid, device=device)
         return cam, np.transpose(img, (2, 0, 1))
 
+    def all_cameras_meta(self, cams: List[readers.CameraInfo], device: torch.device | str = "cpu"):
+        """Stacked camera arrays for compute_3d_filter (whole-train-set op):
+        world_views [N, 4, 4], focals_x, focals_y, widths, heights [N]."""
+        from .. import transforms
+
+        wv, fx, fy, ws, hs = [], [], [], [], []
+        for c in cams:
+            W, H = self._scaled_size(c)
+            wv.append(transforms.world_to_view(c.R, c.T))
+            fx.append(transforms.fov_to_focal(c.fovx, W))
+            fy.append(transforms.fov_to_focal(c.fovy, H))
+            ws.append(W)
+            hs.append(H)
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+        return f32(np.stack(wv)), f32(fx), f32(fy), f32(ws), f32(hs)
+
+    def _scaled_size(self, info: readers.CameraInfo):
+        """The (width, height) load_image gives the camera at this scene's
+        resolution setting."""
+        r = self.resolution
+        if r in (1, 2, 4, 8):
+            return round(info.width / r), round(info.height / r)
+        if r == -1:
+            gd = info.width / 1600 if info.width > 1600 else 1
+        else:
+            gd = info.width / r
+        return int(info.width / gd), int(info.height / gd)
+
 
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) on first use.
 
-The sources are compiled by nvcc for sm_90a into one shared library with a
-plain C interface, loaded with ctypes. The library lands in
+Each source is compiled by its own nvcc process for sm_90a, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes. The library lands in
 `build/gof_tpu_torch/<hash>/` at the repository root, keyed by a hash of the
 sources and flags, so an edit rebuilds and an unchanged tree reuses it.
 Nothing is built at import: the first kernel launch calls `library()`.
@@ -24,11 +25,11 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("expand.cu", "rasterize_fwd.cu")
+SOURCES = ("expand.cu", "rasterize_fwd.cu", "rasterize_bwd.cu", "reduce.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "gof_tpu_torch"
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *GENCODE, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libgof_tpu_torch.so"
 
@@ -40,6 +41,14 @@ _SIGNATURES = {
     # device, payload, cap, bounds, meta, ntx, ntiles, with_reg, out, livec, stream
     "gof_rasterize_fwd": (ctypes.c_int, _PTR, ctypes.c_longlong, _PTR, _PTR, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, _PTR, _PTR, _PTR),
+    # device, payload, cap, slot ids, bounds, fout, gout, meta, ntx, ntiles, halfw, halfh,
+    # with_stats, with_reg, R, dslot, gid, stats, stream
+    "gof_rasterize_bwd": (ctypes.c_int, _PTR, ctypes.c_longlong, _PTR, _PTR, _PTR, _PTR, _PTR,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _PTR, _PTR, _PTR, _PTR),
+    # device, rows, R, C, perm, starts, P, out, stream
+    "gof_reduce": (ctypes.c_int, _PTR, ctypes.c_longlong, ctypes.c_int, _PTR, _PTR,
+                   ctypes.c_longlong, _PTR, _PTR),
 }
 
 
@@ -74,19 +83,39 @@ def source_hash() -> str:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists.
-    Returns its path; raises with nvcc's output if the build fails."""
+    """Compile the kernels unless a library for these sources exists: one
+    nvcc per source, run in parallel, then one link. Returns the library's
+    path; raises with nvcc's output if a step fails."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(CSRC / s) for s in SOURCES]]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}{r.stderr}")
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [out_dir / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    for c, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        logs.append(" ".join(c) + "\n" + out)
+        if p.returncode != 0:
+            failed.append(f"nvcc failed ({p.returncode}):\n{out}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    if not failed:
+        link = [nvcc, *GENCODE, "-shared", "-o", str(tmp), *map(str, objs)]
+        r = subprocess.run(link, capture_output=True, text=True)
+        logs.append(" ".join(link) + "\n" + r.stdout + r.stderr)
+        if r.returncode != 0:
+            failed.append(f"nvcc link failed ({r.returncode}):\n{r.stdout}{r.stderr}")
+    (out_dir / "build.log").write_text("\n".join(logs))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, lib)
     return lib
 

@@ -1,10 +1,14 @@
-"""Tiled ray-Gaussian blend, forward (counterpart of
+"""Tiled ray-Gaussian blend, forward and backward (counterpart of
 gof_tpu/ops/rasterize_pallas.py).
 
 `rasterize_fwd` runs kernel csrc/rasterize_fwd.cu on CUDA tensors and its
-plain PyTorch version `rasterize_fwd_reference` on CPU tensors. Both follow
-gof_tpu's `_fwd_kernel` (rasterize_pallas.py:344) in every convention the
-backward port will rely on:
+plain PyTorch version `rasterize_fwd_reference` on CPU tensors;
+`rasterize_bwd` likewise runs csrc/rasterize_bwd.cu or
+`rasterize_bwd_reference`. `rasterize` (a `torch.autograd.Function`) joins
+them with the per-gaussian reduction (ops/reduce.py) and the per-gaussian
+chain back to (M, u0), returning gof_tpu's cotangents. Both directions
+follow gof_tpu's `_fwd_kernel` (rasterize_pallas.py:344) in every
+convention the backward relies on:
 
 - each tile walks CHUNK_SIZE-row windows that start at the aligned-down
   `base = floor(seg_s / 128) * 128`, masking rows outside [seg_s, seg_e);
@@ -26,9 +30,21 @@ The plain version runs each window as one [NTILES, 128, 1024] step. Its
 in-window transmittance is a cumprod over [T, 1 - a_0, 1 - a_1, ...] and its
 sums are cumsums seeded with the running value: on CUDA both scan serially
 along that axis, so they round exactly as the kernel's serial loop does.
+
+The backward recomputes T with that same serial arithmetic (not gof_tpu's
+`T * shift_down(prod_incl)`), so its T > 1e-4 cutoff and median visit agree
+with the forward bit for bit, and rebuilds the suffix sums by subtraction
+from the forward totals, as gof_tpu does. It keeps gof_tpu's quirks
+(rasterize_pallas.py:46-53): the distortion gradient flows through the
+mapped depth m only, the median-depth gradient goes to the median visit
+only, the 0.99 alpha clamp is ignored in dop and dL/dmv, and the caller
+detaches the dilation coef. Its gradient rows cover the live windows only,
+packed at each tile's CH_CSTART, with the gaussian ids in an int32 stream.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -50,6 +66,10 @@ C_RGB = 0  # 0:3
 C_OP = 3
 C_M = 4  # 4:13 row-major
 C_U0 = 13  # 13:16
+# densification-statistics payload: conic 16:19 | mean2d 19:21 | pad 21:24
+PAYLOAD_STATS_COLS = 24
+# statistics rows of the backward: 0 gx | 1 gy | 2 |gx|+|gy| | 3:8 pad
+STAT_COLS = 8
 
 NPIX = 1024
 OUT_CH = 16
@@ -60,14 +80,23 @@ CH_LIVEC = 12
 CH_CSTART = 13
 
 FWD = cuda_lib.LaunchCounter("rasterize_fwd")
+BWD = cuda_lib.LaunchCounter("rasterize_bwd")
+# tiles per step of the plain backward: bounds its [tiles, 128, 1024]
+# temporaries to ~64 MB each at full size
+BWD_TILE_BLOCK = 128
 
 
-def build_payload16(rgb, op_eff, M, u0, binning: Binning) -> torch.Tensor:
-    """Gather per-Gaussian rows into the sorted slot layout, [16, CAP] f32.
-    Sentinel slots (id P) gather an appended zero row."""
+def build_payload16(rgb, op_eff, M, u0, binning: Binning, conic=None, mean2d=None) -> torch.Tensor:
+    """Gather per-Gaussian rows into the sorted slot layout, [16, CAP] f32,
+    or [24, CAP] with the statistics columns (conic 16:19, mean2d 19:21,
+    zero pad) when conic and mean2d are given. Sentinel slots (id P) gather
+    an appended zero row."""
     P = rgb.shape[0]
-    flat = torch.cat([rgb, op_eff[:, None], M.reshape(P, 9), u0], dim=1).to(torch.float32)
-    flat = torch.cat([flat, flat.new_zeros((1, P_COLS))], dim=0)
+    cols = [rgb, op_eff[:, None], M.reshape(P, 9), u0]
+    if conic is not None:
+        cols += [conic, mean2d, rgb.new_zeros((P, PAYLOAD_STATS_COLS - 21))]
+    flat = torch.cat(cols, dim=1).to(torch.float32)
+    flat = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))], dim=0)
     return flat[binning.slot_to_gaussian.long()].T.contiguous()
 
 
@@ -239,3 +268,332 @@ def rasterize_fwd(payload: torch.Tensor, binning: Binning, meta_vec: torch.Tenso
     cuda_lib.check(rc, "rasterize_fwd")
     FWD.launches += 1
     return _compact_layout(out, livec)
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+
+
+def compact_capacity_for(capacity: int, ntiles: int) -> int:
+    """Compact-buffer size that can never overflow (every tile fully live)."""
+    return capacity + ntiles * CHUNK_SIZE
+
+
+def _bwd_tiles(payload, fout, gout, binning, meta_vec, ntx, tids, halfw, halfh,
+               with_stats, with_reg, dslot, gidc, stats):
+    """Plain backward of tiles `tids`, window by window as [NT, 128, 1024]
+    steps; writes their gradient rows, ids and statistics in place."""
+    dev = payload.device
+    cap = payload.shape[1]
+    R = dslot.shape[1]
+    pay_rows = payload.T  # [CAP, pcols]
+    bounds = binning.bounds.to(torch.int64)
+    seg_s, seg_e = bounds[tids], bounds[tids + 1]
+    base = (seg_s // CHUNK_SIZE) * CHUNK_SIZE
+    nc = torch.where(seg_e > seg_s, (seg_e - base + CHUNK_SIZE - 1) // CHUNK_SIZE,
+                     torch.zeros_like(seg_s))
+    fo, go = fout[tids], gout[tids]
+    livec = fo[:, CH_LIVEC, 0].to(torch.int64)
+    cst = fo[:, CH_CSTART, 0].to(torch.int64)
+    avail = torch.clamp_min((R - cst) // CHUNK_SIZE, 0)
+    nc = torch.minimum(torch.minimum(nc, livec), avail)
+    n_windows = int(nc.max()) if len(tids) else 0
+    if n_windows == 0:
+        return
+
+    fx, fy = meta_vec[0, 0], meta_vec[0, 1]
+    bg0, bg1, bg2 = meta_vec[0, 2], meta_vec[0, 3], meta_vec[0, 4]
+    half_w, half_h = meta_vec[0, 5], meta_vec[0, 6]
+    lane = torch.arange(NPIX, device=dev)
+    lx = (lane % TILE_W).to(torch.float32)
+    ly = (lane // TILE_W).to(torch.float32)
+    tx = ((tids % ntx) * TILE_W).to(torch.float32)
+    ty = ((tids // ntx) * TILE_W).to(torch.float32)
+    pxc = (tx[:, None] + lx[None, :]) + 0.5
+    pyc = (ty[:, None] + ly[None, :]) + 0.5
+    rx = ((pxc - half_w) / fx)[:, None, :]  # [NT, 1, PIX]
+    ry = ((pyc - half_h) / fy)[:, None, :]
+    pxm, pym = (pxc - 0.5)[:, None, :], (pyc - 0.5)[:, None, :]
+    rxx, rxy, ryy = rx * rx, rx * ry, ry * ry
+
+    def pix(src, ch):
+        return src[:, ch][:, None, :]  # [NT, 1, PIX]
+
+    g0, g1, g2, ga = pix(go, 0), pix(go, 1), pix(go, 2), pix(go, 7)
+    T_fin, acc_tot = pix(fo, CH_TFINAL), pix(fo, 7)
+    tot = (g0 * (pix(fo, 0) - T_fin * bg0) + g1 * (pix(fo, 1) - T_fin * bg1)
+           + g2 * (pix(fo, 2) - T_fin * bg2) + ga * acc_tot)
+    if with_reg:
+        gn0, gn1, gn2 = pix(go, 3), pix(go, 4), pix(go, 5)
+        gdep, gdist = pix(go, 6), pix(go, 8)
+        d1_tot, med = pix(fo, CH_DFINAL), pix(fo, CH_MEDIDX)
+        tot = tot + (gn0 * pix(fo, 3) + gn1 * pix(fo, 4) + gn2 * pix(fo, 5))
+    t_bg = T_fin * (bg0 * g0 + bg1 * g1 + bg2 * g2)
+
+    nt = len(tids)
+    T = torch.ones((nt, NPIX), dtype=torch.float32, device=dev)
+    PwF = torch.zeros((nt, NPIX), dtype=torch.float32, device=dev)
+    rows = torch.arange(CHUNK_SIZE, device=dev)
+    for c in range(n_windows):
+        run = c < nc
+        g = base[:, None] + c * CHUNK_SIZE + rows[None, :]  # [NT, 128]
+        seg = (g >= seg_s[:, None]) & (g < seg_e[:, None]) & run[:, None]
+        p = pay_rows[torch.clamp(g, 0, cap - 1)]  # [NT, 128, pcols]
+
+        def col(k):
+            return p[..., k:k + 1]  # [NT, 128, 1]
+
+        d0 = col(4) * rx + col(5) * ry + col(6)
+        d1 = col(7) * rx + col(8) * ry + col(9)
+        d2 = col(10) * rx + col(11) * ry + col(12)
+        ud = col(13) * d0 + col(14) * d1 + col(15) * d2
+        dd = d0 * d0 + d1 * d1 + d2 * d2 + 1e-12
+        t = -ud / dd
+        v0 = col(13) + t * d0
+        v1 = col(14) + t * d1
+        v2 = col(15) + t * d2
+        mv = v0 * v0 + v1 * v1 + v2 * v2
+        E = torch.exp(-0.5 * mv)
+        op = col(3)
+        opE = op * E
+        a_raw = torch.where(opE > ALPHA_MAX, torch.full_like(opE, ALPHA_MAX), opE)
+        active = (t > NEAR_PLANE) & (a_raw >= ALPHA_MIN) & seg[..., None]
+        zero = torch.zeros_like(a_raw)
+        a = torch.where(active, a_raw, zero)
+
+        cp = torch.cumprod(torch.cat([T[:, None], 1.0 - a], dim=1), dim=1)
+        T_excl = cp[:, :CHUNK_SIZE]
+        cutoff = T_excl > TRANSMITTANCE_EPS
+        w = torch.where(active & cutoff, a * T_excl, zero)
+        F = col(0) * g0 + col(1) * g1 + col(2) * g2 + ga
+        if with_reg:
+            n0 = col(4) * d0 + col(7) * d1 + col(10) * d2
+            n1 = col(5) * d0 + col(8) * d1 + col(11) * d2
+            n2 = col(6) * d0 + col(9) * d1 + col(12) * d2
+            inv_len = torch.rsqrt(n0 * n0 + n1 * n1 + n2 * n2 + 1e-7)
+            F = F + (-n0 * inv_len) * gn0 + (-n1 * inv_len) * gn1 + (-n2 * inv_len) * gn2
+        wF = torch.where(active, w * F, zero)
+        incl = torch.cumsum(torch.cat([PwF[:, None], wF], dim=1), dim=1)[:, 1:]
+        dL_da = (torch.where(cutoff, T_excl * F, zero)
+                 - ((tot - incl) + t_bg) / (1.0 - a))
+        dop_pix = E * dL_da
+        dL_dmv = -0.5 * E * op * dL_da
+        s_mv = t * dL_dmv
+        if with_reg:
+            tc = torch.clamp_min(t, NEAR_PLANE)
+            m = _ndc_m(t)
+            dL_dm = 2.0 * w * (m * acc_tot - d1_tot) * gdist
+            # a tensor numerator: `scalar / tensor` would round twice (reciprocal, then mul)
+            dm_dt = (torch.full_like(tc, FAR_PLANE * NEAR_PLANE)
+                     / ((FAR_PLANE - NEAR_PLANE) * tc * tc))
+            glob_row = (c * CHUNK_SIZE + rows).to(torch.float32)[None, :, None]
+            dL_dt = dL_dm * dm_dt + torch.where(glob_row == med, gdep, zero)
+            q_t = dL_dt * (1.0 / dd)
+            A_ud = 2.0 * s_mv - q_t
+            A_dd = t * (s_mv - q_t)
+            dnh0, dnh1, dnh2 = w * gn0, w * gn1, w * gn2
+            dot_nh = dnh0 * n0 + dnh1 * n1 + dnh2 * n2
+            il2 = inv_len * inv_len
+            dn0 = (-dnh0 + dot_nh * n0 * il2) * inv_len
+            dn1 = (-dnh1 + dot_nh * n1 * il2) * inv_len
+            dn2 = (-dnh2 + dot_nh * n2 * il2) * inv_len
+            sig = [A_dd * rxx + dn0 * rx,
+                   2.0 * (A_dd * rxy) + (dn0 * ry + dn1 * rx),
+                   2.0 * (A_dd * rx) + (dn0 + dn2 * rx),
+                   A_dd * ryy + dn1 * ry,
+                   2.0 * (A_dd * ry) + (dn1 + dn2 * ry),
+                   A_dd + dn2]
+        else:
+            A_ud = 2.0 * s_mv
+            A_dd = t * s_mv
+            sig = [A_dd * rxx, 2.0 * (A_dd * rxy), 2.0 * (A_dd * rx), A_dd * ryy,
+                   2.0 * (A_dd * ry), A_dd]
+        terms = [w * g0, w * g1, w * g2, dop_pix, *sig,
+                 A_ud * rx, A_ud * ry, A_ud, dL_dmv]
+        if with_stats:
+            dxp = col(19) - pxm
+            dyp = col(20) - pym
+            dL_dG2 = op * dL_da
+            gx = dL_dG2 * (-E) * (col(16) * dxp + col(17) * dyp) * halfw
+            gy = dL_dG2 * (-E) * (col(17) * dxp + col(18) * dyp) * halfh
+            terms += [gx, gy, gx.abs() + gy.abs()]
+        # inactive pairs contribute nothing, whatever their payload holds
+        sums = torch.stack([torch.where(active, x, zero).sum(-1) for x in terms])  # [NS, NT, 128]
+
+        dst = (cst[:, None] + c * CHUNK_SIZE + rows[None, :])[run]  # [n_run, 128]
+        dslot[:14, dst] = sums[:14][:, run]
+        gidc[dst] = binning.slot_to_gaussian[g[run]]
+        if with_stats:
+            stats[:3, dst] = sums[14:][:, run]
+        T = cp[:, CHUNK_SIZE]
+        PwF = incl[:, CHUNK_SIZE - 1]
+
+
+def rasterize_bwd_reference(payload, fout, gout, binning: Binning, meta_vec, ntx: int,
+                            ntiles: int, halfw: float, halfh: float, with_stats: bool = True,
+                            with_reg: bool = True, compact_cap: int = 0):
+    """Plain version of the backward blend (see `rasterize_bwd`), walking
+    BWD_TILE_BLOCK tiles at a time to bound its memory."""
+    dev, dt = payload.device, payload.dtype
+    R = compact_cap or compact_capacity_for(payload.shape[1], ntiles)
+    dslot = torch.zeros((P_COLS, R), dtype=dt, device=dev)
+    gidc = torch.zeros((R,), dtype=torch.int32, device=dev)
+    stats = torch.zeros((STAT_COLS, R), dtype=dt, device=dev) if with_stats else None
+    for t0 in range(0, ntiles, BWD_TILE_BLOCK):
+        tids = torch.arange(t0, min(t0 + BWD_TILE_BLOCK, ntiles), device=dev)
+        _bwd_tiles(payload, fout, gout, binning, meta_vec, ntx, tids, halfw, halfh,
+                   with_stats, with_reg, dslot, gidc, stats)
+    return dslot, gidc, stats
+
+
+def rasterize_bwd(payload, fout, gout, binning: Binning, meta_vec, ntx: int, ntiles: int,
+                  halfw: float, halfh: float, with_stats: bool = True, with_reg: bool = True,
+                  compact_cap: int = 0):
+    """Backward blend.
+
+    payload: [16, CAP], or [24, CAP] with the statistics columns when
+    with_stats; fout: the forward's [NTILES, 16, 1024]; gout: its cotangent.
+    Returns (dslot [16, R] f32, gid [R] int32, stats [8, R] f32 or None),
+    R = compact_cap or compact_capacity_for(CAP, ntiles): each tile's live
+    windows land at the forward's CH_CSTART, one row per slot; columns past
+    the walked windows stay zero with gid 0 (a zero add in the reduction).
+    CPU tensors take `rasterize_bwd_reference`; CUDA tensors launch
+    csrc/rasterize_bwd.cu or raise.
+    """
+    if payload.device.type == "cpu":
+        return rasterize_bwd_reference(payload, fout, gout, binning, meta_vec, ntx, ntiles,
+                                       halfw, halfh, with_stats, with_reg, compact_cap)
+    pcols = PAYLOAD_STATS_COLS if with_stats else P_COLS
+    dev = payload.device
+    sg, bounds = binning.slot_to_gaussian, binning.bounds
+    cuda_lib.require(payload.is_cuda and all(x.device == dev for x in (fout, gout, meta_vec, sg,
+                                                                       bounds)),
+                     "rasterize_bwd: all tensors must share one CUDA device")
+    cuda_lib.require(all(x.dtype == torch.float32 for x in (payload, fout, gout, meta_vec))
+                     and sg.dtype == torch.int32 and bounds.dtype == torch.int32,
+                     "rasterize_bwd: dtypes")
+    cuda_lib.require(payload.dim() == 2 and payload.shape[0] == pcols
+                     and payload.shape[1] % CHUNK_SIZE == 0,
+                     f"rasterize_bwd: payload {tuple(payload.shape)} (need [{pcols}, k*128])")
+    cuda_lib.require(tuple(fout.shape) == (ntiles, OUT_CH, NPIX)
+                     and tuple(gout.shape) == (ntiles, OUT_CH, NPIX),
+                     "rasterize_bwd: fout and gout [NTILES, 16, 1024]")
+    cuda_lib.require(tuple(bounds.shape) == (ntiles + 1,) and tuple(meta_vec.shape) == (1, 8)
+                     and tuple(sg.shape) == (payload.shape[1],),
+                     "rasterize_bwd: bounds [NTILES+1], meta [1, 8], slot ids [CAP]")
+    cuda_lib.require(all(x.is_contiguous() for x in (payload, fout, gout, meta_vec, sg, bounds)),
+                     "rasterize_bwd: non-contiguous input")
+    R = compact_cap or compact_capacity_for(payload.shape[1], ntiles)
+    dslot = torch.zeros((P_COLS, R), dtype=torch.float32, device=dev)
+    gidc = torch.zeros((R,), dtype=torch.int32, device=dev)
+    stats = torch.zeros((STAT_COLS, R), dtype=torch.float32, device=dev) if with_stats else None
+    rc = cuda_lib.library().gof_rasterize_bwd(
+        dev.index, payload.data_ptr(), payload.shape[1], sg.data_ptr(), bounds.data_ptr(),
+        fout.data_ptr(), gout.data_ptr(), meta_vec.data_ptr(), ntx, ntiles, float(halfw),
+        float(halfh), int(with_stats), int(with_reg), R, dslot.data_ptr(), gidc.data_ptr(),
+        stats.data_ptr() if with_stats else None, cuda_lib.stream_ptr(payload))
+    cuda_lib.check(rc, "rasterize_bwd")
+    BWD.launches += 1
+    return dslot, gidc, stats
+
+
+def reduce_compact_rows(dslot, gidc, stats, P: int):
+    """Per-gaussian sums of the compacted gradient rows: ([P, 16], [P, 3] or
+    None), through one reduction over the 16 (+8) columns (ops/reduce.py)."""
+    from .reduce import reduce_rows_by_gid
+
+    rows = dslot if stats is None else torch.cat([dslot, stats], dim=0)
+    per = reduce_rows_by_gid(rows, gidc, P)
+    return per[:, :P_COLS], (None if stats is None else per[:, P_COLS:P_COLS + 3])
+
+
+def quadric_chain(per_g, M, u0):
+    """Per-gaussian chain from the quadric invariants back to the factored
+    form (gof_tpu's _raster_bwd, rasterize_pallas.py:1018-1039):
+      Sigma = M^T M:  dM_ab += sum_k M_ak H_kb,
+        H = [[2 s0, s1, s2], [s1, 2 s3, s4], [s2, s4, 2 s5]]
+      b = M^T u0:     dM_ab += u0_a db_b,   du0 += M db
+      uu = u0 . u0:   du0 += 2 duu u0
+    per_g: [P, 16] reduced rows. Returns (dM [P, 3, 3], du0 [P, 3])."""
+    sp = [per_g[:, 4 + i] for i in range(6)]
+    db = [per_g[:, 10 + i] for i in range(3)]
+    duu = per_g[:, 13]
+    H = ((2.0 * sp[0], sp[1], sp[2]),
+         (sp[1], 2.0 * sp[3], sp[4]),
+         (sp[2], sp[4], 2.0 * sp[5]))
+    Mc = [[M[:, a, k] for k in range(3)] for a in range(3)]
+    dM = torch.stack(
+        [torch.stack([Mc[a][0] * H[0][bc] + Mc[a][1] * H[1][bc] + Mc[a][2] * H[2][bc]
+                      + u0[:, a] * db[bc] for bc in range(3)], dim=-1)
+         for a in range(3)], dim=-2)
+    du0 = torch.stack([Mc[a][0] * db[0] + Mc[a][1] * db[1] + Mc[a][2] * db[2]
+                       + 2.0 * duu * u0[:, a] for a in range(3)], dim=-1)
+    return dM, du0
+
+
+class RasterMeta(NamedTuple):
+    """Static rasterization settings (gof_tpu's RasterMeta without the TPU's
+    interpret flag and static compact capacity)."""
+
+    ntx: int
+    nty: int
+    width: int
+    height: int
+    with_stats: bool = True  # statistics columns in the payload and backward
+    with_reg: bool = True  # regularizer channels (normals, depth, distortion)
+
+
+class RasterizeFn(torch.autograd.Function):
+    """Differentiable tiled rasterization -> [NTILES, 16, 1024].
+
+    Backward (gof_tpu's _raster_bwd): the backward blend, the per-gaussian
+    reduction and the quadric chain give (drgb, dop, dM, du0); `carrier`
+    receives the densification statistics (gx, gy, |gx|+|gy|) and conic,
+    mean2d, the focal lengths and bg get zero cotangent. The compact buffer
+    is sized to the forward's compact demand, read to the host once.
+    """
+
+    @staticmethod
+    def forward(ctx, meta: RasterMeta, rgb, op_eff, M, u0, conic, mean2d, carrier, focal_x,
+                focal_y, bg, binning: Binning):
+        P = rgb.shape[0]
+        mv = _meta_vec(focal_x, focal_y, bg, meta.width, meta.height)
+        payload = build_payload16(rgb, op_eff, M, u0, binning,
+                                  conic=conic if meta.with_stats else None,
+                                  mean2d=mean2d if meta.with_stats else None)
+        out = rasterize_fwd(payload, binning, mv, meta.ntx, meta.ntx * meta.nty,
+                            with_reg=meta.with_reg)
+        ctx.meta, ctx.binning, ctx.P = meta, binning, P
+        ctx.save_for_backward(payload, out, mv, M, u0)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        payload, fout, mv, M, u0 = ctx.saved_tensors
+        meta, P = ctx.meta, ctx.P
+        ntiles = meta.ntx * meta.nty
+        last = fout[ntiles - 1]
+        demand = int(last[CH_CSTART, 0] + last[CH_LIVEC, 0] * CHUNK_SIZE)  # host read
+        dslot, gidc, stats = rasterize_bwd(
+            payload, fout, gout.contiguous(), ctx.binning, mv, meta.ntx, ntiles,
+            meta.width / 2.0, meta.height / 2.0, with_stats=meta.with_stats,
+            with_reg=meta.with_reg, compact_cap=max(demand, CHUNK_SIZE))
+        per_g, per_s = reduce_compact_rows(dslot, gidc, stats, P)
+        dM, du0 = quadric_chain(per_g, M, u0)
+        dev = M.device
+        dcarrier = per_s if per_s is not None else torch.zeros((P, 3), device=dev)
+        return (None, per_g[:, 0:3], per_g[:, 3], dM, du0,
+                torch.zeros((P, 3), device=dev), torch.zeros((P, 2), device=dev), dcarrier,
+                None, None, None, None)
+
+
+def rasterize(meta: RasterMeta, rgb, op_eff, M, u0, conic, mean2d, carrier, focal_x, focal_y,
+              bg, binning: Binning) -> torch.Tensor:
+    """Differentiable tiled rasterization -> [NTILES, 16, 1024] (gof_tpu's
+    `rasterize`, rasterize_pallas.py:966, same argument list).
+
+    carrier: [P, 3] zeros whose gradient carries the densification
+    statistics (the reference's screenspace_points trick)."""
+    return RasterizeFn.apply(meta, rgb, op_eff, M, u0, conic, mean2d, carrier, focal_x,
+                             focal_y, bg, binning)

@@ -1,8 +1,10 @@
-"""High-level render API (counterpart of gof_tpu/ops/render.py), forward only.
+"""High-level render API (counterpart of gof_tpu/ops/render.py).
 
 preprocess -> tile rects -> bin_gaussians (class-expansion kernel + sorts)
--> payload gather -> forward blend kernel -> assemble. Gradients come with
-the backward kernel; until then `render` runs under `torch.no_grad()`.
+-> rasterize (payload gather, forward blend kernel; backward blend kernel,
+per-gaussian reduce kernel and quadric chain in its autograd backward)
+-> assemble. Differentiable in means3d, scales, rotations, opacities, shs
+and the densification carrier; serving calls it under `torch.no_grad()`.
 """
 
 from __future__ import annotations
@@ -41,7 +43,6 @@ class RenderOut:
     live_demand: Optional[torch.Tensor] = None
 
 
-@torch.no_grad()
 def render(
     camera: cameras_lib.Camera,
     means3d: torch.Tensor,
@@ -52,27 +53,46 @@ def render(
     sh_degree: int,
     kernel_size: float,
     bg: torch.Tensor,
+    carrier: Optional[torch.Tensor] = None,
     active_mask: Optional[torch.Tensor] = None,
+    with_stats: bool = True,
     with_reg: bool = True,
 ) -> RenderOut:
     """Render one view. All tensors live on the camera's device; CUDA
-    tensors run the CUDA kernels, CPU tensors their plain versions."""
+    tensors run the CUDA kernels, CPU tensors their plain versions.
+
+    carrier: [P, 3] zeros whose gradient receives the densification
+      statistics (the reference's screenspace_points trick); created if None.
+    with_stats: carry the statistics columns through the payload and the
+      backward (the training step turns it off after densification).
+    with_reg: compute the regularizer channels (normals, median depth,
+      distortion) and their gradients; without it they render as zeros and
+      must receive no cotangent.
+    """
     pre = quadrics.preprocess(means3d, scales, rotations, shs, sh_degree, camera, kernel_size,
                               active_mask, opacities=opacities)
     ntx, nty = binning.tile_grid(camera.width, camera.height)
     ntiles = ntx * nty
     rects = binning.gaussian_rects(pre.mean2d, pre.radius, pre.valid, ntx, nty,
                                    radius_xy=pre.radius_xy)
-    op_eff = opacities * torch.where(pre.valid, pre.coef, torch.zeros_like(pre.coef))
-    b = binning.bin_gaussians(pre.depth, rects, ntx, nty, mean2d=pre.mean2d, radius=pre.radius)
-    payload = rz.build_payload16(pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0, b)
-    meta = rz._meta_vec(camera.focal_x, camera.focal_y, bg, camera.width, camera.height)
-    tile_out = rz.rasterize_fwd(payload, b, meta, ntx, ntiles, with_reg=with_reg)
+    # The 2D-dilation compensation is detached, as in gof_tpu (its cov2D
+    # backward is disabled in the reference, backward.cu:991-1007).
+    coef = pre.coef.detach()
+    op_eff = opacities * torch.where(pre.valid, coef, torch.zeros_like(coef))
+    with torch.no_grad():  # integer work; it views the depths' bits as int32
+        b = binning.bin_gaussians(pre.depth, rects, ntx, nty, mean2d=pre.mean2d,
+                                  radius=pre.radius)
+    if carrier is None:
+        carrier = means3d.new_zeros((means3d.shape[0], 3))
+    meta = rz.RasterMeta(ntx=ntx, nty=nty, width=camera.width, height=camera.height,
+                         with_stats=with_stats, with_reg=with_reg)
+    tile_out = rz.rasterize(meta, pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0, pre.conic,
+                            pre.mean2d, carrier, camera.focal_x, camera.focal_y, bg, b)
 
-    last = tile_out[ntiles - 1]
+    last = tile_out[ntiles - 1].detach()
     compact_demand = (last[rz.CH_CSTART, 0] + last[rz.CH_LIVEC, 0] * rz.CHUNK_SIZE).to(torch.int32)
     full = tiled_ref.assemble_image(tile_out, ntx, nty, camera.width, camera.height)
-    radii = torch.where(pre.valid, pre.radius, torch.zeros_like(pre.radius))
+    radii = torch.where(pre.valid, pre.radius, torch.zeros_like(pre.radius)).detach()
     dev = means3d.device
     false = torch.zeros((), dtype=torch.bool, device=dev)
     return RenderOut(

@@ -23,10 +23,13 @@ def save_png(path: str, img_chw: np.ndarray) -> None:
     Image.fromarray((arr.transpose(1, 2, 0) * 255 + 0.5).astype(np.uint8)).save(path)
 
 
+@torch.no_grad()
 def render_eval(gauss, gstate, camera, model_cfg, bg):
-    """Full-degree eval render of one view (gof_tpu train.py:1164-1200).
-    Buffers are sized to each view's demand, so there is no overflow to
-    retry. Returns the RenderOut."""
+    """Full-degree eval render of one view (gof_tpu train.py:1164-1200),
+    building no autograd graph. Buffers are sized to each view's demand, so
+    there is no overflow to retry. The densification statistics feed only
+    the backward, so their payload columns are left out. Returns the
+    RenderOut."""
     from .model import gaussians as gm
     from .ops import render as render_lib
 
@@ -34,6 +37,7 @@ def render_eval(gauss, gstate, camera, model_cfg, bg):
         camera, gauss.xyz, gm.filtered_scaling(gauss, gstate.filter_3d), gauss.rotation,
         gm.filtered_opacity(gauss, gstate.filter_3d), gm.get_features(gauss),
         model_cfg.sh_degree, model_cfg.kernel_size, bg, active_mask=gstate.active,
+        with_stats=False,
     )
 
 

@@ -1,0 +1,83 @@
+"""The per-gaussian reduction's plain version against gof_tpu's.
+
+`reduce_rows_by_gid` (CPU tensors: the plain scatter-add) against the Pallas
+`sorted_segment_reduce` in interpret mode, fed id-sorted rows as gof_tpu's
+`reduce_rows_by_gid` feeds it, and against `jax.ops.segment_sum`, on the
+shapes of tests/test_reduce.py, an all-sentinel input and unsorted sparse
+ids. Tolerance rtol = atol = 1e-5, as tests/test_reduce.py holds the kernel
+to segment_sum (the three sum in different orders).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gof_tpu.ops import reduce as red
+from gof_tpu_torch.ops import reduce as tred
+
+torch.set_num_threads(2)
+
+
+def case(R, P, seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, P + 1, R)  # includes the sentinel P
+    rng.shuffle(ids)
+    return rng.normal(size=(24, R)).astype(np.float32), ids.astype(np.int32)
+
+
+def sparse_case():
+    R, P = 6144, 300_000
+    rng = np.random.default_rng(0)
+    ids = np.concatenate([rng.integers(0, 50, R // 3), rng.integers(P - 40, P, R // 3),
+                          rng.integers(0, P + 1, R - 2 * (R // 3))]).astype(np.int32)
+    rng.shuffle(ids)
+    return rng.normal(size=(16, R)).astype(np.float32), ids, P
+
+
+def jax_refs(rows, ids, P):
+    seg = np.asarray(jax.ops.segment_sum(jnp.asarray(rows).T, jnp.asarray(ids),
+                                         num_segments=P + 1)[:P])
+    R = rows.shape[1]
+    ids_sorted, perm = jax.lax.sort((jnp.asarray(ids), jnp.arange(R, dtype=jnp.int32)),
+                                    num_keys=1)
+    out = red.sorted_segment_reduce(jnp.asarray(rows).T[perm].T, ids_sorted, P, interpret=True)
+    return seg, np.asarray(out[:, :P]).T
+
+
+@pytest.mark.parametrize("R,P", [(2048, 100), (4096, 5000), (8192, 63)])
+def test_reduce_matches_gof_tpu(R, P):
+    rows, ids = case(R, P, seed=R + P)
+    got = tred.reduce_rows_by_gid(torch.from_numpy(rows), torch.from_numpy(ids), P)
+    assert tuple(got.shape) == (P, 24)
+    seg, kern = jax_refs(rows, ids, P)
+    np.testing.assert_allclose(got.numpy(), seg, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), kern, rtol=1e-5, atol=1e-5)
+
+
+def test_reduce_unsorted_sparse_ids():
+    rows, ids, P = sparse_case()
+    got = tred.reduce_rows_by_gid(torch.from_numpy(rows), torch.from_numpy(ids), P)
+    seg, kern = jax_refs(rows, ids, P)
+    np.testing.assert_allclose(got.numpy(), seg, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), kern, rtol=1e-5, atol=1e-5)
+    # the sparse middle: at most its 2048 rows' ids receive anything
+    assert (np.abs(got.numpy()[50:P - 40]).sum(1) != 0).sum() <= 2048
+
+
+def test_reduce_all_sentinel():
+    R, P = 2048, 777
+    rows = torch.from_numpy(np.random.default_rng(1).normal(size=(16, R)).astype(np.float32))
+    got = tred.reduce_rows_by_gid(rows, torch.full((R,), P, dtype=torch.int32), P)
+    assert tuple(got.shape) == (P, 16) and float(got.abs().max()) == 0.0
+
+
+def test_reduce_counts_no_cpu_launch_and_refuses_other_devices():
+    rows, ids = case(2048, 100, 0)
+    before = tred.REDUCE.launches
+    tred.reduce_rows_by_gid(torch.from_numpy(rows), torch.from_numpy(ids), 100)
+    assert tred.REDUCE.launches == before
+    with pytest.raises(ValueError):
+        tred.reduce_rows_by_gid(torch.from_numpy(rows).to("meta"),
+                                torch.from_numpy(ids).to("meta"), 100)
