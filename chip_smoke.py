@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Build and drive gof_tpu_torch's serving and training paths once on one
-CUDA GPU.
+"""Build and drive gof_tpu_torch's serving, training and mesh-extraction
+paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -25,7 +25,17 @@ CUDA GPU.
    12 steps (statistics on throughout, the regularizers from step 7), evals
    and saves the PLY; the four kernels' launch counts over that run, the
    losses, the log and the PLY are checked, and render_cli serves the PLY;
-7. the bench design point: bench.py's model, look-at camera and seeded
+7. mesh: gof_tpu_torch.extract_mesh.main(["-m", trained, "--texture_mesh"])
+   extracts the level-set mesh of that PLY over its 8 training views (the
+   serving model instead if the trained field crosses 0.5 nowhere): counts,
+   stage seconds and the launch counts of K5, K2 and K1 over that run; the
+   mesh is non-empty and finite and the field at its vertices inside every
+   view lies near 0.5 (gof_tpu's e2e bound). K5 is held against its plain
+   version at one view with all the tetra points (max |err| <= 1e-6,
+   bit-identical across launches, unprojected points exactly 1) and timed;
+   the mesh of a small known scene on the card is held against the plain
+   CPU path, and the field at all its vertices to gof_tpu's bound;
+8. the bench design point: bench.py's model, look-at camera and seeded
    random ground truth, through the port's build_train_step in bench's two
    phases (statistics on, regularizers off, step 5000; statistics off,
    regularizers on, step 20000): the median step time, the time of each
@@ -33,8 +43,9 @@ CUDA GPU.
    torch.profiler, and all four kernels held against their plain versions
    at that view's shapes (K3's gaussian-id stream exactly; K3 and K4
    bit-identical across two launches), each timed beside its plain version;
-8. print the kernels' JSON line, the card's name and power limit, and as
-   the last line {"ok": true, "device": {...}}.
+9. print the kernels' JSON line (the four of the first bench phase and
+   K5), the card's name and power limit, and as the last line
+   {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, if there is no CUDA device, if any
 kernel fails to build or launch, or if any check fails. Needs no network.
@@ -554,6 +565,207 @@ def serve_trained(out: str) -> None:
     print(f"served the trained PLY: {len(pngs)} views, ms {[round(s['ms'], 2) for s in stats]}")
 
 
+# ---------------------------------------------------------------------------
+# Mesh extraction
+# ---------------------------------------------------------------------------
+
+
+def load_model(model: str, device: str):
+    """A model directory's gaussians, training cameras and camera meta on
+    `device`, as extract_mesh.main loads them."""
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch.data import scene as scene_lib
+
+    cfg, _, _ = config_lib.load_cfg(model)
+    pc = os.path.join(model, "point_cloud")
+    it = max(int(d.split("_")[1]) for d in os.listdir(pc))
+    sc = scene_lib.Scene(cfg.source_path, "", shuffle=False)
+    g, s = scene_lib.load_gaussians_ply(
+        os.path.join(pc, f"iteration_{it}", "point_cloud.ply"), cfg.sh_degree, device=device)
+    cams = [sc.camera(c, device=device)[0] for c in sc.train_cameras]
+    return cfg, g, s, cams, sc.all_cameras_meta(sc.train_cameras, device=device)
+
+
+def image_margin(points: np.ndarray, cams) -> np.ndarray:
+    """Per point, the least distance in pixels to the border of any view's
+    image (negative outside an image or behind a camera)."""
+    from gof_tpu_torch.transforms import ndc_to_pixel, project_points
+
+    p = torch.from_numpy(np.asarray(points, np.float32)).to(cams[0].world_view.device)
+    out = torch.full((p.shape[0],), float("inf"), device=p.device)
+    for c in cams:
+        ndc = project_points(p, c.full_proj)
+        px, py = ndc_to_pixel(ndc[:, 0], c.width), ndc_to_pixel(ndc[:, 1], c.height)
+        m = torch.minimum(torch.minimum(px, c.width - px), torch.minimum(py, c.height - py))
+        z = p @ c.world_view[2, :3] + c.world_view[2, 3]
+        out = torch.minimum(out, torch.where(z > 1e-4, m, torch.full_like(m, -1.0)))
+    return out.cpu().numpy()
+
+
+def mesh_entry(model: str, device: str = "cuda"):
+    """The mesh path through its entry point, extract_mesh.main, with K5's,
+    K2's and K1's launch counts over exactly that run; then the mesh and
+    the field at its vertices are checked. Returns (result, launches), or
+    (result, None) when the field crosses 0.5 nowhere."""
+    from gof_tpu_torch import extract_mesh
+    from gof_tpu_torch.mesh import extract
+    from gof_tpu_torch.ops import class_gather, integrate, rasterize
+    from gof_tpu_torch.utils import ply
+
+    counters = (integrate.INTEGRATE, class_gather.EXPAND, rasterize.FWD)
+    for k in counters:
+        k.launches = 0
+    argv = ["-m", model, "--texture_mesh"] + (["--cpu"] if device == "cpu" else [])
+    t0 = time.perf_counter()
+    res = extract_mesh.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in counters}
+    print(f"mesh: extract_mesh.main in {wall:.2f} s (model and scene load included); "
+          f"launches {launches}")
+    print(f"  tetra points {res['tetra_points']}, tets {res['tets']}, crossing edges "
+          f"{res['crossing_edges']}, faces {res['faces']}, vertices {res['vertices']}")
+    print("  stage s: " + ", ".join(f"{k} {v:.3f}" for k, v in res["seconds"].items()))
+    if res["crossing_edges"] == 0:
+        return res, None
+
+    cfg, g, s, cams, _ = load_model(model, device)
+    verts, faces = ply.read_ply(res["path"])
+    v = np.stack([verts["x"], verts["y"], verts["z"]], -1)
+    finite = bool(np.isfinite(v).all())
+    dev_a = np.abs(extract.FieldEvaluator(g, s, cams, cfg.sh_degree, cfg.kernel_size).alpha(v)
+                   - 0.5)
+    # A point outside any training view's image has T = 1 there, so the field
+    # jumps to 1 at every view's image border: bisection converges onto that
+    # wall, where the field takes no value near 0.5. gof_tpu's bound is held
+    # at the vertices at least one pixel inside every view.
+    interior = image_margin(v, cams) >= 1.0
+    q90_all = float(np.quantile(dev_a, 0.9))
+    q90 = float(np.quantile(dev_a[interior], 0.9)) if interior.any() else 1.0
+    print(f"  mesh check: {len(faces)} faces, {len(v)} vertices, all finite {finite}; field at "
+          f"the vertices, 0.9-quantile of |alpha - 0.5|: {q90_all:.4f} at all, {q90:.4f} "
+          f"(bound 0.15) at the {int(interior.sum())} vertices >= 1 px inside every view "
+          f"(median {float(np.median(dev_a[interior])) if interior.any() else 1.0:.4f})")
+    if not (len(faces) > 0 and finite and interior.sum() >= 100 and q90 < 0.15):
+        raise RuntimeError("extracted mesh fails its checks")
+    if device == "cuda":
+        need = {"integrate": len(cams) * (1 + 8), "expand": len(cams), "rasterize_fwd": len(cams)}
+        low = {k: (launches[k], n) for k, n in need.items() if launches[k] < n}
+        if low:
+            raise RuntimeError(f"kernels launched fewer times than the mesh path needs: {low}")
+    return res, launches
+
+
+def check_integrate(model: str, launches) -> dict:
+    """K5 against its plain version at full size: one training view of the
+    model and all of its tetra points."""
+    from gof_tpu_torch.mesh import extract
+    from gof_tpu_torch.ops import integrate as ti
+
+    cfg, g, s, cams, meta = load_model(model, "cuda")
+    pts, _ = extract.get_tetra_points(g, s, meta)
+    ev = extract.FieldEvaluator(g, s, cams, cfg.sh_degree, cfg.kernel_size)
+    p = torch.from_numpy(pts).cuda()
+    payload, b, pb = ev.view_inputs(p, cams[0])
+    n = p.shape[0]
+    got = ti.integrate_transmittance(payload, b, pb, n)
+    again = ti.integrate_transmittance(payload, b, pb, n)
+    want = ti.integrate_transmittance_reference(payload, b, pb, n)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    identical = int((got == want).sum())
+    same = torch.equal(got, again)
+    binned = torch.zeros(n + 1, dtype=torch.bool, device="cuda")
+    binned[pb.point_of_slot.long()] = True
+    unproj = ~binned[:n]
+    unproj_ok = bool((got[unproj] == 1).all())
+    pairs = int(((b.bounds[pb.block_tile.long() + 1] - b.bounds[pb.block_tile.long()])
+                 .to(torch.int64) * ti.PBLOCK).sum())
+    print(f"integrate: {n} tetra points of view 0, payload {tuple(payload.shape)}, "
+          f"{pb.n_blocks} point blocks, {pairs} (point slot, gaussian row) pairs: max |err| "
+          f"{err:.3e} (bound 1e-6), {identical}/{n} points bit-identical; bit-identical across "
+          f"launches {same}; {int(unproj.sum())} unprojected points exactly 1: {unproj_ok}; "
+          f"min T {float(got.min()):.4f}")
+    if err > 1e-6 or not same or not unproj_ok:
+        raise RuntimeError("integrate kernel disagrees with its plain version")
+    ms = cuda_ms(lambda: ti.integrate_transmittance(payload, b, pb, n), 10)
+    plain_ms = cuda_ms(lambda: ti.integrate_transmittance_reference(payload, b, pb, n), 3)
+    print(f"integrate: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"name": "integrate", "route": "cuda", "source": "gof_tpu_torch/csrc/integrate.cu",
+            "replaces": "gof_tpu/ops/integrate.py:113", "launches": launches["integrate"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_small_mesh(device: str = "cuda", steps: int = 4) -> None:
+    """The mesh of test_mesh_from_known_gaussians' scene (8 gaussians, 6
+    views at 64x64) on `device` against the plain CPU path, both fed the
+    same tetra points: the same crossing edges and faces, and >= 99% of the
+    vertices within one final bisection interval, once no tetra point's
+    field lies within 1e-4 of 0.5 on either path."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from gof_tpu_torch import cameras
+    from gof_tpu_torch.mesh import extract, tetmesh
+    from gof_tpu_torch.model import gaussians as gm
+    from gof_tpu_torch.utils import ply
+
+    rng = np.random.default_rng(0)
+    n = 8
+    means = rng.normal(size=(n, 3)).astype(np.float32) * 0.4
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    z = np.zeros((n,), np.float32)
+    params = SimpleNamespace(xyz=means, features_dc=np.zeros((n, 1, 3), np.float32),
+                             features_rest=np.zeros((n, 0, 3), np.float32),
+                             scaling=np.log(np.full((n, 3), 0.25, np.float32)),
+                             rotation=q.astype(np.float32),
+                             opacity=np.full((n,), np.log(0.95 / 0.05), np.float32))
+    state = SimpleNamespace(active=np.ones((n,), bool), filter_3d=z + 1e-4, max_radii2d=z,
+                            grad_accum=z, grad_abs_accum=z, denom=z)
+    eyes = [(3.0 * np.sin(a), 1.0, 3.0 * np.cos(a))
+            for a in np.linspace(0, 2 * np.pi, 6, endpoint=False)]
+    runs = {}
+    root = tempfile.mkdtemp(prefix="gof_small_mesh_")
+    try:
+        for d in ("cpu", device):
+            g, s = gm.from_numpy(params, state, d)
+            cams = [cameras.look_at_camera(eye=e, target=(0, 0, 0), width=64, height=64,
+                                           uid=i, device=d) for i, e in enumerate(eyes)]
+            meta = (torch.stack([c.world_view for c in cams]),
+                    torch.stack([c.focal_x for c in cams]), torch.stack([c.focal_y for c in cams]),
+                    torch.full((6,), 64.0, device=d), torch.full((6,), 64.0, device=d))
+            if d == "cpu":
+                pts, pscale = extract.get_tetra_points(g, s, meta)
+            alpha = extract.FieldEvaluator(g, s, cams, 0, 0.1).alpha(pts)
+            with mock.patch.object(extract, "get_tetra_points", lambda *a, **k: (pts, pscale)):
+                res = extract.extract_level_set_mesh(g, s, cams, meta, os.path.join(root, d),
+                                                     sh_degree=0, kernel_size=0.1,
+                                                     n_binary_steps=steps, quiet=True)
+            verts, faces = ply.read_ply(res["path"])
+            v = np.stack([verts["x"], verts["y"], verts["z"]], -1)
+            q90 = float(np.quantile(np.abs(extract.FieldEvaluator(g, s, cams, 0, 0.1).alpha(v)
+                                           - 0.5), 0.9))
+            runs[d] = (alpha, v, faces, q90)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    (a_cpu, v_cpu, f_cpu, _), (a_dev, v_dev, f_dev, q90) = runs["cpu"], runs[device]
+    margin = float(min(np.abs(a_cpu - 0.5).min(), np.abs(a_dev - 0.5).min()))
+    mt = tetmesh.marching_tetrahedra(pts, extract.delaunay(pts), a_cpu - 0.5, pscale)
+    interval = float(np.linalg.norm(mt["edge_points"][:, 0] - mt["edge_points"][:, 1],
+                                    axis=-1).min()) / 2**steps
+    same_faces = ({tuple(f) for f in f_cpu.tolist()} == {tuple(f) for f in f_dev.tolist()}
+                  and len(f_cpu) == len(f_dev))
+    frac = (float(np.mean(np.abs(v_cpu - v_dev).max(axis=-1) <= interval))
+            if v_cpu.shape == v_dev.shape else 0.0)
+    print(f"small mesh, {device} vs plain CPU path: {len(pts)} tetra points, min |alpha - 0.5| "
+          f"{margin:.3e}, field max |diff| {float(np.abs(a_cpu - a_dev).max()):.3e}; faces "
+          f"{len(f_dev)} vs {len(f_cpu)}, same face set {same_faces}; {frac:.4f} of vertices "
+          f"within one final interval ({interval:.3e}); field at the {device} vertices: "
+          f"0.9-quantile of |alpha - 0.5| {q90:.4f} (bound 0.15)")
+    if not (margin > 1e-4 and same_faces and frac >= 0.99 and len(f_cpu) > 0 and q90 < 0.15):
+        raise RuntimeError("CUDA mesh disagrees with the plain CPU path")
+
+
 def bench_state():
     """bench.py's bench_config inputs on the card: make_state's model (seed
     1), the look-at camera, a seeded random ground truth."""
@@ -812,6 +1024,17 @@ def main() -> None:
         trained = os.path.join(root, "trained")
         launches, _, _ = train_entry(src, trained, xyz0)
         serve_trained(trained)
+        mesh_model = trained
+        _, mesh_launches = mesh_entry(trained)
+        if mesh_launches is None:
+            print("mesh: the trained model's field crosses 0.5 nowhere; extracting the "
+                  "serving model instead")
+            mesh_model = model
+            _, mesh_launches = mesh_entry(model)
+            if mesh_launches is None:
+                raise RuntimeError("the serving model's field crosses 0.5 nowhere either")
+        integrate_kernel = check_integrate(mesh_model, mesh_launches)
+        check_small_mesh()
         ins = bench_phase("densify", True, False, 5000, launches)
         print("  kernels against their plain versions at this view's shapes:")
         kernels = train_kernels(ins, True, False, launches)
@@ -821,7 +1044,7 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"render ms per view: {[s['ms'] for s in stats]}")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + [integrate_kernel]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

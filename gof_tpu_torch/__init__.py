@@ -10,9 +10,10 @@ kernel wrapper runs the kernel's plain PyTorch version instead.
 Ported so far: the serving path (constants, transforms, sh, cameras,
 config, model.gaussians, utils.ply, data.{colmap,readers,scene},
 ops.{quadrics,class_gather,binning,rasterize,tiled_ref,render}, render_cli)
-and one training step with its host loop (ops.{rasterize backward, reduce,
-blend, knn}, utils.{losses,schedules}, train). This package never imports
-jax or gof_tpu.
+one training step with its host loop (ops.{rasterize backward, reduce,
+blend, knn}, utils.{losses,schedules}, train) and opacity-field mesh
+extraction (ops.integrate, mesh.{tetmesh,extract}, extract_mesh). This
+package never imports jax or gof_tpu.
 """
 
 __version__ = "0.1.0"

@@ -12,6 +12,10 @@ is sized from the real demand with one host read per view (as the original
 CUDA code reads `num_rendered`), rounded up to CHUNK_SIZE, so nothing
 overflows and `overflow` is always a False tensor. The 3-key sort is two
 stable torch sorts: by id, then by the int64 key (tile << 32) + depth bits.
+
+`bin_items_aligned` bins items that touch one tile each (the integrate
+path's query points) into block-aligned segments, in gof_tpu's order, with
+its slot array likewise sized to the demand.
 """
 
 from __future__ import annotations
@@ -205,4 +209,62 @@ def bin_gaussians(depth, rects: TileRect, ntx: int, nty: int,
         num_keys=num_keys,
         overflow=torch.zeros((), dtype=torch.bool, device=depth.device),
         num_slots=torch.tensor(ex.num_slots, device=depth.device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Block-aligned relayout (point-integration path only)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class AlignedBins:
+    """Per-tile item lists padded to `block`-aligned segments (the point side
+    of the integrate kernel, where each tile's query points fill whole
+    1024-point blocks). Sized to the demand: the slot array holds exactly
+    sum(tile_blocks) * block slots."""
+
+    slot_to_item: torch.Tensor  # [CAP_PAD] int32, == N for padding
+    tile_start: torch.Tensor  # [NTILES] int32 block-aligned segment starts
+    tile_blocks: torch.Tensor  # [NTILES] int32 number of blocks
+    num_keys: torch.Tensor  # 0-d int: items that lie in a tile
+    overflow: torch.Tensor  # 0-d bool, always False (no static capacity)
+
+
+def aligned_capacity(capacity: int, ntiles: int, block: int) -> int:
+    """Slots that `capacity` items can need once every tile's segment is
+    padded to whole blocks (gof_tpu's static bound)."""
+    cap_pad = capacity + ntiles * (block - 1)
+    return -(-cap_pad // block) * block
+
+
+def bin_items_aligned(tile_of_item: torch.Tensor, ntiles: int, block: int) -> AlignedBins:
+    """Bin items that each touch exactly one tile (tile id `ntiles` =
+    invalid) into block-padded segments, item ids ascending inside a tile as
+    gof_tpu's stable sort leaves them. The slot count is read to the host
+    once."""
+    dev = tile_of_item.device
+    N = tile_of_item.shape[0]
+    tile = tile_of_item.to(torch.int64)
+    valid = tile < ntiles
+    tile_sorted, item_sorted = torch.sort(tile, stable=True)
+    bounds = torch.searchsorted(tile_sorted, torch.arange(ntiles + 1, device=dev), side="left")
+    seg_start = bounds[:-1]
+    seg_len = bounds[1:] - seg_start
+    blocks = -(-seg_len // block)
+    pad_start = torch.cumsum(blocks * block, 0) - blocks * block
+    cap_pad = int(blocks.sum()) * block  # the one host read
+
+    f = torch.arange(cap_pad, device=dev)
+    t = torch.searchsorted(pad_start, f, side="right") - 1
+    local = f - pad_start[t]
+    in_seg = local < seg_len[t]
+    src = torch.clamp(seg_start[t] + local, max=max(N - 1, 0))
+    slot_to_item = torch.where(in_seg, item_sorted[src], N)
+    return AlignedBins(
+        slot_to_item=slot_to_item.to(torch.int32),
+        tile_start=pad_start.to(torch.int32),
+        tile_blocks=blocks.to(torch.int32),
+        num_keys=valid.sum(),
+        overflow=torch.zeros((), dtype=torch.bool, device=dev),
     )

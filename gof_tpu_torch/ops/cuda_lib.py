@@ -25,7 +25,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("expand.cu", "rasterize_fwd.cu", "rasterize_bwd.cu", "reduce.cu")
+SOURCES = ("expand.cu", "rasterize_fwd.cu", "rasterize_bwd.cu", "reduce.cu", "integrate.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "gof_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -49,6 +49,10 @@ _SIGNATURES = {
     # device, rows, R, C, perm, starts, P, out, stream
     "gof_reduce": (ctypes.c_int, _PTR, ctypes.c_longlong, ctypes.c_int, _PTR, _PTR,
                    ctypes.c_longlong, _PTR, _PTR),
+    # device, payload, cap, seg_s, seg_e, n_blocks, rays, nslots, point_of_slot, n_points, out,
+    # stream
+    "gof_integrate": (ctypes.c_int, _PTR, ctypes.c_longlong, _PTR, _PTR, ctypes.c_int, _PTR,
+                      ctypes.c_longlong, _PTR, ctypes.c_longlong, _PTR, _PTR),
 }
 
 

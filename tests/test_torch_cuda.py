@@ -324,3 +324,99 @@ def test_train_step_cuda_matches_cpu(dev):
         a, b = getattr(gg, f).cpu(), getattr(gw, f)
         assert float((a - b).abs().max()) <= BWD_BOUND * float(b.abs().max()), f
     assert torch.equal(gg.denom.cpu(), gw.denom)
+
+
+# ---------------------------------------------------------------------------
+# K5 integrate and the mesh path
+# ---------------------------------------------------------------------------
+
+
+def field_inputs(dev, n=3000, n_points=40_000, width=200, height=150, seed=5):
+    """The integrate kernel's inputs for one view (FieldEvaluator.view_inputs)
+    and the field evaluator itself: random points in front of the camera,
+    plus some behind it and some outside the image."""
+    from gof_tpu_torch.mesh import extract
+    from gof_tpu_torch.model import gaussians as gm
+
+    (xyz, scales, rots, op, shs), cam = scene(n, width, height, seed=seed)
+    z = torch.zeros(n)
+    params = gm.GaussianParams(xyz=xyz.to(dev), features_dc=shs[:, :1].to(dev),
+                               features_rest=shs[:, 1:].to(dev),
+                               scaling=torch.log(scales).to(dev), rotation=rots.to(dev),
+                               opacity=torch.logit(op).to(dev))
+    state = gm.GaussianState(active=torch.ones(n, dtype=torch.bool, device=dev),
+                             filter_3d=(z + 1e-4).to(dev), max_radii2d=z.to(dev),
+                             grad_accum=z.to(dev), grad_abs_accum=z.to(dev), denom=z.to(dev))
+    c = cameras.look_at_camera(**cam, device=dev)
+    ev = extract.FieldEvaluator(params, state, [c], 3, 0.1)
+    rng = np.random.default_rng(seed)
+    zq = rng.uniform(2, 10, n_points)
+    pts = np.stack([rng.uniform(-1, 1, n_points) * zq * 0.4, rng.uniform(-1, 1, n_points) * zq * 0.3,
+                    zq], -1).astype(np.float32)
+    pts[:50, 2] = -pts[:50, 2]  # behind the camera
+    pts[50:100, 0] += 100.0  # outside the image
+    p = torch.from_numpy(pts).to(dev)
+    return ev, p, c, ev.view_inputs(p, c)
+
+
+def test_integrate_kernel_matches_plain(dev):
+    from gof_tpu_torch.ops import integrate as ti
+
+    _, p, _, (payload, b, pb) = field_inputs(dev)
+    n = p.shape[0]
+    before = ti.INTEGRATE.launches
+    got = ti.integrate_transmittance(payload, b, pb, n)
+    assert ti.INTEGRATE.launches == before + 1
+    again = ti.integrate_transmittance(payload, b, pb, n)
+    want = ti.integrate_transmittance_reference(payload, b, pb, n)
+    assert torch.equal(got, again)  # no atomics, serial per point
+    assert float((got - want).abs().max()) <= 1e-6
+    assert bool((got[:100] == 1).all())
+    assert float(got.min()) < 0.5 and pb.n_blocks > b.bounds.shape[0] - 1
+
+
+def test_integrate_kernel_nan_row_stays_in_its_tile(dev):
+    from gof_tpu_torch.ops import integrate as ti
+
+    _, p, _, (payload, b, pb) = field_inputs(dev)
+    n = p.shape[0]
+    bounds = b.bounds.cpu().numpy()
+    blocks = pb.bins.tile_blocks.cpu().numpy()
+    k = next(k for k in range(1, len(bounds) - 1)
+             if bounds[k] % 128 and bounds[k + 1] > bounds[k] > bounds[k - 1] and blocks[k])
+    bad = payload.clone()
+    bad[:, bounds[k] - 1] = float("nan")
+    got = ti.integrate_transmittance(bad, b, pb, n)
+    clean = ti.integrate_transmittance(payload, b, pb, n)
+    mine = pb.point_of_slot[pb.block_tile.repeat_interleave(ti.PBLOCK) == k]
+    mine = mine[mine < n].long()
+    assert len(mine) and bool(torch.isfinite(got[mine]).all())
+    assert torch.equal(got[mine], clean[mine])
+
+
+def test_integrate_wrapper_checks_inputs(dev):
+    from gof_tpu_torch.ops import integrate as ti
+
+    _, p, _, (payload, b, pb) = field_inputs(dev, n=200, n_points=3000, width=64, height=64)
+    with pytest.raises(ValueError):
+        ti.integrate_transmittance(payload.double(), b, pb, p.shape[0])
+    with pytest.raises(ValueError):
+        ti.integrate_transmittance(payload[:, :-1].contiguous(), b, pb, p.shape[0])
+
+
+def test_marching_tets_cuda_matches_numpy(dev):
+    from scipy.spatial import Delaunay
+
+    from gof_tpu_torch.mesh import tetmesh
+
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-1.5, 1.5, (20_000, 3)).astype(np.float32)
+    tets = Delaunay(pts).simplices.astype(np.int32)
+    sdf = (np.linalg.norm(pts - np.array([0.2, -0.1, 0.05]), axis=-1) - 0.9).astype(np.float32)
+    scales = rng.uniform(0.5, 1.5, len(pts)).astype(np.float32)
+    want = tetmesh.marching_tetrahedra(pts, tets, sdf, scales)
+    got = tetmesh.marching_tetrahedra(pts, tets, torch.from_numpy(sdf).to(dev), scales)
+    for k in ("edge_verts", "edge_points", "edge_sdf", "edge_scale"):
+        np.testing.assert_array_equal(got[k], want[k])
+    assert len(got["faces"]) == len(want["faces"]) > 1000
+    assert {tuple(f) for f in got["faces"].tolist()} == {tuple(f) for f in want["faces"].tolist()}

@@ -204,6 +204,9 @@ def test_port_never_imports_jax():
         "import sys, numpy as np, torch\n"
         "from gof_tpu_torch import cameras\n"
         "from gof_tpu_torch.ops import render\n"
+        "from gof_tpu_torch import extract_mesh\n"
+        "from gof_tpu_torch.mesh import extract, tetmesh\n"
+        "from gof_tpu_torch.ops import integrate\n"
         "rng = np.random.default_rng(0); n = 50\n"
         "z = rng.uniform(3, 8, n)\n"
         "xyz = np.stack([rng.uniform(-1, 1, n) * z * .2, rng.uniform(-1, 1, n) * z * .2, z], -1)\n"
