@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Build and drive gof_tpu_torch's serving, training and mesh-extraction
-paths once on one CUDA GPU.
+paths and its gather/scatter probes once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -35,17 +35,26 @@ paths once on one CUDA GPU.
    bit-identical across launches, unprojected points exactly 1) and timed;
    the mesh of a small known scene on the card is held against the plain
    CPU path, and the field at all its vertices to gof_tpu's bound;
-8. the bench design point: bench.py's model, look-at camera and seeded
+8. probes: gof_tpu_torch.scripts.pallas_gather_probe.main and
+   mxu_gather_probe.main at the scripts' shapes run K6-K13 (row gathers,
+   one-hot bf16 and int8 products on the tensor cores, segment sums,
+   run-length decode, paged gather) and the binning's sorts: each kernel
+   launched, bit-equal to its plain version and to torch.index_select where
+   that computes the same function, the segment sums within rtol 1e-5 /
+   atol 1e-5 x max |plain| and K10 bit-identical across launches; each
+   timed beside its plain version, its library call and its bound;
+9. the bench design point: bench.py's model, look-at camera and seeded
    random ground truth, through the port's build_train_step in bench's two
    phases (statistics on, regularizers off, step 5000; statistics off,
    regularizers on, step 20000): the median step time, the time of each
    layer of the step by CUDA events, the device idle share from
    torch.profiler, and all four kernels held against their plain versions
    at that view's shapes (K3's gaussian-id stream exactly; K3 and K4
-   bit-identical across two launches), each timed beside its plain version;
-9. print the kernels' JSON line (the four of the first bench phase and
-   K5), the card's name and power limit, and as the last line
-   {"ok": true, "device": {...}}.
+   bit-identical across two launches), each timed beside its plain version
+   and its library call, with its bound;
+10. print the kernels' JSON line (the four of the first bench phase, K5 and
+   K6-K13, each with its bound and library time), the card's name and power
+   limit, and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, if there is no CUDA device, if any
 kernel fails to build or launch, or if any check fails. Needs no network.
@@ -381,20 +390,40 @@ def profile_renders(model: str, n_views: int) -> None:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median milliseconds of fn() by CUDA events, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        ts.append(e0.elapsed_time(e1))
-    return statistics.median(ts)
+    """Median milliseconds of fn() by CUDA events, after warm-up, each call
+    behind a short device sleep (gof_tpu_torch.utils.timing.time_ms)."""
+    from gof_tpu_torch.utils.timing import time_ms
+
+    return time_ms(fn, [()], torch.device("cuda"), reps, warmup)
+
+
+# f32 operations per (pixel or point, gaussian row) pair, as the kernels'
+# sources count them (csrc/rasterize_fwd.cu, rasterize_bwd.cu, integrate.cu)
+OPS_PER_PAIR = {"rasterize_fwd": 60, "rasterize_bwd": 130, "integrate": 42}
+
+
+def blend_rows(bounds: torch.Tensor, livec: torch.Tensor) -> int:
+    """Payload rows the blend kernels visit: per tile, the rows of its
+    segment inside the windows it walked (the early exit's work)."""
+    from gof_tpu_torch.ops import rasterize as rz
+
+    seg_s, seg_e = bounds[:-1].long(), bounds[1:].long()
+    base = torch.div(seg_s, rz.CHUNK_SIZE, rounding_mode="floor") * rz.CHUNK_SIZE
+    end = torch.minimum(seg_e, base + livec.long() * rz.CHUNK_SIZE)
+    return int((end - seg_s).clamp(min=0).sum())
+
+
+def bound(entry: dict, nbytes: float, ops: float = 0.0, library_ms=None) -> dict:
+    """Add the card's bound (bytes at 3.35 TB/s, f32 operations at 67
+    TFLOP/s) and the library call's time to a kernels-line entry."""
+    from gof_tpu_torch.utils.timing import bound_ms
+
+    entry["bound_ms"], entry["bound_by"] = bound_ms(nbytes, ops, "f32")
+    entry["library_ms"] = library_ms
+    print(f"  {entry['name']}: bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}: "
+          f"{nbytes / 2**20:.1f} MiB, {ops:.3e} f32 operations), library call "
+          f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}")
+    return entry
 
 
 def check_kernels(expand_in, raster_in, launches) -> list:
@@ -413,11 +442,14 @@ def check_kernels(expand_in, raster_in, launches) -> list:
     plain_ms = cuda_ms(lambda: class_gather.expand_reference(tbl, gidx), 20)
     print(f"expand: tbl {tuple(tbl.shape)}, gidx [{gidx.shape[0]}]: bit-exact; "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results.append({"name": "expand", "route": "cuda",
-                    "source": "gof_tpu_torch/csrc/expand.cu",
-                    "replaces": "gof_tpu/ops/class_gather.py:56",
-                    "launches": launches["expand"], "max_abs_err": 0.0,
-                    "ms": ms, "plain_ms": plain_ms})
+    g64 = gidx.long()
+    results.append(bound({"name": "expand", "route": "cuda",
+                          "source": "gof_tpu_torch/csrc/expand.cu",
+                          "replaces": "gof_tpu/ops/class_gather.py:56",
+                          "launches": launches["expand"], "max_abs_err": 0.0,
+                          "ms": ms, "plain_ms": plain_ms},
+                         4 * (tbl.numel() + gidx.numel() + tbl.shape[0] * gidx.shape[0]),
+                         library_ms=cuda_ms(lambda: tbl[:, g64], 20)))
 
     payload, b, meta, ntx, ntiles = raster_in
     got = rz.rasterize_fwd(payload, b, meta, ntx, ntiles, with_reg=True)
@@ -440,11 +472,15 @@ def check_kernels(expand_in, raster_in, launches) -> list:
     ms = cuda_ms(lambda: rz.rasterize_fwd(payload, b, meta, ntx, ntiles), 10)
     plain_ms = cuda_ms(lambda: rz.rasterize_fwd_reference(payload, b, meta, ntx, ntiles), 3)
     print(f"rasterize_fwd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results.append({"name": "rasterize_fwd", "route": "cuda",
-                    "source": "gof_tpu_torch/csrc/rasterize_fwd.cu",
-                    "replaces": "gof_tpu/ops/rasterize_pallas.py:344",
-                    "launches": launches["rasterize_fwd"], "max_abs_err": max_err,
-                    "ms": ms, "plain_ms": plain_ms})
+    visited = blend_rows(b.bounds, got[:, rz.CH_LIVEC, 0])
+    results.append(bound({"name": "rasterize_fwd", "route": "cuda",
+                          "source": "gof_tpu_torch/csrc/rasterize_fwd.cu",
+                          "replaces": "gof_tpu/ops/rasterize_pallas.py:344",
+                          "launches": launches["rasterize_fwd"], "max_abs_err": max_err,
+                          "ms": ms, "plain_ms": plain_ms},
+                         4 * (visited * payload.shape[0] + got.numel() + b.bounds.numel()
+                              + meta.numel()),
+                         visited * rz.NPIX * OPS_PER_PAIR["rasterize_fwd"]))
     return results
 
 
@@ -690,9 +726,13 @@ def check_integrate(model: str, launches) -> dict:
     ms = cuda_ms(lambda: ti.integrate_transmittance(payload, b, pb, n), 10)
     plain_ms = cuda_ms(lambda: ti.integrate_transmittance_reference(payload, b, pb, n), 3)
     print(f"integrate: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"name": "integrate", "route": "cuda", "source": "gof_tpu_torch/csrc/integrate.cu",
-            "replaces": "gof_tpu/ops/integrate.py:113", "launches": launches["integrate"],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    moved = (payload.numel() + 3 * pb.rx.numel() + pb.point_of_slot.numel() + b.bounds.numel()
+             + n)
+    return bound({"name": "integrate", "route": "cuda",
+                  "source": "gof_tpu_torch/csrc/integrate.cu",
+                  "replaces": "gof_tpu/ops/integrate.py:113", "launches": launches["integrate"],
+                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms},
+                 4 * moved, pairs * OPS_PER_PAIR["integrate"])
 
 
 def check_small_mesh(device: str = "cuda", steps: int = 4) -> None:
@@ -764,6 +804,64 @@ def check_small_mesh(device: str = "cuda", steps: int = 4) -> None:
           f"0.9-quantile of |alpha - 0.5| {q90:.4f} (bound 0.15)")
     if not (margin > 1e-4 and same_faces and frac >= 0.99 and len(f_cpu) > 0 and q90 < 0.15):
         raise RuntimeError("CUDA mesh disagrees with the plain CPU path")
+
+
+# ---------------------------------------------------------------------------
+# The gather/scatter probes (K6-K13)
+# ---------------------------------------------------------------------------
+
+PROBE_REPLACES = {  # the Pallas kernel bodies
+    "take_gather": "scripts/pallas_gather_probe.py:38",
+    "vidx_gather": "scripts/pallas_gather_probe.py:63",
+    "onehot_gather": "scripts/pallas_gather_probe.py:88",
+    "scat": "scripts/pallas_gather_probe.py:120",
+    "scatmxu": "scripts/pallas_gather_probe.py:152",
+    "int8_gather": "scripts/mxu_gather_probe.py:32",
+    "rld": "scripts/mxu_gather_probe.py:69",
+    "paged_gather": "scripts/mxu_gather_probe.py:126",
+}
+
+
+def probe_phase() -> list:
+    """K6-K13 through the probes' entry points at the scripts' shapes: each
+    kernel launched (its counter over the two runs), bit-equal to its plain
+    version (and to torch.index_select where that computes the same
+    function), K9/K10 within rtol 1e-5 / atol 1e-5 x max |plain| of theirs
+    and of index_add_, K10 bit-identical across launches."""
+    from gof_tpu_torch.ops import gather_probes as gp
+    from gof_tpu_torch.scripts import mxu_gather_probe, pallas_gather_probe
+
+    for k in gp.COUNTERS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = dict(pallas_gather_probe.main([])["kernels"])
+    mxu = mxu_gather_probe.main([])
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in gp.COUNTERS}
+    res.update(mxu["kernels"])
+    print(f"probes: both entry points in {time.perf_counter() - t0:.1f} s (inputs drawn on the "
+          f"host included); launches {launches}")
+    bad = [n for n, c in launches.items() if c == 0]
+    for name, r in res.items():
+        if name in ("scat", "scatmxu"):
+            ok = r["within_tol"] and r["library_within_tol"] and r.get("deterministic", True)
+        else:
+            ok = r["exact"] and r.get("library_exact", True) and r.get("spot_exact", True)
+        if not ok:
+            bad.append(name)
+    if bad or not mxu["sort_ordered"]:
+        raise RuntimeError(f"probe kernels failed their checks or never launched: {bad}")
+    out = []
+    for name, r in res.items():
+        e = {"name": name, "route": "cuda", "source": "gof_tpu_torch/csrc/gather_probes.cu",
+             "replaces": PROBE_REPLACES[name], "launches": launches[name],
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+             "library": r["library"]}
+        if "product_bound_ms" in r:
+            e["product_bound_ms"] = r["product_bound_ms"]
+        out.append(e)
+    return out
 
 
 def bench_state():
@@ -926,11 +1024,15 @@ def check_backward_kernels(ins, with_stats: bool, with_reg: bool, launches) -> l
     ms = cuda_ms(lambda: rz.rasterize_bwd(*args, **kw), 10)
     plain_ms = cuda_ms(lambda: rz.rasterize_bwd_reference(*args, **kw), 3)
     print(f"  rasterize_bwd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    out = [{"name": "rasterize_bwd", "route": "cuda",
-            "source": "gof_tpu_torch/csrc/rasterize_bwd.cu",
-            "replaces": "gof_tpu/ops/rasterize_pallas.py:508",
-            "launches": launches["rasterize_bwd"], "max_abs_err": max(e for e, _ in errs.values()),
-            "ms": ms, "plain_ms": plain_ms}]
+    visited = blend_rows(ins["b"].bounds, ins["fout"][:, rz.CH_LIVEC, 0])
+    moved = (visited * ins["payload"].shape[0] + ins["fout"].numel() + ins["gout"].numel()
+             + sum(x.numel() for x in got if x is not None))
+    out = [bound({"name": "rasterize_bwd", "route": "cuda",
+                  "source": "gof_tpu_torch/csrc/rasterize_bwd.cu",
+                  "replaces": "gof_tpu/ops/rasterize_pallas.py:508",
+                  "launches": launches["rasterize_bwd"],
+                  "max_abs_err": max(e for e, _ in errs.values()), "ms": ms, "plain_ms": plain_ms},
+                 4 * moved, visited * rz.NPIX * OPS_PER_PAIR["rasterize_bwd"])]
 
     rows = got[0] if not with_stats else torch.cat([got[0], got[2]], dim=0)
     gid, P = got[1], ins["P"]
@@ -947,9 +1049,13 @@ def check_backward_kernels(ins, with_stats: bool, with_reg: bool, launches) -> l
     ms = cuda_ms(lambda: red.reduce_rows_by_gid(rows, gid, P), 20)
     plain_ms = cuda_ms(lambda: red.reduce_rows_by_gid_reference(rows, gid, P), 5)
     print(f"  reduce (id sort + segment starts + kernel): {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    out.append({"name": "reduce", "route": "cuda", "source": "gof_tpu_torch/csrc/reduce.cu",
-                "replaces": "gof_tpu/ops/reduce.py:53", "launches": launches["reduce"],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    acc, g64, src = torch.zeros((P + 1, rows.shape[0]), device="cuda"), gid.long(), rows.T
+    out.append(bound({"name": "reduce", "route": "cuda",
+                      "source": "gof_tpu_torch/csrc/reduce.cu",
+                      "replaces": "gof_tpu/ops/reduce.py:53", "launches": launches["reduce"],
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms},
+                     4 * (rows.numel() + gid.numel() + P * rows.shape[0]),
+                     library_ms=cuda_ms(lambda: acc.index_add_(0, g64, src), 20)))
     return out
 
 
@@ -1035,6 +1141,7 @@ def main() -> None:
                 raise RuntimeError("the serving model's field crosses 0.5 nowhere either")
         integrate_kernel = check_integrate(mesh_model, mesh_launches)
         check_small_mesh()
+        probe_kernels = probe_phase()
         ins = bench_phase("densify", True, False, 5000, launches)
         print("  kernels against their plain versions at this view's shapes:")
         kernels = train_kernels(ins, True, False, launches)
@@ -1044,7 +1151,7 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"render ms per view: {[s['ms'] for s in stats]}")
-    print(json.dumps({"kernels": kernels + [integrate_kernel]}))
+    print(json.dumps({"kernels": kernels + [integrate_kernel] + probe_kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

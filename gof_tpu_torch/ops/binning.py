@@ -154,6 +154,16 @@ def class_expansion(depth, rects: TileRect, ntiles: int, mean2d=None, radius=Non
                           num_slots=num_slots, capacity=capacity)
 
 
+def slot_order(tile: torch.Tensor, depth_bits: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
+    """The permutation that orders slots by (tile, depth bits, gaussian id):
+    a stable sort by id, then a stable sort by the int64 key
+    (tile << 32) + depth bits; signed depth bits keep gof_tpu's int32
+    comparison order."""
+    o1 = torch.sort(gid, stable=True).indices
+    key = tile.long()[o1] * (1 << 32) + depth_bits.long()[o1]
+    return o1[torch.sort(key, stable=True).indices]
+
+
 def bin_gaussians(depth, rects: TileRect, ntx: int, nty: int,
                   mean2d=None, radius=None) -> Binning:
     """Build the (tile, depth)-ordered duplicated Gaussian list.
@@ -192,11 +202,8 @@ def bin_gaussians(depth, rects: TileRect, ntx: int, nty: int,
     gid_sort = torch.where(live, gid_s.to(torch.int64), P)
     num_keys = live.sum()
 
-    # 4. (tile, depth bits, id) order: stable by id, then stable by the
-    # int64 key; signed depth bits keep gof_tpu's int32 comparison order
-    o1 = torch.sort(gid_sort, stable=True).indices
-    key = tile[o1] * (1 << 32) + depth_bits[o1]
-    perm = o1[torch.sort(key, stable=True).indices]
+    # 4. (tile, depth bits, id) order
+    perm = slot_order(tile, depth_bits, gid_sort)
     tile_sorted = tile[perm]
 
     # 5. per-tile segment bounds

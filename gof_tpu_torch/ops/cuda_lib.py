@@ -25,7 +25,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("expand.cu", "rasterize_fwd.cu", "rasterize_bwd.cu", "reduce.cu", "integrate.cu")
+SOURCES = ("expand.cu", "rasterize_fwd.cu", "rasterize_bwd.cu", "reduce.cu", "integrate.cu",
+           "gather_probes.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "gof_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -34,6 +35,7 @@ NVCC_FLAGS = (
 LIB_NAME = "libgof_tpu_torch.so"
 
 _PTR = ctypes.c_void_p
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # device, tbl, ncols, P, gidx, cap, out, stream
     "gof_expand": (ctypes.c_int, _PTR, ctypes.c_int, ctypes.c_longlong, _PTR,
@@ -53,6 +55,22 @@ _SIGNATURES = {
     # stream
     "gof_integrate": (ctypes.c_int, _PTR, ctypes.c_longlong, _PTR, _PTR, ctypes.c_int, _PTR,
                       ctypes.c_longlong, _PTR, ctypes.c_longlong, _PTR, _PTR),
+    # the gather/scatter probes (gather_probes.cu)
+    # device, idx, n, table, page, w, out, stream
+    "gof_take_gather": (ctypes.c_int, _PTR, _LL, _PTR, _LL, _LL, _PTR, _PTR),
+    "gof_vidx_gather": (ctypes.c_int, _PTR, _LL, _PTR, _LL, _LL, _PTR, _PTR),
+    # device, idx, n, table, tT (bf16 scratch), w, npages, page_b, out, stream
+    "gof_onehot_gather": (ctypes.c_int, _PTR, _LL, _PTR, _PTR, _LL, _LL, _LL, _PTR, _PTR),
+    # device, idx, n, rows, w, page, out, stream
+    "gof_scat": (ctypes.c_int, _PTR, _LL, _PTR, _LL, _LL, _PTR, _PTR),
+    # device, perm, starts, rows, w, page, out, stream
+    "gof_scatmxu": (ctypes.c_int, _PTR, _PTR, _PTR, _LL, _LL, _PTR, _PTR),
+    # device, idx, nch, ch, table, wg, c8, out, stream
+    "gof_int8_gather": (ctypes.c_int, _PTR, _LL, _LL, _PTR, _LL, _LL, _PTR, _PTR),
+    # device, off, nch, wg, val, cv, base, bstride, ch, out, stream
+    "gof_rld": (ctypes.c_int, _PTR, _LL, _LL, _PTR, _LL, _PTR, _LL, _LL, _PTR, _PTR),
+    # device, pages, idx, nch, ch, table, npages, wg, c8, out, stream
+    "gof_paged_gather": (ctypes.c_int, _PTR, _PTR, _LL, _LL, _PTR, _LL, _LL, _LL, _PTR, _PTR),
 }
 
 

@@ -1,0 +1,337 @@
+"""The gather/scatter probes' kernels (counterparts of the Pallas kernels of
+scripts/pallas_gather_probe.py, K6-K10, and scripts/mxu_gather_probe.py,
+K11-K13).
+
+Each function keeps the JAX function's name, argument order and array
+shapes, the `[nchunks, 1, chunk]` int32 index layout included; the shape
+constants the scripts read from module globals (PAGE, PAGE_B, CH, WG) are
+trailing keyword arguments with the scripts' values. CPU tensors take the
+plain PyTorch version `<name>_reference`; CUDA tensors launch the kernel in
+csrc/gather_probes.cu or raise. Dtypes and shapes are checked on both paths.
+
+Edge behaviour, as the Pallas kernels give it (run in interpret mode):
+- take_gather (K6): jnp.take's fill mode: an index in [-PAGE, 0) wraps, any
+  other index outside [0, PAGE) gives a zero row;
+- vidx_gather (K7): a negative index wraps once, then the row is clamped to
+  [0, PAGE - 1];
+- onehot_gather (K8): bf16(table)[idx] as f32; an index outside [0, PAGE)
+  gives a zero row;
+- scat (K9): `.at[idx].add`: an index in [-PAGE, 0) wraps, others outside
+  [0, PAGE) are dropped; summed with atomics, in no fixed order;
+- scatmxu (K10): the segment sum with every index outside [0, PAGE) dropped
+  (no wrap), summed per output row in ascending input row: deterministic;
+- int8_gather (K11): int32(table[idx]); an index outside [0, WG) gives zero;
+- rld (K12): run-length decode, out[k] = val[w] for off[w] <= k < off[w+1]
+  (the last run open up to 2^30), 0 where no run covers k; the offsets of
+  each chunk are non-decreasing (a run-length table);
+- paged_gather (K13): int32(table[idx]) when idx lies in the chunk's page
+  pages[i] (rows [pages[i] * WG, (pages[i] + 1) * WG)), else 0; a page
+  outside the table gives zero rows.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+from .reduce import segment_order
+
+TAKE = cuda_lib.LaunchCounter("take_gather")
+VIDX = cuda_lib.LaunchCounter("vidx_gather")
+ONEHOT = cuda_lib.LaunchCounter("onehot_gather")
+SCAT = cuda_lib.LaunchCounter("scat")
+SCATMXU = cuda_lib.LaunchCounter("scatmxu")
+INT8 = cuda_lib.LaunchCounter("int8_gather")
+RLD = cuda_lib.LaunchCounter("rld")
+PAGED = cuda_lib.LaunchCounter("paged_gather")
+COUNTERS = (TAKE, VIDX, ONEHOT, SCAT, SCATMXU, INT8, RLD, PAGED)
+
+SMEM_MAX = 232_448  # dynamic shared memory a block may use on Hopper
+RUN_END = 2**30  # rld: where the last run ends
+
+
+def _check(name: str, *specs) -> None:
+    """specs: (label, tensor, dtype, ndim) each."""
+    for label, t, dtype, ndim in specs:
+        cuda_lib.require(t.dtype == dtype, f"{name}: {label} is {t.dtype} (need {dtype})")
+        cuda_lib.require(t.dim() == ndim, f"{name}: {label} has shape {tuple(t.shape)} "
+                                          f"(need {ndim} dims)")
+
+
+def _check_idx(name: str, idx: torch.Tensor) -> None:
+    _check(name, ("idx", idx, torch.int32, 3))
+    cuda_lib.require(idx.shape[1] == 1, f"{name}: idx {tuple(idx.shape)} (need [n, 1, chunk])")
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _require_cuda(name: str, *ts: torch.Tensor) -> None:
+    dev = ts[0].device
+    cuda_lib.require(all(t.is_cuda and t.device == dev for t in ts),
+                     f"{name}: tensors on {[str(t.device) for t in ts]}")
+    cuda_lib.require(all(t.is_contiguous() for t in ts), f"{name}: non-contiguous input")
+
+
+def _launch(counter: cuda_lib.LaunchCounter, t: torch.Tensor, *args) -> None:
+    """Call gof_<counter.name>(device, *args, stream), raise on a CUDA error,
+    count the launch."""
+    fn = getattr(cuda_lib.library(), f"gof_{counter.name}")
+    cuda_lib.check(fn(t.device.index, *args, cuda_lib.stream_ptr(t)), counter.name)
+    counter.launches += 1
+
+
+# ---------------------------------------------------------------------------
+# K6, K7: row gathers from a [PAGE, W] f32 table
+# ---------------------------------------------------------------------------
+
+
+def take_gather_reference(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    page = table.shape[0]
+    j = idx.reshape(-1).long()
+    ok = (j >= -page) & (j < page)
+    return table[j.remainder(page)].masked_fill_(~ok[:, None], 0)
+
+
+def take_gather(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """K6: idx [nchunk, 1, chunk] int32, table [PAGE, W] f32 -> [n, W] f32."""
+    _check_idx("take_gather", idx)
+    _check("take_gather", ("table", table, torch.float32, 2))
+    cuda_lib.require(table.shape[0] > 0, "take_gather: empty table")
+    if _on_cpu(idx, table):
+        return take_gather_reference(idx, table)
+    _require_cuda("take_gather", idx, table)
+    page, w = table.shape
+    out = torch.empty((idx.numel(), w), dtype=torch.float32, device=table.device)
+    _launch(TAKE, table, idx.data_ptr(), idx.numel(), table.data_ptr(), page, w, out.data_ptr())
+    return out
+
+
+def vidx_gather_reference(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    page = table.shape[0]
+    j = idx.reshape(-1).long()
+    return table[torch.where(j < 0, j + page, j).clamp_(0, page - 1)]
+
+
+def vidx_gather(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """K7: the same shapes as take_gather, with the ref indexer's wrap-then-
+    clamp semantics. The kernel moves 16 bytes per thread: W % 4 == 0."""
+    _check_idx("vidx_gather", idx)
+    _check("vidx_gather", ("table", table, torch.float32, 2))
+    cuda_lib.require(table.shape[0] > 0, "vidx_gather: empty table")
+    if _on_cpu(idx, table):
+        return vidx_gather_reference(idx, table)
+    _require_cuda("vidx_gather", idx, table)
+    page, w = table.shape
+    cuda_lib.require(w % 4 == 0 and table.data_ptr() % 16 == 0,
+                     f"vidx_gather: W = {w} (need a multiple of 4, 16-byte aligned)")
+    out = torch.empty((idx.numel(), w), dtype=torch.float32, device=table.device)
+    _launch(VIDX, table, idx.data_ptr(), idx.numel(), table.data_ptr(), page, w, out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K8: the one-hot bf16 product
+# ---------------------------------------------------------------------------
+
+
+def onehot_gather_reference(idx: torch.Tensor, table: torch.Tensor,
+                            page_b: int = 2048) -> torch.Tensor:
+    """page_b, the wrapper's page size, does not change the result."""
+    page = table.shape[0]
+    j = idx.reshape(-1).long()
+    ok = (j >= 0) & (j < page)
+    return table.bfloat16().float()[j.clamp(0, page - 1)].masked_fill_(~ok[:, None], 0)
+
+
+def onehot_gather(idx: torch.Tensor, table: torch.Tensor, page_b: int = 2048) -> torch.Tensor:
+    """K8: idx [nchunk, 1, chunk] int32, table [PAGE, W] f32 -> [n, W] f32
+    = bf16(table)[idx], by one-hot bf16 products over PAGE // page_b pages.
+    PAGE % page_b == 0; the kernel needs page_b % 16 == 0 and W % 32 == 0."""
+    _check_idx("onehot_gather", idx)
+    _check("onehot_gather", ("table", table, torch.float32, 2))
+    page, w = table.shape
+    cuda_lib.require(page > 0 and page_b > 0 and page % page_b == 0,
+                     f"onehot_gather: PAGE {page} is not a multiple of PAGE_B {page_b}")
+    if _on_cpu(idx, table):
+        return onehot_gather_reference(idx, table, page_b)
+    _require_cuda("onehot_gather", idx, table)
+    cuda_lib.require(w % 32 == 0 and page_b % 16 == 0 and 32 * (page_b + 8) * 2 <= SMEM_MAX,
+                     f"onehot_gather: W {w}, PAGE_B {page_b} (need W a multiple of 32, PAGE_B a "
+                     "multiple of 16 up to 3616)")
+    out = torch.empty((idx.numel(), w), dtype=torch.float32, device=table.device)
+    tT = torch.empty((w, page), dtype=torch.bfloat16, device=table.device)
+    _launch(ONEHOT, table, idx.data_ptr(), idx.numel(), table.data_ptr(), tT.data_ptr(), w,
+            page // page_b, page_b, out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K9, K10: segment sums of [n, W] f32 rows into [PAGE, W]
+# ---------------------------------------------------------------------------
+
+
+def _check_scatter(name: str, idx: torch.Tensor, rows: torch.Tensor, page: int) -> None:
+    _check_idx(name, idx)
+    _check(name, ("rows", rows, torch.float32, 2))
+    cuda_lib.require(rows.shape[0] == idx.numel(),
+                     f"{name}: rows {tuple(rows.shape)} for {idx.numel()} indices")
+    cuda_lib.require(page > 0, f"{name}: PAGE must be positive")
+
+
+def scat_reference(idx: torch.Tensor, rows: torch.Tensor, page: int = 16384) -> torch.Tensor:
+    j = idx.reshape(-1).long()
+    ok = (j >= -page) & (j < page)
+    out = rows.new_zeros((page + 1, rows.shape[1]))
+    out.index_add_(0, torch.where(ok, j.remainder(page), page), rows)
+    return out[:page]
+
+
+def scat(idx: torch.Tensor, rows: torch.Tensor, page: int = 16384) -> torch.Tensor:
+    """K9: idx [nchunk, 1, chunk] int32, rows [n, W] f32 -> [PAGE, W] f32,
+    the segment sum by atomic adds (order-dependent)."""
+    _check_scatter("scat", idx, rows, page)
+    if _on_cpu(idx, rows):
+        return scat_reference(idx, rows, page)
+    _require_cuda("scat", idx, rows)
+    w = rows.shape[1]
+    out = torch.zeros((page, w), dtype=torch.float32, device=rows.device)
+    _launch(SCAT, rows, idx.data_ptr(), idx.numel(), rows.data_ptr(), w, page, out.data_ptr())
+    return out
+
+
+def _ids_in_page(idx: torch.Tensor, page: int) -> torch.Tensor:
+    """Ids in [0, page), and the sentinel `page` for the rest."""
+    j = idx.reshape(-1)
+    return torch.where((j >= 0) & (j < page), j, page)
+
+
+def scatmxu_reference(idx: torch.Tensor, rows: torch.Tensor, page: int = 16384) -> torch.Tensor:
+    key, order = torch.sort(_ids_in_page(idx, page), stable=True)
+    out = rows.new_zeros((page + 1, rows.shape[1]))
+    out.index_add_(0, key.long(), rows[order])
+    return out[:page]
+
+
+def scatmxu(idx: torch.Tensor, rows: torch.Tensor, page: int = 16384) -> torch.Tensor:
+    """K10: the same shapes as scat; indices outside [0, PAGE) are dropped
+    and each (row, column) is summed in ascending input row, so the result
+    is bit-identical across launches. The ids are sorted (stable torch.sort)
+    and their runs found by searchsorted before the kernel, as K4's
+    (reduce.segment_order)."""
+    _check_scatter("scatmxu", idx, rows, page)
+    if _on_cpu(idx, rows):
+        return scatmxu_reference(idx, rows, page)
+    _require_cuda("scatmxu", idx, rows)
+    perm, starts = segment_order(_ids_in_page(idx, page), page)
+    w = rows.shape[1]
+    out = torch.empty((page, w), dtype=torch.float32, device=rows.device)
+    _launch(SCATMXU, rows, perm.data_ptr(), starts.data_ptr(), rows.data_ptr(), w, page,
+            out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K11, K13: the one-hot int8 products
+# ---------------------------------------------------------------------------
+
+
+def _s8_kernel_ok(name: str, wg: int, c8: int) -> None:
+    cuda_lib.require(wg % 64 == 0 and c8 % 64 == 0 and 64 * (wg + 16) <= SMEM_MAX,
+                     f"{name}: WG {wg}, C {c8} (need multiples of 64, WG up to 3584)")
+
+
+def int8_gather_reference(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    wg = table.shape[0]
+    j = idx.reshape(-1).long()
+    ok = (j >= 0) & (j < wg)
+    return table[j.clamp(0, wg - 1)].to(torch.int32).masked_fill_(~ok[:, None], 0)
+
+
+def int8_gather(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """K11: idx [NCH, 1, CH] int32, table [WG, C8] int8 -> [NCH * CH, C8]
+    int32, the widened gather by one-hot int8 products."""
+    _check_idx("int8_gather", idx)
+    _check("int8_gather", ("table", table, torch.int8, 2))
+    cuda_lib.require(table.shape[0] > 0, "int8_gather: empty table")
+    if _on_cpu(idx, table):
+        return int8_gather_reference(idx, table)
+    _require_cuda("int8_gather", idx, table)
+    nch, _, ch = idx.shape
+    wg, c8 = table.shape
+    _s8_kernel_ok("int8_gather", wg, c8)
+    out = torch.empty((nch * ch, c8), dtype=torch.int32, device=table.device)
+    _launch(INT8, table, idx.data_ptr(), nch, ch, table.data_ptr(), wg, c8, out.data_ptr())
+    return out
+
+
+def paged_gather_reference(pages: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
+                           wg: int = 2048) -> torch.Tensor:
+    rows = table.shape[0]
+    p = pages.long()[:, None]
+    j = idx[:, 0, :].long()
+    ok = (p >= 0) & (p < rows // wg) & (j >= p * wg) & (j < (p + 1) * wg)
+    out = table[j.clamp(0, rows - 1)].to(torch.int32).masked_fill_(~ok[..., None], 0)
+    return out.reshape(-1, table.shape[1])
+
+
+def paged_gather(pages: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
+                 wg: int = 2048) -> torch.Tensor:
+    """K13: pages [NCH] int32, idx [NCH, 1, CH] int32, table [npages * WG, C8]
+    int8 -> [NCH * CH, C8] int32: chunk i gathers from page pages[i] only."""
+    _check_idx("paged_gather", idx)
+    _check("paged_gather", ("pages", pages, torch.int32, 1), ("table", table, torch.int8, 2))
+    cuda_lib.require(pages.shape[0] == idx.shape[0],
+                     f"paged_gather: {pages.shape[0]} pages for {idx.shape[0]} chunks")
+    cuda_lib.require(wg > 0 and table.shape[0] > 0 and table.shape[0] % wg == 0,
+                     f"paged_gather: table rows {table.shape[0]} not a multiple of WG {wg}")
+    if _on_cpu(pages, idx, table):
+        return paged_gather_reference(pages, idx, table, wg)
+    _require_cuda("paged_gather", pages, idx, table)
+    nch, _, ch = idx.shape
+    c8 = table.shape[1]
+    _s8_kernel_ok("paged_gather", wg, c8)
+    out = torch.empty((nch * ch, c8), dtype=torch.int32, device=table.device)
+    _launch(PAGED, table, pages.data_ptr(), idx.data_ptr(), nch, ch, table.data_ptr(),
+            table.shape[0] // wg, wg, c8, out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K12: run-length decode
+# ---------------------------------------------------------------------------
+
+
+def rld_reference(off: torch.Tensor, val: torch.Tensor, base: torch.Tensor,
+                  ch: int = 1024) -> torch.Tensor:
+    wg = off.shape[2]
+    k = base[:, 0, :1] + torch.arange(ch, dtype=torch.int32, device=off.device)
+    w = torch.searchsorted(off[:, 0, :].contiguous(), k, right=True) - 1
+    covered = (w >= 0) & ((w < wg - 1) | (k < RUN_END))
+    out = val[w.clamp(min=0)].masked_fill_(~covered[..., None], 0)
+    return out.reshape(-1, val.shape[1])
+
+
+def rld(off: torch.Tensor, val: torch.Tensor, base: torch.Tensor, ch: int = 1024) -> torch.Tensor:
+    """K12: off [NCH, 1, WG] int32 (non-decreasing along WG), val [WG, CV]
+    int32, base [NCH, 1, B] int32 (chunk i covers k = base[i, 0, 0] + row)
+    -> [NCH * ch, CV] int32. The kernel needs CV % 4 == 0."""
+    _check("rld", ("off", off, torch.int32, 3), ("val", val, torch.int32, 2),
+           ("base", base, torch.int32, 3))
+    nch, one, wg = off.shape
+    cuda_lib.require(one == 1 and wg > 0 and val.shape[0] == wg,
+                     f"rld: off {tuple(off.shape)}, val {tuple(val.shape)} (need [NCH, 1, WG], "
+                     "[WG, CV])")
+    cuda_lib.require(base.shape[0] == nch and base.shape[1] == 1 and base.shape[2] > 0,
+                     f"rld: base {tuple(base.shape)} for {nch} chunks")
+    if _on_cpu(off, val, base):
+        return rld_reference(off, val, base, ch)
+    _require_cuda("rld", off, val, base)
+    cv = val.shape[1]
+    cuda_lib.require(cv % 4 == 0 and wg * 4 <= SMEM_MAX,
+                     f"rld: CV {cv}, WG {wg} (need CV a multiple of 4, WG up to 58112)")
+    out = torch.empty((nch * ch, cv), dtype=torch.int32, device=off.device)
+    _launch(RLD, off, off.data_ptr(), nch, wg, val.data_ptr(), cv, base.data_ptr(),
+            base.shape[2], ch, out.data_ptr())
+    return out

@@ -3,9 +3,9 @@ gof_tpu/ops/reduce.py).
 
 `reduce_rows_by_gid(rows [C, R], gid [R], P) -> [P, C]` sums the backward's
 compacted gradient rows per gaussian id and drops the sentinel id P. On CUDA
-tensors it sorts the ids (a stable `torch.sort`, as gof_tpu sorts with
-`lax.sort` outside its Pallas kernel), finds each id's segment with one
-`searchsorted`, and launches kernel csrc/reduce.cu, which sums every
+tensors it sorts the ids (`segment_order`: a stable `torch.sort`, as gof_tpu
+sorts with `lax.sort` outside its Pallas kernel, then one `searchsorted` for
+each id's segment), and launches kernel csrc/reduce.cu, which sums every
 (id, column) over its segment in ascending row order: the result is
 bit-identical from run to run, as gof_tpu's reduction promises and the
 original CUDA code's atomics did not. On CPU tensors it runs the plain
@@ -19,6 +19,16 @@ import torch
 from . import cuda_lib
 
 REDUCE = cuda_lib.LaunchCounter("reduce")
+
+
+def segment_order(ids: torch.Tensor, n: int):
+    """ids [R] in [0, n] (n the sentinel): the permutation of a stable sort
+    of the ids (ascending row within an id) and each id's segment start in
+    it, [n + 1]; id i owns sorted positions [starts[i], starts[i + 1])."""
+    ids_sorted, perm = torch.sort(ids, stable=True)
+    starts = torch.searchsorted(
+        ids_sorted, torch.arange(n + 1, dtype=ids.dtype, device=ids.device), side="left")
+    return perm, starts
 
 
 def reduce_rows_by_gid_reference(rows_t: torch.Tensor, gidc: torch.Tensor, P: int) -> torch.Tensor:
@@ -50,9 +60,7 @@ def reduce_rows_by_gid(rows_t: torch.Tensor, gidc: torch.Tensor, P: int) -> torc
                      "reduce: non-contiguous input")
     cuda_lib.require(P > 0, "reduce: P must be positive")
     C, R = rows_t.shape
-    gid_sorted, perm = torch.sort(gidc, stable=True)
-    starts = torch.searchsorted(
-        gid_sorted, torch.arange(P + 1, dtype=torch.int32, device=gidc.device), side="left")
+    perm, starts = segment_order(gidc, P)
     out = torch.empty((C, P), dtype=torch.float32, device=rows_t.device)
     rc = cuda_lib.library().gof_reduce(
         rows_t.device.index, rows_t.data_ptr(), R, C, perm.data_ptr(), starts.data_ptr(), P,

@@ -161,3 +161,18 @@ def test_class_sizes_and_grid():
     for m in (1, 32, 33, 1014, 5000):
         assert tb.class_sizes(m) == jb.class_sizes(m)
     assert tb.tile_grid(1237, 822) == jb.tile_grid(1237, 822) == (39, 26)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_slot_order_matches_a_three_key_stable_sort(seed):
+    """slot_order (two stable torch sorts) against jax.lax.sort on the keys
+    (tile, depth bits, id), stable, with ties and negative depth bits."""
+    rng = np.random.default_rng(seed)
+    n = 3000
+    tile = rng.integers(0, 20, n).astype(np.int32)
+    depth = rng.integers(-50, 50, n).astype(np.int32)
+    gid = rng.integers(0, 40, n).astype(np.int32)
+    want = jax.lax.sort((jnp.asarray(tile), jnp.asarray(depth), jnp.asarray(gid),
+                         jnp.arange(n, dtype=jnp.int32)), num_keys=3, is_stable=True)[3]
+    got = tb.slot_order(torch.from_numpy(tile), torch.from_numpy(depth), torch.from_numpy(gid))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

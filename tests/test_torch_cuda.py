@@ -420,3 +420,146 @@ def test_marching_tets_cuda_matches_numpy(dev):
         np.testing.assert_array_equal(got[k], want[k])
     assert len(got["faces"]) == len(want["faces"]) > 1000
     assert {tuple(f) for f in got["faces"].tolist()} == {tuple(f) for f in want["faces"].tolist()}
+
+
+# ---------------------------------------------------------------------------
+# K6-K13, the gather/scatter probes
+# ---------------------------------------------------------------------------
+
+PROBE_SHAPES = {  # PAGE, W, CHUNK, NCHUNK, PAGE_B / CH, WG, C8, NCH, CV
+    "small": (dict(page=256, w=32, chunk=128, nchunk=4, page_b=64),
+              dict(ch=128, wg=256, c8=128, nch=4, cv=8)),
+    "ragged": (dict(page=512, w=64, chunk=100, nchunk=3, page_b=128),
+               dict(ch=72, wg=192, c8=64, nch=5, cv=4)),
+    "script": (dict(page=16384, w=32, chunk=2048, nchunk=256, page_b=2048),
+               dict(ch=1024, wg=2048, c8=128, nch=512, cv=8)),
+}
+
+
+def probe_idx(rng, shape, lo, hi, edges=()):
+    idx = rng.integers(lo, hi, shape).astype(np.int32)
+    idx.reshape(-1)[:len(edges)] = edges
+    return torch.from_numpy(idx)
+
+
+@pytest.mark.parametrize("shapes", list(PROBE_SHAPES))
+def test_probe_gathers_match_plain(dev, shapes):
+    from gof_tpu_torch.ops import gather_probes as gp
+
+    s, _ = PROBE_SHAPES[shapes]
+    rng = np.random.default_rng(11)
+    page = s["page"]
+    table = torch.from_numpy(rng.normal(size=(page, s["w"])).astype(np.float32)).to(dev)
+    edges = (-2**31, 2**31 - 1, -page - 1, -page, -1, 0, page - 1, page)
+    idx = probe_idx(rng, (s["nchunk"], 1, s["chunk"]), -page - 8, page + 8, edges).to(dev)
+    for fn, plain, kw, counter in (
+            (gp.take_gather, gp.take_gather_reference, {}, gp.TAKE),
+            (gp.vidx_gather, gp.vidx_gather_reference, {}, gp.VIDX),
+            (gp.onehot_gather, gp.onehot_gather_reference, {"page_b": s["page_b"]}, gp.ONEHOT)):
+        before = counter.launches
+        got = fn(idx, table, **kw)
+        assert counter.launches == before + 1
+        assert torch.equal(got, plain(idx, table, **kw)), fn.__name__
+    # in-range indices: the library gather computes the same function
+    ok = probe_idx(rng, (s["nchunk"], 1, s["chunk"]), 0, page).to(dev)
+    flat = ok.reshape(-1)
+    assert torch.equal(gp.take_gather(ok, table), torch.index_select(table, 0, flat))
+    assert torch.equal(gp.vidx_gather(ok, table), torch.index_select(table, 0, flat))
+    assert torch.equal(gp.onehot_gather(ok, table, s["page_b"]),
+                       torch.index_select(table.bfloat16().float(), 0, flat))
+
+
+@pytest.mark.parametrize("shapes", list(PROBE_SHAPES))
+def test_probe_scatters_match_plain(dev, shapes):
+    from gof_tpu_torch.ops import gather_probes as gp
+
+    s, _ = PROBE_SHAPES[shapes]
+    rng = np.random.default_rng(12)
+    page = s["page"]
+    n = s["nchunk"] * s["chunk"]
+    rows = torch.from_numpy(rng.normal(size=(n, s["w"])).astype(np.float32)).to(dev)
+    idx = probe_idx(rng, (s["nchunk"], 1, s["chunk"]), -page - 8, page + 8,
+                    (-2**31, 2**31 - 1, -page - 1, -page, -1, page)).to(dev)
+    for fn, plain in ((gp.scat, gp.scat_reference), (gp.scatmxu, gp.scatmxu_reference)):
+        got = fn(idx, rows, page)
+        want = plain(idx, rows, page)
+        tol = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
+        assert bool(((got - want).abs() <= tol).all()), fn.__name__
+    assert torch.equal(gp.scatmxu(idx, rows, page), gp.scatmxu(idx, rows, page))
+
+
+@pytest.mark.parametrize("shapes", list(PROBE_SHAPES))
+def test_probe_int8_and_paged_match_plain(dev, shapes):
+    from gof_tpu_torch.ops import gather_probes as gp
+
+    _, s = PROBE_SHAPES[shapes]
+    rng = np.random.default_rng(13)
+    wg, c8 = s["wg"], s["c8"]
+    tbl = torch.from_numpy(rng.integers(-128, 128, (wg, c8)).astype(np.int8)).to(dev)
+    idx = probe_idx(rng, (s["nch"], 1, s["ch"]), -8, wg + 8,
+                    (-2**31, 2**31 - 1, -1, 0, wg - 1, wg)).to(dev)
+    got = gp.int8_gather(idx, tbl)
+    assert torch.equal(got, gp.int8_gather_reference(idx, tbl))
+    big = torch.from_numpy(rng.integers(-128, 128, (8 * wg, c8)).astype(np.int8)).to(dev)
+    pages = rng.integers(-1, 9, s["nch"]).astype(np.int32)  # two pages outside the table
+    pages[:2] = (3, 7)
+    pidx = np.empty((s["nch"], 1, s["ch"]), np.int32)
+    for i, p in enumerate(pages):
+        pidx[i, 0] = rng.integers(p * wg - wg // 4, (p + 1) * wg + wg // 4, s["ch"])
+    pages_t, pidx_t = torch.from_numpy(pages).to(dev), torch.from_numpy(pidx).to(dev)
+    got = gp.paged_gather(pages_t, pidx_t, big, wg)
+    assert torch.equal(got, gp.paged_gather_reference(pages_t, pidx_t, big, wg))
+    assert bool(got[:s["ch"]].any())
+
+
+@pytest.mark.parametrize("shapes", list(PROBE_SHAPES))
+def test_probe_rld_matches_plain(dev, shapes):
+    from gof_tpu_torch.ops import gather_probes as gp
+
+    _, s = PROBE_SHAPES[shapes]
+    rng = np.random.default_rng(14)
+    nch, ch, wg = s["nch"], s["ch"], s["wg"]
+    off = np.sort(rng.integers(0, nch * ch, (nch, 1, wg)), axis=-1).astype(np.int32)
+    off[0, 0] = np.sort(rng.integers(ch + 7, nch * ch + ch, wg))  # uncovered rows in chunk 0
+    val = rng.integers(-2**31, 2**31 - 1, (wg, s["cv"])).astype(np.int32)  # exact past 2^24
+    base = np.zeros((nch, 1, 8), np.int32)
+    base[:, 0, 0] = np.arange(nch) * ch
+    args = [torch.from_numpy(x).to(dev) for x in (off, val, base)]
+    got = gp.rld(*args, ch)
+    assert torch.equal(got, gp.rld_reference(*args, ch))
+    assert not got[:7].any() and bool(got[ch:].any())
+
+
+def test_probe_wrappers_refuse_bad_inputs(dev):
+    from gof_tpu_torch.ops import gather_probes as gp
+
+    table = torch.zeros((256, 32), device=dev)
+    idx = torch.zeros((4, 1, 128), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # mixed devices
+        gp.take_gather(idx.cpu(), table)
+    with pytest.raises(ValueError):  # non-contiguous table
+        gp.vidx_gather(idx, torch.zeros((32, 256), device=dev).T)
+    with pytest.raises(ValueError):  # the kernel's width is a multiple of 32
+        gp.onehot_gather(idx, torch.zeros((256, 40), device=dev), 64)
+    with pytest.raises(ValueError):  # non-contiguous rows
+        gp.scatmxu(idx, torch.zeros((32, 512), device=dev).T, 256)
+    with pytest.raises(ValueError):  # int8 slab of 64 columns
+        gp.int8_gather(idx, torch.zeros((256, 32), dtype=torch.int8, device=dev))
+    with pytest.raises(ValueError):  # CV a multiple of 4
+        gp.rld(idx, torch.zeros((128, 6), dtype=torch.int32, device=dev),
+               torch.zeros((4, 1, 8), dtype=torch.int32, device=dev), 64)
+
+
+def test_probe_entry_points_on_the_card(dev):
+    from gof_tpu_torch.scripts import mxu_gather_probe, pallas_gather_probe
+
+    out = pallas_gather_probe.main(["--page", "1024", "--chunk", "256", "--nchunk", "8",
+                                    "--page_b", "256"])
+    k = out["kernels"]
+    assert out["device"] == torch.cuda.get_device_name(0)
+    assert all(k[n]["exact"] and k[n]["library_exact"]
+               for n in ("take_gather", "vidx_gather", "onehot_gather"))
+    assert k["scat"]["within_tol"] and k["scatmxu"]["within_tol"] and k["scatmxu"]["deterministic"]
+    out = mxu_gather_probe.main(["--ch", "256", "--wg", "512", "--nch", "16", "--cap", "100000",
+                                 "--presort", "50000"])
+    assert all(r["exact"] for r in out["kernels"].values()) and out["sort_ordered"]

@@ -1,0 +1,296 @@
+"""The gather/scatter probes' plain versions against gof_tpu's Pallas kernels.
+
+The JAX side is the unmodified scripts/pallas_gather_probe.py and
+scripts/mxu_gather_probe.py, which run their full-size probes when
+imported: each test parses the script with `ast`, keeps its imports and
+`def`s, executes those with the shape constants set small and `pl` swapped
+for a namespace whose `pallas_call` runs in interpret mode. Inputs come from
+numpy seeds and include the edge indices each kernel treats specially
+(negative, past the table, int32's extremes). Bit-exact for every gather
+(K6-K8, K11-K13); the segment sums (K9, K10) sum in another order than the
+TPU kernels and are held to rtol 1e-5, atol 1e-5 x max |JAX|.
+"""
+
+import ast
+import functools
+import types
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from gof_tpu_torch.ops import gather_probes as gp
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+SMALL_PALLAS = dict(PAGE=256, W=32, CHUNK=128, NCHUNK=4, PAGE_B=64)
+SMALL_MXU = dict(CH=128, WG=256, C8=128, NCH=4, CV=8)
+I32_MIN, I32_MAX = -2**31, 2**31 - 1
+
+
+def load_probe(name: str, **consts) -> dict:
+    """The probe script's imports and functions, without its module-level
+    runs, with `consts` as its shape constants and Pallas in interpret mode."""
+    path = REPO / "scripts" / name
+    tree = ast.parse(path.read_text())
+    keep = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom, ast.FunctionDef))]
+    ns = {"__name__": f"probe_{path.stem}"}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), str(path), "exec"), ns)
+    attrs = {k: getattr(pl, k) for k in dir(pl) if not k.startswith("_")}
+    attrs["pallas_call"] = functools.partial(pl.pallas_call, interpret=True)
+    ns["pl"] = types.SimpleNamespace(**attrs)
+    ns.update(consts)
+    return ns
+
+
+@pytest.fixture(scope="module")
+def pallas_probe():
+    return load_probe("pallas_gather_probe.py", **SMALL_PALLAS)
+
+
+@pytest.fixture(scope="module")
+def mxu_probe():
+    return load_probe("mxu_gather_probe.py", **SMALL_MXU)
+
+
+def edge_idx(seed: int, shape, page: int) -> np.ndarray:
+    """Indices over [-page - 8, page + 8) with int32's extremes and the
+    boundaries of [-page, page) at the front."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-page - 8, page + 8, shape).astype(np.int32)
+    idx.reshape(-1)[:8] = [I32_MIN, I32_MAX, -page - 1, -page, -1, 0, page - 1, page]
+    return idx
+
+
+def pallas_tables(seed=0):
+    c = SMALL_PALLAS
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(c["PAGE"], c["W"])).astype(np.float32)
+    rows = rng.normal(size=(c["NCHUNK"] * c["CHUNK"], c["W"])).astype(np.float32)
+    return table, rows
+
+
+@pytest.mark.parametrize("name", ["take_gather", "vidx_gather", "onehot_gather"])
+def test_gathers_match_pallas(pallas_probe, name):
+    c = SMALL_PALLAS
+    table, _ = pallas_tables()
+    idx = edge_idx(1, (c["NCHUNK"], 1, c["CHUNK"]), c["PAGE"])
+    want = np.asarray(pallas_probe[name](jnp.asarray(idx), jnp.asarray(table)))
+    kw = {"page_b": c["PAGE_B"]} if name == "onehot_gather" else {}
+    got = getattr(gp, name)(torch.from_numpy(idx), torch.from_numpy(table), **kw)
+    assert tuple(got.shape) == want.shape == (idx.size, c["W"])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.abs().sum(1) > 0).sum() > idx.size // 3
+
+
+def test_gather_edge_rows():
+    """The edge semantics spelled out: take wraps [-PAGE, 0) and zero-fills
+    the rest; vidx wraps once and clamps; the one-hot zero-fills all but
+    [0, PAGE)."""
+    table, _ = pallas_tables()
+    t = torch.from_numpy(table)
+    page = t.shape[0]
+    idx = torch.tensor([[[-page - 1, -page, -1, page, I32_MIN, I32_MAX, 5, 0]]], dtype=torch.int32)
+    zero = torch.zeros_like(t[0])
+    take = gp.take_gather(idx, t)
+    for got, want in zip(take, [zero, t[0], t[-1], zero, zero, zero, t[5], t[0]]):
+        assert torch.equal(got, want)
+    vidx = gp.vidx_gather(idx, t)
+    for got, want in zip(vidx, [t[0], t[0], t[-1], t[-1], t[0], t[-1], t[5], t[0]]):
+        assert torch.equal(got, want)
+    oh = gp.onehot_gather(idx, t, page_b=64)
+    bf = t.bfloat16().float()
+    for got, want in zip(oh, [zero, zero, zero, zero, zero, zero, bf[5], bf[0]]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["scat", "scatmxu"])
+def test_scatters_match_pallas(pallas_probe, name):
+    c = SMALL_PALLAS
+    _, rows = pallas_tables()
+    idx = edge_idx(2, (c["NCHUNK"], 1, c["CHUNK"]), c["PAGE"])
+    want = np.asarray(pallas_probe[name](jnp.asarray(idx), jnp.asarray(rows)))
+    got = getattr(gp, name)(torch.from_numpy(idx), torch.from_numpy(rows), page=c["PAGE"])
+    assert tuple(got.shape) == want.shape == (c["PAGE"], c["W"])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+def test_scatter_edge_semantics_differ():
+    """scat wraps negative indices (`.at[].add`); scatmxu drops them (the
+    one-hot product matches no row)."""
+    rows = torch.ones((4, 32))
+    idx = torch.tensor([[[-1, -256, 256, 3]]], dtype=torch.int32)
+    s = gp.scat(idx, rows, page=256)
+    m = gp.scatmxu(idx, rows, page=256)
+    assert s[:, 0].sum() == 3 and s[255, 0] == 1 and s[0, 0] == 1 and s[3, 0] == 1
+    assert m[:, 0].sum() == 1 and m[3, 0] == 1
+
+
+def test_scatmxu_sums_in_ascending_row_order():
+    """Each output row is 0 + r_0 + r_1 + ... in input order (f32), the
+    order the kernel sums in, whatever the ids' order."""
+    rng = np.random.default_rng(3)
+    rows = torch.from_numpy((rng.normal(size=(4096, 32)) * 10.0 ** rng.integers(-4, 5, (4096, 1)))
+                            .astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 7, (2, 1, 2048)).astype(np.int32))
+    got = gp.scatmxu(idx, rows, page=7)
+    flat = idx.reshape(-1)
+    for o in range(7):
+        acc = torch.zeros(32)
+        for r in torch.nonzero(flat == o)[:, 0]:
+            acc = acc + rows[r]
+        assert torch.equal(got[o], acc)
+
+
+def test_int8_gather_matches_pallas(mxu_probe):
+    c = SMALL_MXU
+    rng = np.random.default_rng(4)
+    tbl = rng.integers(-128, 128, (c["WG"], c["C8"])).astype(np.int8)
+    idx = edge_idx(5, (c["NCH"], 1, c["CH"]), c["WG"])
+    want = np.asarray(mxu_probe["int8_gather"](jnp.asarray(idx), jnp.asarray(tbl)))
+    got = gp.int8_gather(torch.from_numpy(idx), torch.from_numpy(tbl))
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got[:8].any(dim=1)[[0, 1, 2, 3, 4, 7]].any()  # out of [0, WG): zero
+
+
+def rld_inputs(seed=6):
+    """Sorted offsets with repeats (empty runs), a chunk whose first run
+    starts past its rows (uncovered rows), a chunk past every run's start."""
+    c = SMALL_MXU
+    rng = np.random.default_rng(seed)
+    n = c["NCH"] * c["CH"]
+    off = np.sort(rng.integers(0, n, (c["NCH"], 1, c["WG"])), axis=-1).astype(np.int32)
+    off[:, 0, :3] = 0
+    off[1, 0] = np.sort(rng.integers(c["CH"] + 40, n, c["WG"]))
+    off[2, 0] = np.sort(rng.integers(0, c["CH"], c["WG"]))
+    val = rng.integers(0, 2**23, (c["WG"], c["CV"])).astype(np.int32)
+    base = np.zeros((c["NCH"], 1, 8), np.int32)
+    base[:, 0, 0] = np.arange(c["NCH"]) * c["CH"]
+    base[:, 0, 1:] = rng.integers(-100, 100, (c["NCH"], 7))  # ignored
+    return off, val, base
+
+
+def test_rld_matches_pallas(mxu_probe):
+    c = SMALL_MXU
+    off, val, base = rld_inputs()
+    want = np.asarray(mxu_probe["rld"](jnp.asarray(off), jnp.asarray(val), jnp.asarray(base)))
+    got = gp.rld(torch.from_numpy(off), torch.from_numpy(val), torch.from_numpy(base), ch=c["CH"])
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape == (c["NCH"] * c["CH"], 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+    uncovered = got[c["CH"]:c["CH"] + 40]
+    assert not uncovered.any() and got[2 * c["CH"]:3 * c["CH"]].all()
+
+
+def test_paged_gather_matches_pallas(mxu_probe):
+    c = SMALL_MXU
+    wg = c["WG"]
+    rng = np.random.default_rng(7)
+    big = rng.integers(-128, 128, (wg * 8, c["C8"])).astype(np.int8)
+    pages = rng.integers(0, 8, c["NCH"]).astype(np.int32)
+    idx = np.empty((c["NCH"], 1, c["CH"]), np.int32)
+    for i in range(c["NCH"]):  # 3/4 in the chunk's page, the rest anywhere
+        inside = rng.integers(pages[i] * wg, (pages[i] + 1) * wg, c["CH"])
+        idx[i, 0] = np.where(rng.uniform(size=c["CH"]) < 0.75, inside,
+                             rng.integers(-wg, 9 * wg, c["CH"]))
+    idx[0, 0, :3] = [I32_MIN, I32_MAX, -1]
+    want = np.asarray(mxu_probe["paged_gather"](jnp.asarray(pages), jnp.asarray(idx),
+                                                jnp.asarray(big)))
+    got = gp.paged_gather(torch.from_numpy(pages), torch.from_numpy(idx), torch.from_numpy(big),
+                          wg=wg)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < int((got != 0).any(dim=1).sum()) < got.shape[0]
+
+
+def wrapper_calls():
+    """(name, call(device, idx dtype)) for each of the eight wrappers."""
+    def idx(dev, dt, hi=64):
+        return torch.arange(128, dtype=dt, device=dev).reshape(2, 1, 64) % hi
+
+    f32 = lambda shape, dev: torch.zeros(shape, device=dev)  # noqa: E731
+    i8 = lambda shape, dev: torch.zeros(shape, dtype=torch.int8, device=dev)  # noqa: E731
+    return {
+        "take_gather": lambda d, dt: gp.take_gather(idx(d, dt), f32((64, 32), "cpu")),
+        "vidx_gather": lambda d, dt: gp.vidx_gather(idx(d, dt), f32((64, 32), "cpu")),
+        "onehot_gather": lambda d, dt: gp.onehot_gather(idx(d, dt), f32((64, 32), "cpu"), 32),
+        "scat": lambda d, dt: gp.scat(idx(d, dt), f32((128, 32), "cpu"), 64),
+        "scatmxu": lambda d, dt: gp.scatmxu(idx(d, dt), f32((128, 32), "cpu"), 64),
+        "int8_gather": lambda d, dt: gp.int8_gather(idx(d, dt), i8((64, 64), "cpu")),
+        "rld": lambda d, dt: gp.rld(idx(d, dt), torch.zeros((64, 8), dtype=torch.int32),
+                                    torch.zeros((2, 1, 8), dtype=torch.int32), 64),
+        "paged_gather": lambda d, dt: gp.paged_gather(torch.zeros(2, dtype=torch.int32),
+                                                      idx(d, dt), i8((128, 64), "cpu"), 64),
+    }
+
+
+@pytest.mark.parametrize("name", list(wrapper_calls()))
+def test_wrappers_refuse_mixed_devices_and_dtypes(name):
+    call = wrapper_calls()[name]
+    counter = next(k for k in gp.COUNTERS if k.name == name)
+    before = counter.launches
+    call("cpu", torch.int32)  # the plain version: no launch counted
+    assert counter.launches == before
+    with pytest.raises(ValueError):
+        call("cpu", torch.int64)
+    with pytest.raises(ValueError):
+        call("meta", torch.int32)
+
+
+def test_wrappers_refuse_bad_shapes():
+    t = torch.zeros((64, 32))
+    with pytest.raises(ValueError):  # idx must be [n, 1, chunk]
+        gp.take_gather(torch.zeros((2, 64), dtype=torch.int32), t)
+    with pytest.raises(ValueError):  # rows must match the indices
+        gp.scat(torch.zeros((2, 1, 64), dtype=torch.int32), torch.zeros((100, 32)), 64)
+    with pytest.raises(ValueError):  # PAGE a multiple of PAGE_B
+        gp.onehot_gather(torch.zeros((2, 1, 64), dtype=torch.int32), t, 48)
+    with pytest.raises(ValueError):  # table rows a multiple of WG
+        gp.paged_gather(torch.zeros(2, dtype=torch.int32),
+                        torch.zeros((2, 1, 8), dtype=torch.int32),
+                        torch.zeros((100, 64), dtype=torch.int8), 64)
+
+
+def test_pallas_probe_entry_point_cpu():
+    from gof_tpu_torch.scripts import pallas_gather_probe
+
+    out = pallas_gather_probe.main(["--cpu", "--page", "256", "--chunk", "128", "--nchunk", "4",
+                                    "--page_b", "64"])
+    k = out["kernels"]
+    assert out["device"] == "cpu"
+    assert set(k) == {"take_gather", "vidx_gather", "onehot_gather", "scat", "scatmxu"}
+    for name in ("take_gather", "vidx_gather", "onehot_gather"):
+        assert k[name]["exact"] and k[name]["library_exact"] and k[name]["max_abs_err"] == 0
+    for name in ("scat", "scatmxu"):
+        assert k[name]["within_tol"] and k[name]["library_within_tol"]
+    assert k["scatmxu"]["deterministic"]
+    for r in k.values():
+        assert {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"} <= set(r)
+        assert r["bound_ms"] > 0 and r["bound_by"] == "bytes"
+    assert k["onehot_gather"]["product_bound_ms"] > 0
+
+
+def test_mxu_probe_entry_point_cpu():
+    from gof_tpu_torch.scripts import mxu_gather_probe
+
+    out = mxu_gather_probe.main(["--cpu", "--ch", "128", "--wg", "256", "--nch", "4", "--cap",
+                                 "5000", "--presort", "3000"])
+    k = out["kernels"]
+    assert set(k) == {"int8_gather", "rld", "paged_gather"}
+    assert all(r["exact"] for r in k.values())
+    assert k["int8_gather"]["library_exact"] and k["paged_gather"]["library_exact"]
+    assert k["rld"]["spot_exact"] and k["rld"]["library_ms"] is None
+    assert len(out["sorts"]) == 3 and out["sort_ordered"]
+
+
+def test_entry_points_need_cuda_without_cpu_flag():
+    from gof_tpu_torch.scripts import mxu_gather_probe, pallas_gather_probe
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for mod in (pallas_gather_probe, mxu_gather_probe):
+        with pytest.raises(RuntimeError):
+            mod.main([])

@@ -81,3 +81,14 @@ def test_reduce_counts_no_cpu_launch_and_refuses_other_devices():
     with pytest.raises(ValueError):
         tred.reduce_rows_by_gid(torch.from_numpy(rows).to("meta"),
                                 torch.from_numpy(ids).to("meta"), 100)
+
+
+@pytest.mark.parametrize("R,P", [(1000, 37), (64, 200)])
+def test_segment_order_is_a_stable_sort_with_starts(R, P):
+    """The sort and segment starts the K4 and K10 kernels read: a stable
+    argsort of the ids and each id's first sorted position."""
+    ids = np.random.default_rng(R).integers(0, P + 1, R).astype(np.int32)
+    perm, starts = tred.segment_order(torch.from_numpy(ids), P)
+    np.testing.assert_array_equal(perm.numpy(), np.argsort(ids, kind="stable"))
+    np.testing.assert_array_equal(starts.numpy(),
+                                  np.searchsorted(np.sort(ids), np.arange(P + 1), side="left"))

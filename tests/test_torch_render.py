@@ -207,6 +207,10 @@ def test_port_never_imports_jax():
         "from gof_tpu_torch import extract_mesh\n"
         "from gof_tpu_torch.mesh import extract, tetmesh\n"
         "from gof_tpu_torch.ops import integrate\n"
+        "from gof_tpu_torch.ops import gather_probes\n"
+        "from gof_tpu_torch.scripts import mxu_gather_probe, pallas_gather_probe\n"
+        "assert gather_probes.take_gather(torch.zeros((1, 1, 4), dtype=torch.int32),"
+        " torch.ones((2, 3))).shape == (4, 3)\n"
         "rng = np.random.default_rng(0); n = 50\n"
         "z = rng.uniform(3, 8, n)\n"
         "xyz = np.stack([rng.uniform(-1, 1, n) * z * .2, rng.uniform(-1, 1, n) * z * .2, z], -1)\n"
