@@ -42,17 +42,23 @@ paths and its gather/scatter probes once on one CUDA GPU.
    launched, bit-equal to its plain version and to torch.index_select where
    that computes the same function, the segment sums within rtol 1e-5 /
    atol 1e-5 x max |plain| and K10 bit-identical across launches; each
-   timed beside its plain version, its library call and its bound;
+   timed beside its plain version, its library call and its bound; K11 and
+   K13 also on every chunk on one page, on fewer chunks than the product's
+   persistent blocks and on pages outside the table;
 9. the bench design point: bench.py's model, look-at camera and seeded
    random ground truth, through the port's build_train_step in bench's two
    phases (statistics on, regularizers off, step 5000; statistics off,
    regularizers on, step 20000): the median step time, the time of each
    layer of the step by CUDA events, the device idle share from
    torch.profiler, and all four kernels held against their plain versions
-   at that view's shapes (K3's gaussian-id stream exactly; K3 and K4
-   bit-identical across two launches), each timed beside its plain version
-   and its library call, with its bound;
-10. print the kernels' JSON line (the four of the first bench phase, K5 and
+   at that view's shapes (K3's gaussian-id stream exactly; K3 bit-identical
+   across two launches; K4 bit-identical to its plain version on CPU copies
+   and across launches, also with one id owning 5000+ rows, every row on
+   one id and every row on the sentinel), each timed beside its plain
+   version and its library call, with its bound;
+10. profile single calls of K4, K11 and K13 (device time of each kernel
+   they launch) beside PyTorch's transposing copy of K4's rows;
+11. print the kernels' JSON line (the four of the first bench phase, K5 and
    K6-K13, each with its bound and library time), the card's name and power
    limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -81,9 +87,9 @@ SEED = 1
 # tolerance of the blend kernel against its plain version: gof_tpu's own
 # Pallas-vs-XLA tolerance (tests/test_rasterize.py); K2 must be bit-exact
 ATOL, RTOL = 1e-5, 1e-4
-# the backward blend and the reduce against their plain versions: max |kernel
-# - plain| <= GRAD_BOUND * max |plain| per output group, gof_tpu's Pallas-vs-
-# XLA gradient bound (tests/test_rasterize.py:154-157)
+# the backward blend against its plain version: max |kernel - plain| <=
+# GRAD_BOUND * max |plain| per output group, gof_tpu's Pallas-vs-XLA
+# gradient bound (tests/test_rasterize.py:154-157); K4 must be bit-exact
 GRAD_BOUND = 1e-4
 TRAIN_VIEWS = 8
 TRAIN_ITERS = 12
@@ -118,6 +124,24 @@ def build() -> None:
     for line in cuda_lib.build_log().splitlines():
         if "registers" in line or "smem" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+    # the tensor-core instructions each kernel compiled to (wgmma is GMMA in SASS)
+    cuobjdump = os.path.join(os.path.dirname(cuda_lib.find_nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        print("sass: cuobjdump not found; tensor-core instructions not counted")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                          timeout=120).stdout
+    fn, counts = None, {}
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and ("GMMA" in line or "HMMA" in line or "IMMA" in line):
+            words = [w for w in line.split("*/", 1)[-1].split() if not w.startswith("@")]
+            op = words[0].split(".")[0] if words else "?"
+            counts.setdefault(fn, {}).setdefault(op, 0)
+            counts[fn][op] += 1
+    for fn, c in counts.items():
+        print(f"  sass: {fn}: {c}")
 
 
 def make_model(n: int, seed: int, sigma: float = -3.2):
@@ -851,6 +875,7 @@ def probe_phase() -> list:
             bad.append(name)
     if bad or not mxu["sort_ordered"]:
         raise RuntimeError(f"probe kernels failed their checks or never launched: {bad}")
+    check_int8_cases()
     out = []
     for name, r in res.items():
         e = {"name": name, "route": "cuda", "source": "gof_tpu_torch/csrc/gather_probes.cu",
@@ -862,6 +887,48 @@ def probe_phase() -> list:
             e["product_bound_ms"] = r["product_bound_ms"]
         out.append(e)
     return out
+
+
+def check_int8_cases() -> None:
+    """K11 and K13 at the scripts' widths (CH 1024, WG 2048, C8 128, 8
+    pages) on the cases the probes do not draw: every chunk on one page,
+    fewer chunks (3) than the product's persistent blocks, and pages and
+    indices outside the table; each bit-equal to its plain version and, on
+    in-range indices, to index_select."""
+    from gof_tpu_torch.ops import gather_probes as gp
+
+    rng = np.random.default_rng(SEED)
+    ch, wg, c8, npages = 1024, 2048, 128, 8
+
+    def T(x):
+        return torch.from_numpy(x).cuda()
+
+    tbl = T(rng.integers(-128, 128, (wg, c8)).astype(np.int8))
+    big = T(rng.integers(-128, 128, (npages * wg, c8)).astype(np.int8))
+    results = []
+    for label, nch, pages in (("every chunk on page 5", 512, np.full(512, 5, np.int32)),
+                              ("3 chunks", 3, np.array([6, 0, 6], np.int32)),
+                              ("pages outside the table", 64,
+                               rng.integers(-2, npages + 2, 64).astype(np.int32))):
+        idx = np.stack([rng.integers(p * wg, (p + 1) * wg, ch) for p in pages])[:, None]
+        idx = idx.astype(np.int32)
+        idx[0, 0, :4] = (-1, -2**31, 2**31 - 1, npages * wg)
+        pg, ix = T(pages), T(idx)
+        got = gp.paged_gather(pg, ix, big, wg)
+        ok = torch.equal(got, gp.paged_gather_reference(pg, ix, big, wg))
+        local = T(idx % wg)
+        got8 = gp.int8_gather(local, tbl)
+        ok8 = torch.equal(got8, gp.int8_gather_reference(local, tbl))
+        lib8 = torch.equal(got8, torch.index_select(tbl, 0, local.reshape(-1)).to(torch.int32))
+        inside = (pages >= 0) & (pages < npages)
+        rows = torch.from_numpy(np.repeat(inside, ch)).cuda()
+        flat = ix.reshape(-1).clamp(0, npages * wg - 1)
+        lib = torch.equal(got[rows][4:], torch.index_select(big, 0, flat)[rows][4:].to(torch.int32))
+        results.append((label, ok, ok8, lib8, lib))
+    print("int8 one-hot products on extra cases (K13 exact, K11 exact, K11 = index_select, "
+          f"K13 = index_select on its pages): {results}")
+    if not all(all(r[1:]) for r in results):
+        raise RuntimeError("K11/K13 disagree with their plain versions on the extra cases")
 
 
 def bench_state():
@@ -942,7 +1009,7 @@ def step_layers(g, s, st, tx, gt, cam, opt, model_cfg, with_stats, with_reg, ste
                                              compact_cap=max(demand, rz.CHUNK_SIZE))
         mark("K3 backward blend (compact-demand read)")
         per_g, per_s = rz.reduce_compact_rows(dslot, gid, stats, P)
-        mark("K4 reduce (id sort, segment starts)")
+        mark("K4 reduce (count, scan, fill, reduce)")
         dM, du0 = rz.quadric_chain(per_g, pre.v2g_M, pre.v2g_u0)
         torch.autograd.backward([pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0],
                                 [per_g[:, 0:3], per_g[:, 3], dM, du0])
@@ -998,7 +1065,8 @@ def profile_steps(step, args, n: int = 3):
 
 
 def check_backward_kernels(ins, with_stats: bool, with_reg: bool, launches) -> list:
-    """K3 and K4 against their plain versions at one view's shapes."""
+    """K3 and K4 against their plain versions at one view's shapes; K4 also
+    on skewed ids."""
     from gof_tpu_torch.ops import rasterize as rz
     from gof_tpu_torch.ops import reduce as red
 
@@ -1034,21 +1102,21 @@ def check_backward_kernels(ins, with_stats: bool, with_reg: bool, launches) -> l
                   "max_abs_err": max(e for e, _ in errs.values()), "ms": ms, "plain_ms": plain_ms},
                  4 * moved, visited * rz.NPIX * OPS_PER_PAIR["rasterize_bwd"])]
 
-    rows = got[0] if not with_stats else torch.cat([got[0], got[2]], dim=0)
+    blocks = [got[0]] if not with_stats else [got[0], got[2]]
+    rows = torch.cat(blocks, dim=0)
     gid, P = got[1], ins["P"]
-    r1 = red.reduce_rows_by_gid(rows, gid, P)
-    r2 = red.reduce_rows_by_gid(rows, gid, P)
-    rp = red.reduce_rows_by_gid_reference(rows, gid, P)
-    torch.cuda.synchronize()
-    same = torch.equal(r1, r2)
-    err, mx = float((r1 - rp).abs().max()), float(rp.abs().max())
-    print(f"  reduce: rows {tuple(rows.shape)}, P {P}: max |err| {err:.3e} (max |plain| "
-          f"{mx:.3e}); bit-identical across launches {same}")
-    if not same or err > GRAD_BOUND * mx:
-        raise RuntimeError("reduce kernel disagrees with its plain version")
-    ms = cuda_ms(lambda: red.reduce_rows_by_gid(rows, gid, P), 20)
+    err, _ = check_reduce(blocks, gid, P, "the backward's rows")
+    R = gid.shape[0]
+    g = torch.Generator().manual_seed(SEED)
+    skew = gid.clone()
+    skew[torch.randperm(R, generator=g)[:5000].to(skew.device)] = 777
+    for label, ids in (("one id owning 5000+ rows", skew),
+                       ("every row on one id", torch.full_like(gid, 4242)),
+                       ("every row on the sentinel", torch.full_like(gid, P))):
+        check_reduce(blocks, ids, P, label)
+    ms = cuda_ms(lambda: red.reduce_row_blocks(blocks, gid, P), 20)
     plain_ms = cuda_ms(lambda: red.reduce_rows_by_gid_reference(rows, gid, P), 5)
-    print(f"  reduce (id sort + segment starts + kernel): {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print(f"  reduce (count, scan, fill, reduce): {ms:.4f} ms, plain {plain_ms:.4f} ms")
     acc, g64, src = torch.zeros((P + 1, rows.shape[0]), device="cuda"), gid.long(), rows.T
     out.append(bound({"name": "reduce", "route": "cuda",
                       "source": "gof_tpu_torch/csrc/reduce.cu",
@@ -1057,6 +1125,73 @@ def check_backward_kernels(ins, with_stats: bool, with_reg: bool, launches) -> l
                      4 * (rows.numel() + gid.numel() + P * rows.shape[0]),
                      library_ms=cuda_ms(lambda: acc.index_add_(0, g64, src), 20)))
     return out
+
+
+def check_reduce(blocks, gid, P: int, label: str):
+    """K4 on the card against its plain version on CPU copies of the same
+    inputs (bit for bit: both sum each id's rows in ascending row order
+    from +0.0), and against itself across two launches. Returns (max |err|,
+    ids with rows)."""
+    from gof_tpu_torch.ops import reduce as red
+
+    r1 = red.reduce_row_blocks(blocks, gid, P)
+    r2 = red.reduce_row_blocks(blocks, gid, P)
+    want = red.reduce_rows_by_gid_reference(torch.cat([b.cpu() for b in blocks]), gid.cpu(), P)
+    got = r1.cpu()
+    equal, same = torch.equal(got, want), torch.equal(r1, r2)
+    err = float((got - want).abs().max())
+    cnt = torch.bincount(gid.long().clamp(0, P), minlength=P + 1)[:P]
+    print(f"  reduce, {label}: rows {tuple(torch.cat(blocks).shape)}, P {P}, {int((cnt > 0).sum())} "
+          f"ids with rows ({int((cnt > 16).sum())} with more than 16, {int(cnt[cnt > 16].sum())} "
+          f"rows; {int((cnt > 128).sum())} with more than 128), the longest {int(cnt.max())}: "
+          f"equal to the plain version on CPU copies {equal} (max |err| {err:.3e}); "
+          f"bit-identical across launches {same}")
+    if not (equal and same):
+        raise RuntimeError(f"reduce kernel disagrees with its plain version ({label})")
+    return err, int((cnt > 0).sum())
+
+
+def profile_kernel_calls(ins) -> None:
+    """torch.profiler over single calls of K4 (this phase's rows), K11 and
+    K13 (the scripts' shapes): the device time of each kernel a call
+    launches, median of 10 calls, each behind a device sleep; beside K4,
+    PyTorch's own transposing copy of the same rows ([C, R] -> [R, C]), the
+    one pass of K4 that moves every value twice."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gof_tpu_torch.ops import gather_probes as gp
+    from gof_tpu_torch.ops import reduce as red
+
+    blocks = [ins["dslot"]] + ([ins["stats"]] if ins["stats"] is not None else [])
+    gid, P = ins["gid"], ins["P"]
+    rows = torch.cat(blocks)
+    dst = torch.empty((rows.shape[1], rows.shape[0]), device="cuda")
+    rng = np.random.default_rng(0)
+    tbl = torch.from_numpy(rng.integers(-128, 128, (2048, 128)).astype(np.int8)).cuda()
+    big = torch.from_numpy(rng.integers(-128, 128, (8 * 2048, 128)).astype(np.int8)).cuda()
+    idx = torch.from_numpy(rng.integers(0, 2048, (512, 1, 1024)).astype(np.int32)).cuda()
+    pages = torch.from_numpy(rng.integers(0, 8, 512).astype(np.int32)).cuda()
+    pidx = (idx + pages[:, None, None] * 2048).contiguous()
+    calls = (("K4 reduce", lambda: red.reduce_row_blocks(blocks, gid, P)),
+             ("rows.T copy (PyTorch)", lambda: dst.copy_(rows.T)),
+             ("K11 int8_gather", lambda: gp.int8_gather(idx, tbl)),
+             ("K13 paged_gather", lambda: gp.paged_gather(pages, pidx, big, 2048)))
+    for name, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        per = {}
+        for _ in range(10):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(2_000_000)
+                fn()
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                if e.self_device_time_total > 0 and "spin_kernel" not in e.key:
+                    name_k = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+                    per.setdefault(name_k.split("<")[0].split("::")[-1], []).append(
+                        e.self_device_time_total / e.count)
+        print(f"  profile of one {name} call (device us, median of 10): " + ", ".join(
+            f"{k} {statistics.median(v):.1f}" for k, v in per.items()))
 
 
 def bench_phase(label: str, with_stats: bool, with_reg: bool, step_i: int, launches) -> list:
@@ -1145,6 +1280,7 @@ def main() -> None:
         ins = bench_phase("densify", True, False, 5000, launches)
         print("  kernels against their plain versions at this view's shapes:")
         kernels = train_kernels(ins, True, False, launches)
+        profile_kernel_calls(ins)
         ins = bench_phase("regularize", False, True, 20000, launches)
         print("  kernels against their plain versions at this view's shapes:")
         train_kernels(ins, False, True, launches)

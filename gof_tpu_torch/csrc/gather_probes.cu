@@ -1,4 +1,4 @@
-// The row-gather and scatter-add probes: eight kernels that answer, on this
+// The row-gather and scatter-add probes: kernels that answer, on this
 // card, the question gof_tpu's two cost probes asked of the TPU (how fast can
 // the chip gather rows from a table and scatter-add rows into one, and which
 // way: a plain index, a one-hot product on the matrix unit, int8, a paged
@@ -11,7 +11,7 @@
 // holds the plain PyTorch versions). On the TPU the table lived in VMEM
 // (2 MiB); a block's shared memory holds at most 227 KB, so here the table
 // lives in the 50 MB L2 and the one-hot products stage one page (K8) or one
-// 64-column slab (K11, K13) at a time.
+// 64-column slab of a page (K11, K13) at a time.
 //
 // Index layout as in the scripts: idx [nchunks, 1, chunk] int32 is read as
 // one flat [n] stream, except where the chunk matters (K12's base, K13's
@@ -83,8 +83,9 @@ vidx_kernel(const int32_t* __restrict__ idx, int64_t n, const float4* __restrict
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core helpers (mma.sync; fragment layouts of the PTX ISA, "Matrix
-// Fragments for mma.m16n8k16" and "... m16n8k32"). groupID g = lane / 4 and
+// Tensor-core helpers (fragment layouts of the PTX ISA, "Matrix Fragments
+// for mma.m16n8k16"; wgmma's register A for s8 is, per warp of the
+// warpgroup, that of mma.m16n8k32). groupID g = lane / 4 and
 // threadID_in_group tg = lane % 4.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
@@ -93,15 +94,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -310,141 +302,339 @@ scatmxu_kernel(const int64_t* __restrict__ perm, const int64_t* __restrict__ sta
 }
 
 // ---------------------------------------------------------------------------
-// K11 and K13 share this device code: rows [0, ch) of one chunk, one
-// 64-column slab, out[r] = int32(tbl[idx[r] - start]) when idx[r] lies in
-// [start, start + wg), else 0, computed as the one-hot int8 product
-// [ch, wg] x [wg, 64] with int32 accumulation (exact).
+// K11 and K13 share one kernel: out[r] = int32(tbl[idx[r] - start]) when
+// idx[r] lies in its chunk's page [start, start + wg), else 0, computed as
+// the one-hot int8 product [rows, wg] x [wg, c8] with int32 accumulation
+// (exact). K11 is the case of one page (start 0) for every chunk.
 //
-// What bounds it: bytes, barely: the int32 output (256 MiB at the scripts'
-// shapes: 81 us) against the product's 2.75e11 int8 operations (0.139 ms at
-// 1,979 TOP/s). Design: mma.sync m16n8k32 (s8 in, s32 accumulate). The
-// 256 KB page does not fit in shared memory, so each block stages one
-// 64-column slab of it, all wg rows, transposed (128 KB at wg = 2048, padded
-// by 16 rows per column: conflict-free fragment loads), and its 8 warps walk
-// the chunk 32 rows (2 m-tiles, 64 s32 accumulators) at a time. The staging
-// reads 4 rows x 4 columns (4-byte loads) per thread and transposes the 4x4
-// bytes with byte permutes into one word per column. Needs wg % 64 == 0 and
-// c8 % 64 == 0 (the wrapper checks).
+// Replaces scripts/mxu_gather_probe.py:32 int8_kernel (call :43), K11, and
+// :126 paged_kernel (call :146), K13. The TPU read each chunk's page by
+// scalar prefetch in its index map; here a device pass groups the chunks by
+// page, and a page outside [0, npages) gives zero rows.
+//
+// What bounds it: the product, 2 * rows * wg * c8 int8 operations (2.75e11
+// at the scripts' shapes: 0.139 ms at 1,979 TOP/s), against the int32
+// output (256 MiB: 81 us) and the table (K13 2 MiB, read in 128 KB slabs).
+// Design (Hopper):
+// - a prep pass (s8_layout_kernel) arranges the table into wgmma's K-major
+//   layout without swizzle for an s8 B operand, one contiguous 64 * wg byte
+//   block per (page, 64-column slab): per 32-row k-step, 8 column groups x
+//   2 halves of 16 k bytes, each a core matrix of 8 columns x 16 bytes;
+// - a one-warp pass (page_group_kernel) groups the chunk ids by page, a
+//   stable counting sort of `pages` (pages outside the table last);
+// - persistent blocks, about one per SM, split the work units (slab, chunk
+//   in page order, 64-row m-tile) into contiguous ranges; whenever its range
+//   enters a new (page, slab), a block stages that slab once into shared
+//   memory by one cp.async.bulk completing on an mbarrier (128 KB at
+//   wg = 2048, so one block fills an SM), and its S8_GROUPS consumer
+//   warpgroups take its m-tiles in turn;
+// - per m-tile, wg / 32 wgmma.mma_async m64n64k32 s32.s8.s8 with the
+//   one-hot A in registers (each row's hit k-step and its two A words are
+//   worked out once; a k-step selects them or zero) and B from the staged
+//   slab by descriptor; A is written S8_KG k-steps at a time into one of
+//   two register groups, then one wgmma.fence and the group's S8_KG wgmma,
+//   so one group's products run while the next group's A is written (a
+//   fence for every k-step measured much slower); the next m-tile's
+//   indices are loaded while this one's product runs;
+// - the 32 s32 accumulators leave as 16-byte stores (a lane pair swaps
+//   halves so each lane holds 4 columns of one row); the stores drain
+//   while the warpgroup's next m-tile runs.
+// Needs wg % 64 == 0 and c8 % 64 == 0 (the wrapper checks).
 // ---------------------------------------------------------------------------
-constexpr int S8_SLAB = 64;
-constexpr int S8_NT = S8_SLAB / 8;
-constexpr int S8_MT = 2;
-constexpr int S8_KPAD = 16;  // pad rows (bytes) per staged column
+constexpr int S8_SLAB = 64;                      // columns per slab: the wgmma N
+constexpr int S8_KSTEP = 32;                     // the wgmma K for s8
+constexpr int S8_KBYTES = S8_SLAB * S8_KSTEP;    // bytes of B per k-step
+constexpr int S8_MTILE = 64;                     // rows per wgmma: the M
+constexpr int S8_GROUPS = 4;                     // consumer warpgroups per block
+constexpr int S8_KG = 4;                         // k-steps per A group (one fence each)
+constexpr int S8_THREADS = 128 * S8_GROUPS;
 
-__device__ __forceinline__ void onehot_s8_slab(const int32_t* __restrict__ idx, int64_t ch,
-                                               const int8_t* __restrict__ tbl, int64_t wg,
-                                               int64_t c8, uint32_t start, bool valid,
-                                               int32_t* __restrict__ out, uint32_t* sB) {
-  const int ks = (int)((wg + S8_KPAD) / 4);  // words per staged column
-  const int64_t c0 = (int64_t)blockIdx.y * S8_SLAB;
-  // staging: thread = (k quad: 16 per round, column quad: 16 per slab); a
-  // warp holds 16 k quads x 2 column quads, which land in 32 distinct banks
-  {
-    const int kq = threadIdx.x % 16;
-    const int nq = threadIdx.x / 16;
-    for (int64_t k40 = 0; k40 < wg / 4; k40 += 16) {
-      const int64_t k4 = k40 + kq;
-      const int8_t* p = tbl + (k4 * 4) * c8 + c0 + nq * 4;
-      const uint32_t r0 = __ldg(reinterpret_cast<const uint32_t*>(p));
-      const uint32_t r1 = __ldg(reinterpret_cast<const uint32_t*>(p + c8));
-      const uint32_t r2 = __ldg(reinterpret_cast<const uint32_t*>(p + 2 * c8));
-      const uint32_t r3 = __ldg(reinterpret_cast<const uint32_t*>(p + 3 * c8));
-      const uint32_t lo01 = __byte_perm(r0, r1, 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
-      const uint32_t hi01 = __byte_perm(r0, r1, 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
-      const uint32_t lo23 = __byte_perm(r2, r3, 0x5140);
-      const uint32_t hi23 = __byte_perm(r2, r3, 0x7362);
-      uint32_t* d = sB + (nq * 4) * ks + k4;
-      d[0] = __byte_perm(lo01, lo23, 0x5410);       // column nq*4:     rows k4*4 .. +3
-      d[ks] = __byte_perm(lo01, lo23, 0x7632);      // column nq*4 + 1
-      d[2 * ks] = __byte_perm(hi01, hi23, 0x5410);  // column nq*4 + 2
-      d[3 * ks] = __byte_perm(hi01, hi23, 0x7632);  // column nq*4 + 3
+// tB line q (16 bytes): k bytes kh * 16 .. + 15 of one column, at
+// ((page * slabs + slab) * (wg / 32) + kstep) * 2048 + kh * 1024 + col8 * 16
+__global__ void __launch_bounds__(THREADS)
+s8_layout_kernel(const int8_t* __restrict__ table, int64_t rows, int64_t wg, int64_t c8,
+                 uint4* __restrict__ tB) {
+  const int64_t slabs = c8 / S8_SLAB, ksteps = wg / S8_KSTEP;
+  const int64_t lines = rows * c8 / 16;
+  for (int64_t t = (int64_t)blockIdx.x * THREADS + threadIdx.x; t < lines;
+       t += (int64_t)gridDim.x * THREADS) {
+    const int64_t blk = t / (S8_KBYTES / 16);
+    const int q = (int)(t - blk * (S8_KBYTES / 16));
+    const int kh = q / S8_SLAB, col = q % S8_SLAB;
+    const int64_t page = blk / (slabs * ksteps);
+    const int64_t rem = blk - page * slabs * ksteps;
+    const int64_t slab = rem / ksteps, kstep = rem - slab * ksteps;
+    const int8_t* src =
+        table + (page * wg + kstep * S8_KSTEP + kh * 16) * c8 + slab * S8_SLAB + col;
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) v |= (uint32_t)(uint8_t)__ldg(src + (4 * i + b) * c8) << (8 * b);
+      w[i] = v;
     }
+    tB[t] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// One warp: order [nch] = the chunk ids grouped by page, stably, pages in
+// [0, npages) ascending and the rest last; starts [npages + 2] = where each
+// group starts (starts[npages] for the pages outside the table, then nch).
+// The counts live in shared memory, GROUP_BUCKETS groups per sweep (one
+// sweep up to 8191 pages); each chunk's page is loaded one step ahead.
+constexpr int GROUP_BUCKETS = 8192;
+
+__global__ void __launch_bounds__(32)
+page_group_kernel(const int32_t* __restrict__ pages, int64_t nch, int64_t npages,
+                  int32_t* __restrict__ order, int32_t* __restrict__ starts) {
+  __shared__ int32_t cnt[GROUP_BUCKETS];
+  const int lane = threadIdx.x;
+  const int64_t nb = npages + 1;
+  auto group = [&](int32_t p) -> int64_t { return (p >= 0 && p < npages) ? p : npages; };
+  int carry = 0;
+  for (int64_t b0 = 0; b0 < nb; b0 += GROUP_BUCKETS) {
+    const int nbs = (int)(nb - b0 < GROUP_BUCKETS ? nb - b0 : GROUP_BUCKETS);
+    for (int b = lane; b < nbs; b += 32) cnt[b] = 0;
+    __syncwarp();
+    for (int pass = 0; pass < 2; ++pass) {
+      int32_t pnext = lane < nch ? pages[lane] : 0;
+      for (int64_t i0 = 0; i0 < nch; i0 += 32) {
+        const int64_t i = i0 + lane;
+        const int64_t b = group(pnext) - b0;
+        pnext = i + 32 < nch ? pages[i + 32] : 0;
+        const bool mine = i < nch && b >= 0 && b < nbs;
+        const unsigned act = __ballot_sync(~0u, mine);
+        if (mine) {
+          const unsigned peers = __match_any_sync(act, (int)b);
+          const int leader = __ffs(peers) - 1;
+          int base = 0;
+          if (lane == leader) base = cnt[b];
+          base = __shfl_sync(peers, base, leader);
+          if (pass == 1) order[base + __popc(peers & ((1u << lane) - 1u))] = (int32_t)i;
+          if (lane == leader) cnt[b] = base + __popc(peers);
+        }
+        __syncwarp();
+      }
+      if (pass == 0) {  // counts -> exclusive starts, which the second pass advances
+        for (int b1 = 0; b1 < nbs; b1 += 32) {
+          const int b = b1 + lane;
+          const int v = b < nbs ? cnt[b] : 0;
+          int x = v;
+#pragma unroll
+          for (int d = 1; d < 32; d <<= 1) {
+            const int y = __shfl_up_sync(~0u, x, d);
+            if (lane >= d) x += y;
+          }
+          if (b < nbs) starts[b0 + b] = cnt[b] = carry + x - v;
+          carry += __shfl_sync(~0u, x, 31);
+        }
+        __syncwarp();
+      }
+    }
+  }
+  if (lane == 0) starts[nb] = carry;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma (CUTLASS's warpgroup_fence_operand).
+__device__ __forceinline__ void fence_regs(int (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a K-major B tile without swizzle: the
+// two 16-byte k halves of a k-step lie 1024 bytes apart (leading byte
+// offset), the 8-column core matrices 128 bytes apart (stride byte offset).
+__device__ __forceinline__ uint64_t s8_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// d[64 x 64] (+)= A[64 x 32] (registers, s8) x B[32 x 64] (shared, s8)
+__device__ __forceinline__ void wgmma_s8_m64n64k32(int (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// pages == nullptr: every chunk on page 0 (K11), order and starts unused.
+__global__ void __launch_bounds__(S8_THREADS, 1)
+s8_onehot_kernel(const int32_t* __restrict__ pages, const int32_t* __restrict__ order,
+                 const int32_t* __restrict__ starts, const int32_t* __restrict__ idx,
+                 int64_t nch, int64_t ch, const uint8_t* __restrict__ tB, int64_t npages,
+                 int64_t wg, int64_t c8, int32_t* __restrict__ out) {
+  extern __shared__ __align__(128) uint8_t slab_smem[];  // wg * 64 bytes
+  __shared__ __align__(8) uint64_t bar;
+  const int64_t slabs = c8 / S8_SLAB;
+  const int64_t mtc = (ch + S8_MTILE - 1) / S8_MTILE;  // m-tiles per chunk
+  const int64_t per_slab = nch * mtc;
+  const int64_t units = slabs * per_slab;
+  const int64_t u_end = units * (blockIdx.x + 1) / gridDim.x;
+  const int64_t slab_bytes = wg * S8_SLAB;
+  const uint32_t bar_a = smem_u32(&bar);
+  const uint32_t slab_a = smem_u32(slab_smem);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_a) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tg = lane % 4;
-  for (int64_t m0 = warp * (S8_MT * 16); m0 < ch; m0 += NWARPS * S8_MT * 16) {
-    int lc[S8_MT][2];
-#pragma unroll
-    for (int mt = 0; mt < S8_MT; ++mt)
+  const int nk = (int)(wg / S8_KSTEP);
+  uint32_t phase = 0;
+  int acc[32];  // written first by a k-step 0 wgmma (scale-d 0)
+
+  for (int64_t u = units * blockIdx.x / gridDim.x; u < u_end;) {
+    const int64_t slab = u / per_slab;
+    const int64_t j = (u - slab * per_slab) / mtc;  // position in the page-grouped order
+    const int64_t chunk = pages ? order[j] : j;
+    const int64_t pg = pages ? pages[chunk] : 0;
+    const bool valid = pg >= 0 && pg < npages;
+    const int64_t j_end = pages ? starts[valid ? pg + 1 : npages + 1] : nch;
+    const int64_t seg_stop = slab * per_slab + j_end * mtc;
+    const int64_t seg_end = seg_stop < u_end ? seg_stop : u_end;
+    if (valid) {
+      __syncthreads();  // both warpgroups are done with the slab staged before
+      if (threadIdx.x == 0) {
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar_a),
+                     "r"((uint32_t)slab_bytes)
+                     : "memory");
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+            "[%3];\n" ::"r"(slab_a),
+            "l"(tB + (pg * slabs + slab) * slab_bytes), "r"((uint32_t)slab_bytes), "r"(bar_a)
+            : "memory");
+      }
+      uint32_t done = 0;
+      while (!done)
+        asm volatile(
+            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar_a), "r"(phase)
+            : "memory");
+      phase ^= 1u;
+    }
+    const uint32_t start = (uint32_t)(pg * wg);
+    // the index values of an m-tile's two rows of this lane (start - 1, which
+    // lies outside the page, past the chunk's end), loaded a tile ahead
+    auto fetch = [&](int64_t v, int32_t (&ix)[2]) {
+      const int64_t jr = v - slab * per_slab;
+      const int64_t jj = jr / mtc, t = jr - jj * mtc;
+      const int64_t cj = pages ? order[jj] : jj;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int64_t r = m0 + mt * 16 + g + 8 * h;
-        lc[mt][h] = (valid && r < ch) ? local_row(idx[r], start, (uint32_t)wg) : NO_HIT;
+        const int64_t r = t * S8_MTILE + warp * 16 + g + 8 * h;
+        ix[h] = r < ch ? idx[cj * ch + r] : (int32_t)(start - 1u);
       }
-    int acc[S8_MT][S8_NT][4];
+    };
+    int32_t next[2] = {0, 0};
+    if (valid && u + grp < seg_end) fetch(u + grp, next);
+    for (int64_t v = u + grp; v < seg_end; v += S8_GROUPS) {
+      const int64_t jr = v - slab * per_slab;
+      const int64_t jj = jr / mtc, t = jr - jj * mtc;
+      const int64_t cj = pages ? order[jj] : jj;
+      const int64_t row0 = t * S8_MTILE + warp * 16 + g;  // this lane's rows: row0, row0 + 8
+      if (valid) {
+        const int32_t ix[2] = {next[0], next[1]};
+        if (v + S8_GROUPS < seg_end) fetch(v + S8_GROUPS, next);
+        // each row's hit k-step and its A words there (rows g, g + 8 of the warp's 16)
+        int hit[2];
+        uint32_t lo[2], hi[2];
 #pragma unroll
-    for (int mt = 0; mt < S8_MT; ++mt)
+        for (int h = 0; h < 2; ++h) {
+          const int l = local_row(ix[h], start, (uint32_t)wg);
+          hit[h] = l >= 0 ? l / S8_KSTEP : -1;
+          const int e = (l & (S8_KSTEP - 1)) - 4 * tg;
+          lo[h] = onehot_s8x4(e);        // k-step columns 4tg .. 4tg + 3
+          hi[h] = onehot_s8x4(e - 16);   // columns 16 + 4tg .. 16 + 4tg + 3
+        }
+        const uint64_t desc0 = s8_desc(slab_a);
+        // A for S8_KG k-steps at a time, then one fence and their wgmma: two
+        // groups of A registers, so one group's products run while the
+        // next group's A is written
+        uint32_t a[2][S8_KG][4];
+        for (int k0 = 0; k0 < nk; k0 += 2 * S8_KG) {
 #pragma unroll
-      for (int nt = 0; nt < S8_NT; ++nt)
+          for (int h = 0; h < 2; ++h) {
+            const int kb = k0 + h * S8_KG;
+            if (kb < nk) {
+              wgmma_wait<1>();  // the group that read a[h] (two groups back) is done
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0;
-
-    for (int kb = 0; kb < wg; kb += 32) {
-      uint32_t a[S8_MT][4];
+              for (int i = 0; i < S8_KG; ++i) {
+                const int k = kb + i;
+                a[h][i][0] = hit[0] == k ? lo[0] : 0u;
+                a[h][i][1] = hit[1] == k ? lo[1] : 0u;
+                a[h][i][2] = hit[0] == k ? hi[0] : 0u;
+                a[h][i][3] = hit[1] == k ? hi[1] : 0u;
+              }
+              wgmma_fence();
+              // past the last k-step (wg / 32 not a multiple of S8_KG) A is
+              // zero: those wgmma read k-step 0 and add exact zeros (a
+              // guard around a wgmma would serialise them all)
 #pragma unroll
-      for (int mt = 0; mt < S8_MT; ++mt) {
-        const int e0 = lc[mt][0] - kb - 4 * tg;  // row g
-        const int e1 = lc[mt][1] - kb - 4 * tg;  // row g + 8
-        a[mt][0] = onehot_s8x4(e0);
-        a[mt][1] = onehot_s8x4(e1);
-        a[mt][2] = onehot_s8x4(e0 - 16);
-        a[mt][3] = onehot_s8x4(e1 - 16);
+              for (int i = 0; i < S8_KG; ++i)
+                wgmma_s8_m64n64k32(acc, a[h][i],
+                                   desc0 + (uint64_t)(kb + i < nk ? kb + i : 0) * (S8_KBYTES >> 4),
+                                   kb + i > 0);
+              wgmma_commit();
+            }
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(acc);
       }
+      // accumulator n-tile q: acc[4q], acc[4q + 1] at row g, columns 8q + 2tg, +1;
+      // acc[4q + 2], acc[4q + 3] at row g + 8. Lanes tg, tg ^ 1 swap halves:
+      // even tg stores row g, odd tg row g + 8, four columns each. A page
+      // outside the table stores zeros (and never writes the accumulators
+      // outside a wgmma, which would serialise the wgmma pipeline).
+      int d[32];
 #pragma unroll
-      for (int nt = 0; nt < S8_NT; ++nt) {
-        const uint32_t* col = sB + (nt * 8 + g) * ks + kb / 4 + tg;
-        const uint32_t b0 = col[0];  // rows kb + 4tg .. +3
-        const uint32_t b1 = col[4];  // rows kb + 16 + 4tg .. +3
+      for (int i = 0; i < 32; ++i) d[i] = valid ? acc[i] : 0;
+      const bool odd = tg & 1;
+      const int64_t r = row0 + (odd ? 8 : 0);
+      int32_t* orow = out + (cj * ch + r) * c8 + slab * S8_SLAB + 2 * (tg & ~1);
 #pragma unroll
-        for (int mt = 0; mt < S8_MT; ++mt) mma_s8_16832(acc[mt][nt], a[mt], b0, b1);
+      for (int q = 0; q < 8; ++q) {
+        const int s0 = odd ? d[4 * q] : d[4 * q + 2];
+        const int s1 = odd ? d[4 * q + 1] : d[4 * q + 3];
+        const int r0 = __shfl_xor_sync(~0u, s0, 1), r1 = __shfl_xor_sync(~0u, s1, 1);
+        const int4 val = odd ? make_int4(r0, r1, d[4 * q + 2], d[4 * q + 3])
+                             : make_int4(d[4 * q], d[4 * q + 1], r0, r1);
+        if (r < ch) *reinterpret_cast<int4*>(orow + 8 * q) = val;
       }
     }
-
-#pragma unroll
-    for (int mt = 0; mt < S8_MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int64_t r = m0 + mt * 16 + g + 8 * h;
-        if (r >= ch) continue;
-#pragma unroll
-        for (int nt = 0; nt < S8_NT; ++nt)
-          *reinterpret_cast<int2*>(out + r * c8 + c0 + nt * 8 + 2 * tg) =
-              make_int2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-      }
+    u = seg_end;
   }
-}
-
-// K11: out[r] = int32(table[idx[r]]) for idx in [0, wg), else 0.
-// Replaces scripts/mxu_gather_probe.py:32 int8_kernel (call :43). Grid:
-// (chunk, 64-column slab); every chunk reads the one [wg, c8] table.
-__global__ void __launch_bounds__(THREADS)
-int8_kernel(const int32_t* __restrict__ idx, int64_t ch, const int8_t* __restrict__ table,
-            int64_t wg, int64_t c8, int32_t* __restrict__ out) {
-  extern __shared__ uint32_t sB[];
-  const int64_t i = blockIdx.x;
-  onehot_s8_slab(idx + i * ch, ch, table, wg, c8, 0u, true, out + i * ch * c8, sB);
-}
-
-// K13: chunk i gathers from page pages[i] of a [npages * wg, c8] table:
-// out[r] = int32(table[idx[r]]) when idx[r] lies in that page, else 0 (a
-// page outside [0, npages) gives zero rows).
-// Replaces scripts/mxu_gather_probe.py:126 paged_kernel (call :146). The
-// TPU read pages[i] by scalar prefetch in its index map; Hopper has none, so
-// each block loads its chunk's page number itself, then runs K11's code on
-// that page.
-__global__ void __launch_bounds__(THREADS)
-paged_kernel(const int32_t* __restrict__ pages, const int32_t* __restrict__ idx, int64_t ch,
-             const int8_t* __restrict__ table, int64_t npages, int64_t wg, int64_t c8,
-             int32_t* __restrict__ out) {
-  extern __shared__ uint32_t sB[];
-  const int64_t i = blockIdx.x;
-  const int64_t pg = pages[i];
-  const bool valid = pg >= 0 && pg < npages;
-  const int64_t p = valid ? pg : 0;
-  onehot_s8_slab(idx + i * ch, ch, table + p * wg * c8, wg, c8, (uint32_t)(p * wg), valid,
-                 out + i * ch * c8, sB);
 }
 
 // ---------------------------------------------------------------------------
@@ -556,24 +746,6 @@ extern "C" int gof_scatmxu(int device, const void* perm, const void* starts, con
   return (int)cudaGetLastError();
 }
 
-static int s8_smem(long long wg) { return (int)(S8_SLAB * ((wg + S8_KPAD) / 4) * 4); }
-
-extern "C" int gof_int8_gather(int device, const void* idx, long long nch, long long ch,
-                               const void* table, long long wg, long long c8, void* out,
-                               void* stream) {
-  if (nch <= 0 || ch <= 0) return 0;
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int smem = s8_smem(wg);
-  const cudaError_t e2 =
-      cudaFuncSetAttribute(int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e2 != cudaSuccess) return (int)e2;
-  const dim3 grid((unsigned)nch, (unsigned)(c8 / S8_SLAB));
-  int8_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)idx, ch, (const int8_t*)table, wg, c8, (int32_t*)out);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int gof_rld(int device, const void* off, long long nch, long long wg, const void* val,
                        long long cv, const void* base, long long bstride, long long ch, void* out,
                        void* stream) {
@@ -590,19 +762,52 @@ extern "C" int gof_rld(int device, const void* off, long long nch, long long wg,
   return (int)cudaGetLastError();
 }
 
-extern "C" int gof_paged_gather(int device, const void* pages, const void* idx, long long nch,
-                                long long ch, const void* table, long long npages, long long wg,
-                                long long c8, void* out, void* stream) {
-  if (nch <= 0 || ch <= 0) return 0;
+
+static int sm_count(int device) {
+  int n = 0;
+  return cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) == cudaSuccess ? n
+                                                                                          : 132;
+}
+
+// tB: the caller's [rows * c8] int8 scratch for the table in wgmma's B layout.
+extern "C" int gof_s8_layout(int device, const void* table, long long rows, long long wg,
+                             long long c8, void* tB, void* stream) {
+  if (rows <= 0) return 0;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int smem = s8_smem(wg);
-  const cudaError_t e2 =
-      cudaFuncSetAttribute(paged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e2 != cudaSuccess) return (int)e2;
-  const dim3 grid((unsigned)nch, (unsigned)(c8 / S8_SLAB));
-  paged_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)pages, (const int32_t*)idx, ch, (const int8_t*)table, npages, wg, c8,
-      (int32_t*)out);
+  s8_layout_kernel<<<(unsigned)stride_blocks(rows * c8 / 16), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)table, rows, wg, c8, (uint4*)tB);
+  return (int)cudaGetLastError();
+}
+
+// order [nch], starts [npages + 2] int32.
+extern "C" int gof_page_group(int device, const void* pages, long long nch, long long npages,
+                              void* order, void* starts, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  page_group_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((const int32_t*)pages, nch, npages,
+                                                        (int32_t*)order, (int32_t*)starts);
+  return (int)cudaGetLastError();
+}
+
+// The one-hot product of K11 (pages, order, starts null: every chunk on
+// page 0 of a [wg, c8] table) and K13 (chunk i on page pages[i]; order and
+// starts from gof_page_group), reading the table in gof_s8_layout's layout.
+extern "C" int gof_s8_onehot(int device, const void* pages, const void* order,
+                             const void* starts, const void* idx, long long nch, long long ch,
+                             const void* tB, long long npages, long long wg, long long c8,
+                             void* out, void* stream) {
+  if (nch <= 0 || ch <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = (int)(wg * S8_SLAB);
+  err = cudaFuncSetAttribute(s8_onehot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long units = (c8 / S8_SLAB) * nch * ((ch + S8_MTILE - 1) / S8_MTILE);
+  const long long sms = sm_count(device);
+  s8_onehot_kernel<<<(unsigned)(units < sms ? units : sms), S8_THREADS, smem,
+                     (cudaStream_t)stream>>>(
+      (const int32_t*)pages, (const int32_t*)order, (const int32_t*)starts, (const int32_t*)idx,
+      nch, ch, (const uint8_t*)tB, npages, wg, c8, (int32_t*)out);
   return (int)cudaGetLastError();
 }

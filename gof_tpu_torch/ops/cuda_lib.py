@@ -48,9 +48,9 @@ _SIGNATURES = {
     "gof_rasterize_bwd": (ctypes.c_int, _PTR, ctypes.c_longlong, _PTR, _PTR, _PTR, _PTR, _PTR,
                           ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                           ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _PTR, _PTR, _PTR, _PTR),
-    # device, rows, R, C, perm, starts, P, out, stream
-    "gof_reduce": (ctypes.c_int, _PTR, ctypes.c_longlong, ctypes.c_int, _PTR, _PTR,
-                   ctypes.c_longlong, _PTR, _PTR),
+    # device, rows_a, ca, rows_b, cb, R, gid, P, workspace, vals, out, stream
+    "gof_reduce": (ctypes.c_int, _PTR, ctypes.c_int, _PTR, ctypes.c_int, _LL, _PTR, _LL, _PTR,
+                   _PTR, _PTR, _PTR),
     # device, payload, cap, seg_s, seg_e, n_blocks, rays, nslots, point_of_slot, n_points, out,
     # stream
     "gof_integrate": (ctypes.c_int, _PTR, ctypes.c_longlong, _PTR, _PTR, ctypes.c_int, _PTR,
@@ -65,12 +65,15 @@ _SIGNATURES = {
     "gof_scat": (ctypes.c_int, _PTR, _LL, _PTR, _LL, _LL, _PTR, _PTR),
     # device, perm, starts, rows, w, page, out, stream
     "gof_scatmxu": (ctypes.c_int, _PTR, _PTR, _PTR, _LL, _LL, _PTR, _PTR),
-    # device, idx, nch, ch, table, wg, c8, out, stream
-    "gof_int8_gather": (ctypes.c_int, _PTR, _LL, _LL, _PTR, _LL, _LL, _PTR, _PTR),
+    # device, table, rows, wg, c8, tB, stream
+    "gof_s8_layout": (ctypes.c_int, _PTR, _LL, _LL, _LL, _PTR, _PTR),
+    # device, pages, nch, npages, order, starts, stream
+    "gof_page_group": (ctypes.c_int, _PTR, _LL, _LL, _PTR, _PTR, _PTR),
+    # device, pages, order, starts, idx, nch, ch, tB, npages, wg, c8, out, stream
+    "gof_s8_onehot": (ctypes.c_int, _PTR, _PTR, _PTR, _PTR, _LL, _LL, _PTR, _LL, _LL, _LL, _PTR,
+                      _PTR),
     # device, off, nch, wg, val, cv, base, bstride, ch, out, stream
     "gof_rld": (ctypes.c_int, _PTR, _LL, _LL, _PTR, _LL, _PTR, _LL, _LL, _PTR, _PTR),
-    # device, pages, idx, nch, ch, table, npages, wg, c8, out, stream
-    "gof_paged_gather": (ctypes.c_int, _PTR, _PTR, _LL, _LL, _PTR, _LL, _LL, _LL, _PTR, _PTR),
 }
 
 
@@ -156,6 +159,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.gof_error_string.argtypes = [ctypes.c_int]
     lib.gof_error_string.restype = ctypes.c_char_p
+    lib.gof_reduce_workspace.argtypes = [_LL, _LL]  # P, R -> int32 words
+    lib.gof_reduce_workspace.restype = _LL
     return lib
 
 

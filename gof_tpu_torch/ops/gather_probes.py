@@ -242,6 +242,85 @@ def _s8_kernel_ok(name: str, wg: int, c8: int) -> None:
                      f"{name}: WG {wg}, C {c8} (need multiples of 64, WG up to 3584)")
 
 
+def _s8_blocks(rows: int, wg: int, c8: int):
+    """A [rows, c8] table's view as the kernel's B blocks: [page, k-step,
+    k half, 16 k bytes, slab, 8-column group, column]."""
+    return (rows // wg, wg // 32, 2, 16, c8 // 64, 8, 8)
+
+
+_S8_ORDER = (0, 4, 1, 2, 5, 6, 3)  # -> [page, slab, k-step, k half, group, column, k byte]
+
+
+def s8_operand_layout_reference(table: torch.Tensor, wg: int) -> torch.Tensor:
+    """The int8 table [npages * wg, c8] in the kernel's B layout, flat: per
+    (page, 64-column slab) one block of wg * 64 bytes; in it per 32-row
+    k-step 2048 bytes, the two 16-row halves 1024 bytes apart, each a run
+    of 8 core matrices (8 columns x 16 k bytes, 128 bytes)."""
+    rows, c8 = table.shape
+    return table.reshape(_s8_blocks(rows, wg, c8)).permute(_S8_ORDER).reshape(-1)
+
+
+def s8_operand_layout_inverse_reference(tB: torch.Tensor, rows: int, wg: int,
+                                        c8: int) -> torch.Tensor:
+    """The [rows, c8] table back from its B layout."""
+    shape = _s8_blocks(rows, wg, c8)
+    inv = [_S8_ORDER.index(i) for i in range(len(_S8_ORDER))]
+    return tB.reshape([shape[i] for i in _S8_ORDER]).permute(inv).reshape(rows, c8)
+
+
+def s8_operand_layout(table: torch.Tensor, wg: int) -> torch.Tensor:
+    """K11/K13's prep pass: `s8_operand_layout_reference` by a kernel on CUDA
+    tensors (wg and c8 multiples of 64)."""
+    if table.device.type == "cpu":
+        return s8_operand_layout_reference(table, wg)
+    rows, c8 = table.shape
+    tB = torch.empty(rows * c8, dtype=torch.int8, device=table.device)
+    cuda_lib.check(cuda_lib.library().gof_s8_layout(table.device.index, table.data_ptr(), rows,
+                                                    wg, c8, tB.data_ptr(),
+                                                    cuda_lib.stream_ptr(table)), "s8_layout")
+    return tB
+
+
+def group_chunks_by_page_reference(pages: torch.Tensor, npages: int):
+    """The chunk ids grouped by page, stably (ascending page; pages outside
+    [0, npages) last), int32 [nch], and where each group starts, int32
+    [npages + 2] (the pages outside the table at starts[npages])."""
+    p = pages.long()
+    bucket = torch.where((p >= 0) & (p < npages), p, npages)
+    order = torch.sort(bucket, stable=True).indices.to(torch.int32)
+    starts = torch.zeros(npages + 2, dtype=torch.int32, device=pages.device)
+    torch.cumsum(torch.bincount(bucket, minlength=npages + 1), 0, out=starts[1:])
+    return order, starts
+
+
+def group_chunks_by_page(pages: torch.Tensor, npages: int):
+    """K13's grouping pass: `group_chunks_by_page_reference` by one warp's
+    counting sort on CUDA tensors, with no host read."""
+    if pages.device.type == "cpu":
+        return group_chunks_by_page_reference(pages, npages)
+    dev = pages.device
+    order = torch.empty(pages.shape[0], dtype=torch.int32, device=dev)
+    starts = torch.empty(npages + 2, dtype=torch.int32, device=dev)
+    cuda_lib.check(cuda_lib.library().gof_page_group(dev.index, pages.data_ptr(), pages.shape[0],
+                                                     npages, order.data_ptr(), starts.data_ptr(),
+                                                     cuda_lib.stream_ptr(pages)), "page_group")
+    return order, starts
+
+
+def _s8_onehot(counter, pages, order, starts, idx, tB, npages: int, wg: int, c8: int):
+    """Launch the one-hot product (csrc/gather_probes.cu::s8_onehot_kernel)
+    into a new [NCH * CH, c8] int32 output."""
+    nch, _, ch = idx.shape
+    out = torch.empty((nch * ch, c8), dtype=torch.int32, device=idx.device)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    rc = cuda_lib.library().gof_s8_onehot(idx.device.index, ptr(pages), ptr(order), ptr(starts),
+                                         idx.data_ptr(), nch, ch, tB.data_ptr(), npages, wg, c8,
+                                         out.data_ptr(), cuda_lib.stream_ptr(idx))
+    cuda_lib.check(rc, counter.name)
+    counter.launches += 1
+    return out
+
+
 def int8_gather_reference(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     wg = table.shape[0]
     j = idx.reshape(-1).long()
@@ -251,19 +330,17 @@ def int8_gather_reference(idx: torch.Tensor, table: torch.Tensor) -> torch.Tenso
 
 def int8_gather(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """K11: idx [NCH, 1, CH] int32, table [WG, C8] int8 -> [NCH * CH, C8]
-    int32, the widened gather by one-hot int8 products."""
+    int32, the widened gather by one-hot int8 products: K13's kernel with
+    every chunk on page 0."""
     _check_idx("int8_gather", idx)
     _check("int8_gather", ("table", table, torch.int8, 2))
     cuda_lib.require(table.shape[0] > 0, "int8_gather: empty table")
     if _on_cpu(idx, table):
         return int8_gather_reference(idx, table)
     _require_cuda("int8_gather", idx, table)
-    nch, _, ch = idx.shape
     wg, c8 = table.shape
     _s8_kernel_ok("int8_gather", wg, c8)
-    out = torch.empty((nch * ch, c8), dtype=torch.int32, device=table.device)
-    _launch(INT8, table, idx.data_ptr(), nch, ch, table.data_ptr(), wg, c8, out.data_ptr())
-    return out
+    return _s8_onehot(INT8, None, None, None, idx, s8_operand_layout(table, wg), 1, wg, c8)
 
 
 def paged_gather_reference(pages: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
@@ -279,7 +356,9 @@ def paged_gather_reference(pages: torch.Tensor, idx: torch.Tensor, table: torch.
 def paged_gather(pages: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
                  wg: int = 2048) -> torch.Tensor:
     """K13: pages [NCH] int32, idx [NCH, 1, CH] int32, table [npages * WG, C8]
-    int8 -> [NCH * CH, C8] int32: chunk i gathers from page pages[i] only."""
+    int8 -> [NCH * CH, C8] int32: chunk i gathers from page pages[i] only.
+    On CUDA: the B layout pass, the grouping of chunks by page, then the
+    one-hot product, which stages each (page, slab) once per block."""
     _check_idx("paged_gather", idx)
     _check("paged_gather", ("pages", pages, torch.int32, 1), ("table", table, torch.int8, 2))
     cuda_lib.require(pages.shape[0] == idx.shape[0],
@@ -289,13 +368,12 @@ def paged_gather(pages: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
     if _on_cpu(pages, idx, table):
         return paged_gather_reference(pages, idx, table, wg)
     _require_cuda("paged_gather", pages, idx, table)
-    nch, _, ch = idx.shape
     c8 = table.shape[1]
     _s8_kernel_ok("paged_gather", wg, c8)
-    out = torch.empty((nch * ch, c8), dtype=torch.int32, device=table.device)
-    _launch(PAGED, table, pages.data_ptr(), idx.data_ptr(), nch, ch, table.data_ptr(),
-            table.shape[0] // wg, wg, c8, out.data_ptr())
-    return out
+    npages = table.shape[0] // wg
+    order, starts = group_chunks_by_page(pages, npages)
+    return _s8_onehot(PAGED, pages, order, starts, idx, s8_operand_layout(table, wg), npages, wg,
+                      c8)
 
 
 # ---------------------------------------------------------------------------

@@ -500,11 +500,11 @@ def rasterize_bwd(payload, fout, gout, binning: Binning, meta_vec, ntx: int, nti
 
 def reduce_compact_rows(dslot, gidc, stats, P: int):
     """Per-gaussian sums of the compacted gradient rows: ([P, 16], [P, 3] or
-    None), through one reduction over the 16 (+8) columns (ops/reduce.py)."""
-    from .reduce import reduce_rows_by_gid
+    None), through one reduction over the 16 (+8) columns of the two row
+    arrays, with no concatenation (ops/reduce.py)."""
+    from .reduce import reduce_row_blocks
 
-    rows = dslot if stats is None else torch.cat([dslot, stats], dim=0)
-    per = reduce_rows_by_gid(rows, gidc, P)
+    per = reduce_row_blocks([dslot] if stats is None else [dslot, stats], gidc, P)
     return per[:, :P_COLS], (None if stats is None else per[:, P_COLS:P_COLS + 3])
 
 

@@ -247,12 +247,55 @@ def test_reduce_kernel_matches_plain_and_is_deterministic(dev, C, R, P):
     before = red.REDUCE.launches
     got = red.reduce_rows_by_gid(rows, gid, P)
     assert red.REDUCE.launches == before + 1
-    want = red.reduce_rows_by_gid_reference(rows, gid, P)
+    # bit for bit: the kernel and the plain version on the CPU both sum each
+    # id's rows in ascending row order from +0.0
+    want = red.reduce_rows_by_gid_reference(rows.cpu(), gid.cpu(), P)
     assert tuple(got.shape) == (P, C)
-    assert float((got - want).abs().max()) <= BWD_BOUND * float(want.abs().max())
+    assert torch.equal(got.cpu(), want)
     assert torch.equal(got, red.reduce_rows_by_gid(rows, gid, P))
     sentinel = red.reduce_rows_by_gid(rows, torch.full_like(gid, P), P)
     assert not sentinel.any()
+
+
+@pytest.mark.parametrize("kind", ["one_id_5000_rows", "all_rows_on_one_id"])
+def test_reduce_kernel_skewed_ids_bit_exact(dev, kind):
+    """Ids far past a warp's bucket (the block path) and every row on one
+    id, through the two-array entry the backward uses."""
+    from gof_tpu_torch.ops import reduce as red
+
+    R, P = 240_000, 100_000
+    g = torch.Generator().manual_seed(5)
+    rows = torch.randn((24, R), generator=g) * 10.0 ** torch.randint(-3, 4, (1, R), generator=g)
+    gid = torch.randint(0, P + 1, (R,), generator=g, dtype=torch.int32)
+    if kind == "one_id_5000_rows":
+        gid[torch.randperm(R, generator=g)[:5000]] = 777
+    else:
+        gid[:] = 4242
+    blocks = [rows[:16].contiguous().to(dev), rows[16:].contiguous().to(dev)]
+    got = red.reduce_row_blocks(blocks, gid.to(dev), P)
+    assert torch.equal(got.cpu(), red.reduce_rows_by_gid_reference(rows, gid, P))
+    assert torch.equal(got, red.reduce_row_blocks(blocks, gid.to(dev), P))
+
+
+@pytest.mark.parametrize("C", [1, 7, 40])
+def test_reduce_kernel_column_counts_bit_exact(dev, C):
+    """Column counts off the 4-float row padding and past one warp's 32
+    lanes, with short, warp-sized (40 rows) and block-sized (600 rows)
+    buckets, split into two row arrays where C allows."""
+    from gof_tpu_torch.ops import reduce as red
+
+    R, P = 20_000, 3_000
+    g = torch.Generator().manual_seed(C)
+    rows = torch.randn((C, R), generator=g)
+    gid = torch.randint(0, P + 1, (R,), generator=g, dtype=torch.int32)
+    perm = torch.randperm(R, generator=g)
+    gid[perm[:40]] = 11
+    gid[perm[40:640]] = 12
+    blocks = [rows.to(dev)] if C == 1 else [rows[:C // 2].contiguous().to(dev),
+                                            rows[C // 2:].contiguous().to(dev)]
+    got = red.reduce_row_blocks(blocks, gid.to(dev), P)
+    assert tuple(got.shape) == (P, C)
+    assert torch.equal(got.cpu(), red.reduce_rows_by_gid_reference(rows, gid, P))
 
 
 def test_bwd_and_reduce_wrappers_check_inputs(dev):
@@ -510,6 +553,45 @@ def test_probe_int8_and_paged_match_plain(dev, shapes):
     got = gp.paged_gather(pages_t, pidx_t, big, wg)
     assert torch.equal(got, gp.paged_gather_reference(pages_t, pidx_t, big, wg))
     assert bool(got[:s["ch"]].any())
+
+
+@pytest.mark.parametrize("case", ["single_page", "few_chunks"])
+@pytest.mark.parametrize("shapes", list(PROBE_SHAPES))
+def test_probe_int8_and_paged_single_page_and_few_chunks(dev, shapes, case):
+    """Every chunk on one page, and 3 chunks: fewer than the product's
+    persistent blocks, so blocks split a chunk's m-tiles."""
+    from gof_tpu_torch.ops import gather_probes as gp
+
+    _, s = PROBE_SHAPES[shapes]
+    rng = np.random.default_rng(15)
+    wg, c8, ch = s["wg"], s["c8"], s["ch"]
+    nch = s["nch"] if case == "single_page" else 3
+    pages = np.full(nch, 5, np.int32) if case == "single_page" else np.array([6, -1, 0], np.int32)
+    big = torch.from_numpy(rng.integers(-128, 128, (8 * wg, c8)).astype(np.int8)).to(dev)
+    pidx = np.stack([rng.integers(p * wg - 8, (p + 1) * wg + 8, ch) for p in pages])[:, None]
+    pages_t, pidx_t = torch.from_numpy(pages).to(dev), torch.from_numpy(pidx.astype(np.int32)).to(dev)
+    got = gp.paged_gather(pages_t, pidx_t, big, wg)
+    assert torch.equal(got, gp.paged_gather_reference(pages_t, pidx_t, big, wg))
+    assert bool(got[:ch].any())
+    tbl = big[:wg].contiguous()
+    idx = torch.from_numpy(rng.integers(-8, wg + 8, (nch, 1, ch)).astype(np.int32)).to(dev)
+    assert torch.equal(gp.int8_gather(idx, tbl), gp.int8_gather_reference(idx, tbl))
+
+
+@pytest.mark.parametrize("shapes", list(PROBE_SHAPES))
+def test_probe_int8_helpers_match_plain(dev, shapes):
+    """K13's grouping pass and the B-layout pass against their plain twins."""
+    from gof_tpu_torch.ops import gather_probes as gp
+
+    _, s = PROBE_SHAPES[shapes]
+    rng = np.random.default_rng(16)
+    pages = torch.from_numpy(rng.integers(-2, 10, s["nch"]).astype(np.int32))
+    order, starts = gp.group_chunks_by_page(pages.to(dev), 8)
+    want = gp.group_chunks_by_page_reference(pages, 8)
+    assert torch.equal(order.cpu(), want[0]) and torch.equal(starts.cpu(), want[1])
+    big = torch.from_numpy(rng.integers(-128, 128, (8 * s["wg"], s["c8"])).astype(np.int8))
+    got = gp.s8_operand_layout(big.to(dev), s["wg"])
+    assert torch.equal(got.cpu(), gp.s8_operand_layout_reference(big, s["wg"]))
 
 
 @pytest.mark.parametrize("shapes", list(PROBE_SHAPES))

@@ -294,3 +294,69 @@ def test_entry_points_need_cuda_without_cpu_flag():
     for mod in (pallas_gather_probe, mxu_gather_probe):
         with pytest.raises(RuntimeError):
             mod.main([])
+
+
+@pytest.mark.parametrize("kind", ["random", "single_page", "all_outside"])
+def test_group_chunks_by_page_is_a_stable_argsort(kind):
+    """K13's grouping of chunk ids by page: a stable argsort of the pages
+    (pages outside [0, npages) last), and each group's start."""
+    rng = np.random.default_rng(8)
+    npages = 8
+    pages = {"random": rng.integers(-3, npages + 3, 500), "single_page": np.full(300, 5),
+             "all_outside": rng.choice([-1, npages, I32_MAX, I32_MIN], 40)}[kind].astype(np.int32)
+    order, starts = gp.group_chunks_by_page(torch.from_numpy(pages), npages)
+    bucket = np.where((pages >= 0) & (pages < npages), pages, npages)
+    np.testing.assert_array_equal(order.numpy(), np.argsort(bucket, kind="stable"))
+    np.testing.assert_array_equal(
+        starts.numpy(), np.concatenate([[0], np.cumsum(np.bincount(bucket, minlength=npages + 1))]))
+
+
+@pytest.mark.parametrize("rows,wg,c8", [(256, 256, 128), (8 * 192, 192, 64), (2048, 2048, 128)])
+def test_s8_operand_layout_is_a_permutation_its_inverse_undoes(rows, wg, c8):
+    """The B layout K11/K13's product reads: every table byte once, at
+    ((page * slabs + slab) * (wg / 32) + k-step) * 2048 + half * 1024
+    + column * 16 + k byte; the inverse restores the table."""
+    rng = np.random.default_rng(9)
+    table = torch.from_numpy(rng.integers(-128, 128, (rows, c8)).astype(np.int8))
+    tB = gp.s8_operand_layout(table, wg)
+    assert tB.shape == (rows * c8,)
+    assert torch.equal(torch.sort(tB).values, torch.sort(table.reshape(-1)).values)
+    assert torch.equal(gp.s8_operand_layout_inverse_reference(tB, rows, wg, c8), table)
+    t = table.numpy()
+    for r, c in zip(rng.integers(0, rows, 50), rng.integers(0, c8, 50)):
+        page, k = divmod(int(r), wg)
+        kstep, kk = divmod(k, 32)
+        half, kb = divmod(kk, 16)
+        slab, col = divmod(int(c), 64)
+        off = ((page * (c8 // 64) + slab) * (wg // 32) + kstep) * 2048 + half * 1024 + col * 16 + kb
+        assert int(tB[off]) == int(t[r, c])
+
+
+@pytest.mark.parametrize("page", [0, 3, 7])
+def test_paged_gather_single_page_matches_pallas(mxu_probe, page):
+    """Every chunk on one page (K13's grouping gives one group)."""
+    c = SMALL_MXU
+    wg = c["WG"]
+    rng = np.random.default_rng(10 + page)
+    big = rng.integers(-128, 128, (wg * 8, c["C8"])).astype(np.int8)
+    pages = np.full(c["NCH"], page, np.int32)
+    idx = rng.integers(page * wg - 8, (page + 1) * wg + 8, (c["NCH"], 1, c["CH"])).astype(np.int32)
+    want = np.asarray(mxu_probe["paged_gather"](jnp.asarray(pages), jnp.asarray(idx),
+                                                jnp.asarray(big)))
+    got = gp.paged_gather(torch.from_numpy(pages), torch.from_numpy(idx), torch.from_numpy(big),
+                          wg=wg)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_paged_gather_pages_outside_the_table_give_zero_rows():
+    """The port's rule for a page outside [0, npages) (the TPU kernel's
+    block index would leave the table there)."""
+    wg, c8 = 64, 64
+    rng = np.random.default_rng(11)
+    big = torch.from_numpy(rng.integers(-128, 128, (wg * 4, c8)).astype(np.int8))
+    pages = torch.tensor([-1, 4, 2, I32_MIN], dtype=torch.int32)
+    idx = torch.from_numpy(rng.integers(0, 4 * wg, (4, 1, 32)).astype(np.int32))
+    idx[2, 0] = torch.arange(2 * wg, 2 * wg + 32)
+    got = gp.paged_gather(pages, idx, big, wg=wg).reshape(4, 32, c8)
+    assert not got[[0, 1, 3]].any()
+    assert torch.equal(got[2], big[2 * wg:2 * wg + 32].to(torch.int32))

@@ -92,3 +92,71 @@ def test_segment_order_is_a_stable_sort_with_starts(R, P):
     np.testing.assert_array_equal(perm.numpy(), np.argsort(ids, kind="stable"))
     np.testing.assert_array_equal(starts.numpy(),
                                   np.searchsorted(np.sort(ids), np.arange(P + 1), side="left"))
+
+
+def skewed_case(kind: str, R=6000, P=300, seed=2):
+    """One id owning most rows, or every row on one id, amid the sentinel."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, P + 1, R).astype(np.int32)
+    if kind == "one_id_4500_rows":
+        ids[rng.permutation(R)[:4500]] = 17
+    else:
+        ids[:] = 0
+    rows = (rng.normal(size=(24, R)) * 10.0 ** rng.integers(-4, 5, (1, R))).astype(np.float32)
+    return rows, ids, P
+
+
+@pytest.mark.parametrize("kind", ["one_id_4500_rows", "all_rows_on_one_id"])
+def test_reduce_skewed_ids_match_segment_sum(kind):
+    rows, ids, P = skewed_case(kind)
+    got = tred.reduce_rows_by_gid(torch.from_numpy(rows), torch.from_numpy(ids), P)
+    seg = np.asarray(jax.ops.segment_sum(jnp.asarray(rows).T, jnp.asarray(ids),
+                                         num_segments=P + 1)[:P])
+    np.testing.assert_allclose(got.numpy(), seg, rtol=1e-5, atol=1e-5 * np.abs(seg).max())
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one_id_4500_rows", "all_rows_on_one_id"])
+def test_plain_reduce_folds_each_id_in_ascending_row_order(kind):
+    """The plain version is, bit for bit, 0.0 + r_0 + r_1 + ... over each
+    id's rows in ascending row order (f32): the order K4 sums in."""
+    if kind == "uniform":
+        rows, ids = case(3000, 40, seed=5)
+        rows = (rows * 10.0 ** np.random.default_rng(6).integers(-4, 5, (1, 3000))).astype(np.float32)
+        P = 40
+    else:
+        rows, ids, P = skewed_case(kind)
+    got = tred.reduce_rows_by_gid(torch.from_numpy(rows), torch.from_numpy(ids), P).numpy()
+    want = np.zeros((P, rows.shape[0]), np.float32)
+    for r, g in enumerate(ids):
+        if g < P:
+            want[g] = want[g] + rows[:, r]
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one_id_4500_rows", "all_rows_on_one_id",
+                                  "all_sentinel"])
+def test_bucket_order_is_segment_order(kind):
+    """K4's bucket order (rows by id, ascending row in an id, sentinel rows
+    dropped) is segment_order's stable sort up to the sentinel's segment."""
+    if kind == "uniform":
+        _, ids = case(3000, 40, seed=7)
+        P = 40
+    elif kind == "all_sentinel":
+        ids, P = np.full(500, 33, np.int32), 33
+    else:
+        _, ids, P = skewed_case(kind)
+    order, starts = tred.bucket_order_reference(torch.from_numpy(ids), P)
+    perm, seg_starts = tred.segment_order(torch.from_numpy(ids), P)
+    np.testing.assert_array_equal(starts.numpy(), seg_starts.numpy())
+    np.testing.assert_array_equal(order.numpy(), perm[:int(seg_starts[P])].numpy())
+
+
+def test_reduce_row_blocks_equals_the_stacked_rows():
+    rows, ids = case(2048, 100, 3)
+    t, g = torch.from_numpy(rows), torch.from_numpy(ids)
+    got = tred.reduce_row_blocks([t[:16], t[16:]], g, 100)
+    assert torch.equal(got, tred.reduce_rows_by_gid(t, g, 100))
+    with pytest.raises(ValueError):
+        tred.reduce_row_blocks([t[:8], t[8:16], t[16:]], g, 100)
+    with pytest.raises(ValueError):
+        tred.reduce_row_blocks([t[:16], t[16:, :100]], g, 100)
