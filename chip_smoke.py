@@ -6,7 +6,8 @@ paths and its gather/scatter probes once on one CUDA GPU.
 
 1. preflight: torch, CUDA, the card's name and power limit, nvcc;
 2. build the CUDA kernels of gof_tpu_torch/csrc with nvcc (sm_90a, one nvcc
-   per source, in parallel);
+   per source, in parallel); print ptxas's registers and spills and each
+   kernel's tensor-core, FMA and special-function SASS;
 3. make a 100k-gaussian model (bench.py's make_state recipe, seed 1, SH
    degree 3, kernel_size 0.1, filter_3d 1e-4) as a gof_tpu-format model
    directory, and a Blender-format source scene with 4 test views at
@@ -41,26 +42,33 @@ paths and its gather/scatter probes once on one CUDA GPU.
    run-length decode, paged gather) and the binning's sorts: each kernel
    launched, bit-equal to its plain version and to torch.index_select where
    that computes the same function, the segment sums within rtol 1e-5 /
-   atol 1e-5 x max |plain| and K10 bit-identical across launches; each
-   timed beside its plain version, its library call and its bound; K11 and
-   K13 also on every chunk on one page, on fewer chunks than the product's
-   persistent blocks and on pages outside the table;
+   atol 1e-5 x max |plain| on the card; K10 bit-equal to its plain version
+   on CPU copies and across launches, also with one id owning 5000+ rows,
+   every row on one id and every row on the sentinel; each timed beside its
+   plain version, its library call and its bound; K11 and K13 also on every
+   chunk on one page, on fewer chunks than the product's persistent blocks
+   and on pages outside the table;
 9. the bench design point: bench.py's model, look-at camera and seeded
    random ground truth, through the port's build_train_step in bench's two
    phases (statistics on, regularizers off, step 5000; statistics off,
    regularizers on, step 20000): the median step time, the time of each
    layer of the step by CUDA events, the device idle share from
    torch.profiler, and all four kernels held against their plain versions
-   at that view's shapes (K3's gaussian-id stream exactly; K3 bit-identical
-   across two launches; K4 bit-identical to its plain version on CPU copies
-   and across launches, also with one id owning 5000+ rows, every row on
-   one id and every row on the sentinel), each timed beside its plain
-   version and its library call, with its bound;
-10. profile single calls of K4, K11 and K13 (device time of each kernel
-   they launch) beside PyTorch's transposing copy of K4's rows;
-11. print the kernels' JSON line (the four of the first bench phase, K5 and
-   K6-K13, each with its bound and library time), the card's name and power
-   limit, and as the last line {"ok": true, "device": {...}}.
+   at that view's shapes: K3 in the phase's (REG, STATS) instance and the
+   one with the statistics flipped (its gaussian-id stream exactly, its
+   recomputed T equal to the forward's at every pixel, bit-identical across
+   two launches); K4 on the backward's row buffer bit-identical to its
+   plain version on CPU copies and across launches, also with one id
+   owning 5000+ rows, every row on one id and every row on the sentinel,
+   timed beside its column-major entry, whose result must equal it; each
+   timed beside its plain version and its library call, with
+   its bound (K3's counted per instance from this view's active pairs);
+10. profile single calls of K3, K4 (both entries), K10, K11 and K13 (device
+   time of each kernel they launch) in each phase;
+11. print the kernels' JSON line (the four of the first bench phase, K3 and
+   K4 of the second, K5 and K6-K13, each with its bound and library time),
+   the card's name and power limit, and as the last line
+   {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, if there is no CUDA device, if any
 kernel fails to build or launch, or if any check fails. Needs no network.
@@ -114,6 +122,33 @@ def preflight() -> str:
     return smi
 
 
+SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "FFMA", "FMUL", "FADD", "MUFU", "SHFL", "FSEL",
+            "SEL", "BRA", "BSSY", "WARPSYNC")
+
+
+def sass_counts(path) -> dict:
+    """Per kernel of a built library, how many of each SASS_OPS instruction
+    it compiled to (wgmma is GMMA in SASS); {} without cuobjdump."""
+    from gof_tpu_torch.ops import cuda_lib
+
+    cuobjdump = os.path.join(os.path.dirname(cuda_lib.find_nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return {}
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                          timeout=120).stdout
+    fn, counts = None, {}
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            continue
+        words = [w for w in line.split("*/", 1)[-1].split() if not w.startswith("@")]
+        op = words[0].split(".")[0] if fn and words else ""
+        if op in SASS_OPS:
+            counts.setdefault(fn, {}).setdefault(op, 0)
+            counts[fn][op] += 1
+    return counts
+
+
 def build() -> None:
     from gof_tpu_torch.ops import cuda_lib
 
@@ -122,26 +157,14 @@ def build() -> None:
     cuda_lib.library()
     print(f"build: {path} in {time.perf_counter() - t0:.1f} s")
     for line in cuda_lib.build_log().splitlines():
-        if "registers" in line or "smem" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "smem", "spill", "Compiling entry")):
             print(f"  ptxas: {line.strip()}")
-    # the tensor-core instructions each kernel compiled to (wgmma is GMMA in SASS)
-    cuobjdump = os.path.join(os.path.dirname(cuda_lib.find_nvcc()), "cuobjdump")
-    if not os.path.exists(cuobjdump):
-        print("sass: cuobjdump not found; tensor-core instructions not counted")
-        return
-    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
-                          timeout=120).stdout
-    fn, counts = None, {}
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-        elif fn and ("GMMA" in line or "HMMA" in line or "IMMA" in line):
-            words = [w for w in line.split("*/", 1)[-1].split() if not w.startswith("@")]
-            op = words[0].split(".")[0] if words else "?"
-            counts.setdefault(fn, {}).setdefault(op, 0)
-            counts[fn][op] += 1
-    for fn, c in counts.items():
-        print(f"  sass: {fn}: {c}")
+    # the instructions the blends and the tensor-core kernels compiled to:
+    # tensor-core products, FMAs, the special-function unit's, shuffles,
+    # selects and branches
+    for fn, c in sass_counts(path).items():
+        if "bwd_kernel" in fn or "fwd_kernel" in fn or "MMA" in "".join(c):
+            print(f"  sass: {fn}: {c}")
 
 
 def make_model(n: int, seed: int, sigma: float = -3.2):
@@ -422,8 +445,65 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 # f32 operations per (pixel or point, gaussian row) pair, as the kernels'
-# sources count them (csrc/rasterize_fwd.cu, rasterize_bwd.cu, integrate.cu)
-OPS_PER_PAIR = {"rasterize_fwd": 60, "rasterize_bwd": 130, "integrate": 42}
+# sources count them (csrc/rasterize_fwd.cu, integrate.cu)
+OPS_PER_PAIR = {"rasterize_fwd": 60, "integrate": 42}
+# K3's f32 operations as csrc/rasterize_bwd.cu writes them (an expf, a
+# divide, an rsqrtf count one each): the transmittance chain for every
+# visited (pixel, row) pair; the gradient chain for the active pairs only,
+# with the regularizers' and the statistics' terms in the instances that
+# have them. The per-visit warp sums (16-21 adds a warp) are not counted.
+BWD_OPS = {"chain": 40, "grad": 53, "reg": 81, "stats": 23}
+
+
+def bwd_ops(visited_pairs: int, active_pairs: int, with_stats: bool, with_reg: bool) -> int:
+    grad = BWD_OPS["grad"] + BWD_OPS["reg"] * with_reg + BWD_OPS["stats"] * with_stats
+    return visited_pairs * BWD_OPS["chain"] + active_pairs * grad
+
+
+def active_pairs(payload, b, fout, meta, ntx: int, ntiles: int) -> int:
+    """The visited (pixel, row) pairs whose activity test passes (t > 0.2
+    and alpha >= 1/255, rows of the tile's segment in the windows it
+    walked): one torch pass of the transmittance chain's test, 128 tiles
+    at a time."""
+    from gof_tpu_torch.constants import ALPHA_MAX, ALPHA_MIN, NEAR_PLANE
+    from gof_tpu_torch.ops import rasterize as rz
+
+    chunk, dev = rz.CHUNK_SIZE, payload.device
+    pay_rows, cap = payload.T, payload.shape[1]
+    bounds = b.bounds.long()
+    live = fout[:, rz.CH_LIVEC, 0].long()
+    fx, fy, half_w, half_h = meta[0, 0], meta[0, 1], meta[0, 5], meta[0, 6]
+    lane = torch.arange(rz.NPIX, device=dev)
+    rows = torch.arange(chunk, device=dev)
+    total = 0
+    for t0 in range(0, ntiles, 128):
+        tids = torch.arange(t0, min(t0 + 128, ntiles), device=dev)
+        seg_s, seg_e = bounds[tids], bounds[tids + 1]
+        base = torch.div(seg_s, chunk, rounding_mode="floor") * chunk
+        nc = torch.where(seg_e > seg_s, torch.div(seg_e - base + chunk - 1, chunk,
+                                                  rounding_mode="floor"), 0)
+        nc = torch.minimum(nc, live[tids])
+        tx = ((tids % ntx) * 32).float()[:, None] + (lane % 32).float()
+        ty = ((tids // ntx) * 32).float()[:, None] + (lane // 32).float()
+        rx = ((tx + 0.5 - half_w) / fx)[:, None, :]
+        ry = ((ty + 0.5 - half_h) / fy)[:, None, :]
+        for c in range(int(nc.max()) if len(tids) else 0):
+            g = base[:, None] + c * chunk + rows[None, :]
+            seg = (g >= seg_s[:, None]) & (g < seg_e[:, None]) & (c < nc)[:, None]
+            p = pay_rows[g.clamp(0, cap - 1)]
+
+            def col(k):
+                return p[..., k:k + 1]
+
+            d0 = col(4) * rx + col(5) * ry + col(6)
+            d1 = col(7) * rx + col(8) * ry + col(9)
+            d2 = col(10) * rx + col(11) * ry + col(12)
+            dd = d0 * d0 + d1 * d1 + d2 * d2 + 1e-12
+            t = -(col(13) * d0 + col(14) * d1 + col(15) * d2) / dd
+            mv = ((col(13) + t * d0) ** 2 + (col(14) + t * d1) ** 2 + (col(15) + t * d2) ** 2)
+            a = torch.clamp_max(col(3) * torch.exp(-0.5 * mv), ALPHA_MAX)
+            total += int(((t > NEAR_PLANE) & (a >= ALPHA_MIN) & seg[..., None]).sum())
+    return total
 
 
 def blend_rows(bounds: torch.Tensor, livec: torch.Tensor) -> int:
@@ -851,7 +931,8 @@ def probe_phase() -> list:
     kernel launched (its counter over the two runs), bit-equal to its plain
     version (and to torch.index_select where that computes the same
     function), K9/K10 within rtol 1e-5 / atol 1e-5 x max |plain| of theirs
-    and of index_add_, K10 bit-identical across launches."""
+    and of index_add_ on the card; then K10 bit-equal to its plain version
+    on CPU copies and across launches (check_scatmxu_cases)."""
     from gof_tpu_torch.ops import gather_probes as gp
     from gof_tpu_torch.scripts import mxu_gather_probe, pallas_gather_probe
 
@@ -875,10 +956,12 @@ def probe_phase() -> list:
             bad.append(name)
     if bad or not mxu["sort_ordered"]:
         raise RuntimeError(f"probe kernels failed their checks or never launched: {bad}")
+    check_scatmxu_cases()
     check_int8_cases()
     out = []
     for name, r in res.items():
-        e = {"name": name, "route": "cuda", "source": "gof_tpu_torch/csrc/gather_probes.cu",
+        src = "reduce.cu" if name == "scatmxu" else "gather_probes.cu"
+        e = {"name": name, "route": "cuda", "source": f"gof_tpu_torch/csrc/{src}",
              "replaces": PROBE_REPLACES[name], "launches": launches[name],
              "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -887,6 +970,35 @@ def probe_phase() -> list:
             e["product_bound_ms"] = r["product_bound_ms"]
         out.append(e)
     return out
+
+
+def check_scatmxu_cases() -> None:
+    """K10 at the script's shapes (PAGE 16384, W 32, 524,288 rows) on the
+    script's ids, one id owning 5000+ rows, every row on one id and every
+    row on the sentinel: bit-equal to its plain version on CPU copies (both
+    fold each id's rows in ascending input row from +0.0) and across two
+    launches."""
+    from gof_tpu_torch.ops import gather_probes as gp
+    from gof_tpu_torch.scripts import pallas_gather_probe
+
+    page = 16384
+    _, idx, rows_np = pallas_gather_probe.inputs(page, 2048, 256)
+    rows = torch.from_numpy(rows_np)
+    skew = idx.copy()
+    skew.reshape(-1)[np.random.default_rng(SEED).permutation(idx.size)[:6000]] = 777
+    results = []
+    for label, ids in (("the script's ids", idx), ("one id owning 5000+ rows", skew),
+                       ("every row on one id", np.full_like(idx, 4242)),
+                       ("every row on the sentinel", np.full_like(idx, page))):
+        i = torch.from_numpy(ids)
+        got = gp.scatmxu(i.cuda(), rows.cuda(), page)
+        again = gp.scatmxu(i.cuda(), rows.cuda(), page)
+        want = gp.scatmxu_reference(i, rows, page)
+        results.append((label, torch.equal(got.cpu(), want), torch.equal(got, again)))
+    print(f"scatmxu (K10) at the script's shapes (equal to the plain version on CPU copies, "
+          f"bit-identical across launches): {results}")
+    if not all(r[1] and r[2] for r in results):
+        raise RuntimeError("K10 disagrees with its plain version")
 
 
 def check_int8_cases() -> None:
@@ -1004,11 +1116,11 @@ def step_layers(g, s, st, tx, gt, cam, opt, model_cfg, with_stats, with_reg, ste
         last = fout[ntiles - 1]
         demand = int(last[rz.CH_CSTART, 0] + last[rz.CH_LIVEC, 0] * rz.CHUNK_SIZE)
         half = (cam.width / 2.0, cam.height / 2.0)
-        dslot, gid, stats = rz.rasterize_bwd(payload, fout, gout, b, meta, ntx, ntiles, *half,
-                                             with_stats=with_stats, with_reg=with_reg,
-                                             compact_cap=max(demand, rz.CHUNK_SIZE))
+        rows, gid = rz.bwd_rows(payload, fout, gout, b, meta, ntx, ntiles, *half,
+                                with_stats=with_stats, with_reg=with_reg,
+                                compact_cap=max(demand, rz.CHUNK_SIZE))
         mark("K3 backward blend (compact-demand read)")
-        per_g, per_s = rz.reduce_compact_rows(dslot, gid, stats, P)
+        per_g, per_s = rz.reduce_compact_rows(rows, gid, P)
         mark("K4 reduce (count, scan, fill, reduce)")
         dM, du0 = rz.quadric_chain(per_g, pre.v2g_M, pre.v2g_u0)
         torch.autograd.backward([pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0],
@@ -1030,8 +1142,12 @@ def step_layers(g, s, st, tx, gt, cam, opt, model_cfg, with_stats, with_reg, ste
                                  pre.radius.detach())
     tbl = torch.stack(ex.cols).contiguous()
     gidx = torch.clamp(ex.gidx, 0, P - 1).to(torch.int32).contiguous()
-    ins = dict(payload=payload, b=b, meta=meta, ntx=ntx, ntiles=ntiles, fout=fout, gout=gout,
-               demand=demand, half=half, P=P, dslot=dslot, gid=gid, stats=stats,
+    with torch.no_grad():  # the last step's payload with and without the statistics columns
+        full = payload if with_stats else rz.build_payload16(
+            pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0, b, conic=pre.conic, mean2d=pre.mean2d)
+    payloads = {True: full, False: full[:rz.P_COLS].contiguous()}
+    ins = dict(payload=payload, payloads=payloads, b=b, meta=meta, ntx=ntx, ntiles=ntiles,
+               fout=fout, gout=gout, demand=demand, half=half, P=P, rows=rows, gid=gid,
                expand=(tbl, gidx))
     return {k: statistics.median(v) for k, v in times.items()}, ins, st, s
 
@@ -1064,48 +1180,71 @@ def profile_steps(step, args, n: int = 3):
     return idle, (tp, st, s)
 
 
-def check_backward_kernels(ins, with_stats: bool, with_reg: bool, launches) -> list:
-    """K3 and K4 against their plain versions at one view's shapes; K4 also
-    on skewed ids."""
+def check_bwd(ins, payload, with_stats: bool, with_reg: bool):
+    """K3 in one (REG, STATS) instance against its plain version at this
+    view's shapes: the gaussian-id stream exact, the rows within GRAD_BOUND
+    x max |plain| per output group (the 16 gradient columns, the 8
+    statistics columns), bit-identical across two launches, and the
+    recomputed T equal to the forward's at every pixel. Returns (the
+    kernel's row buffer and ids, max |err|, the launch's arguments)."""
+    from gof_tpu_torch.ops import rasterize as rz
+
+    args = (payload, ins["fout"], ins["gout"], ins["b"], ins["meta"], ins["ntx"], ins["ntiles"],
+            *ins["half"])
+    kw = dict(with_stats=with_stats, with_reg=with_reg,
+              compact_cap=max(ins["demand"], rz.CHUNK_SIZE))
+    miss = torch.zeros(1, dtype=torch.int32, device="cuda")
+    got = rz.bwd_rows(*args, **kw, t_mismatch=miss)
+    again = rz.bwd_rows(*args, **kw)
+    want = rz.bwd_rows_reference(*args, **kw)
+    torch.cuda.synchronize()
+    gid_exact = torch.equal(got[1], want[1])
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    cols = [("dslot", slice(0, rz.P_COLS))] + ([("stats", slice(rz.P_COLS, None))]
+                                               if with_stats else [])
+    errs = {n: (float((got[0][:, c] - want[0][:, c]).abs().max()),
+                float(want[0][:, c].abs().max())) for n, c in cols}
+    ok = (gid_exact and same and int(miss) == 0
+          and all(e <= GRAD_BOUND * m for e, m in errs.values()))
+    print(f"  rasterize_bwd (REG={int(with_reg)}, STATS={int(with_stats)}): payload "
+          f"{tuple(payload.shape)}, compact rows {ins['demand']}: "
+          + ", ".join(f"{n} max |err| {e:.3e} (max |plain| {m:.3e})" for n, (e, m) in errs.items())
+          + f"; gid stream exact {gid_exact}; bit-identical across launches {same}; pixels whose "
+          f"recomputed T differs from the forward's {int(miss)}")
+    if not ok:
+        raise RuntimeError("rasterize_bwd kernel disagrees with its plain version")
+    return got, max(e for e, _ in errs.values()), (args, kw)
+
+
+def check_backward_kernels(ins, phase: str, with_stats: bool, with_reg: bool, launches) -> list:
+    """K3 against its plain version in this phase's instance and in the one
+    with the statistics flipped; K4 on the phase's row buffer, also on
+    skewed ids, timed beside its column-major entry (which copies the rows
+    row-major and must give the same sums) and index_add_."""
     from gof_tpu_torch.ops import rasterize as rz
     from gof_tpu_torch.ops import reduce as red
 
-    args = (ins["payload"], ins["fout"], ins["gout"], ins["b"], ins["meta"], ins["ntx"],
-            ins["ntiles"], *ins["half"])
-    kw = dict(with_stats=with_stats, with_reg=with_reg,
-              compact_cap=max(ins["demand"], rz.CHUNK_SIZE))
-    got = rz.rasterize_bwd(*args, **kw)
-    again = rz.rasterize_bwd(*args, **kw)
-    want = rz.rasterize_bwd_reference(*args, **kw)
-    torch.cuda.synchronize()
-    gid_exact = torch.equal(got[1], want[1])
-    same = all(torch.equal(x, y) for x, y in zip(got, again) if x is not None)
-    groups = [("dslot", got[0], want[0])] + ([("stats", got[2], want[2])] if with_stats else [])
-    errs = {n: (float((a - w).abs().max()), float(w.abs().max())) for n, a, w in groups}
-    ok = gid_exact and same and all(e <= GRAD_BOUND * m for e, m in errs.values())
-    print(f"  rasterize_bwd: payload {tuple(ins['payload'].shape)}, compact rows "
-          f"{ins['demand']}: " + ", ".join(f"{n} max |err| {e:.3e} (max |plain| {m:.3e})"
-                                            for n, (e, m) in errs.items())
-          + f"; gid stream exact {gid_exact}; bit-identical across launches {same}")
-    if not ok:
-        raise RuntimeError("rasterize_bwd kernel disagrees with its plain version")
-    ms = cuda_ms(lambda: rz.rasterize_bwd(*args, **kw), 10)
-    plain_ms = cuda_ms(lambda: rz.rasterize_bwd_reference(*args, **kw), 3)
+    (rows, gid), err, (args, kw) = check_bwd(ins, ins["payloads"][with_stats], with_stats,
+                                             with_reg)
+    check_bwd(ins, ins["payloads"][not with_stats], not with_stats, with_reg)
+    ms = cuda_ms(lambda: rz.bwd_rows(*args, **kw), 10)
+    plain_ms = cuda_ms(lambda: rz.bwd_rows_reference(*args, **kw), 3)
     print(f"  rasterize_bwd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    visited = blend_rows(ins["b"].bounds, ins["fout"][:, rz.CH_LIVEC, 0])
-    moved = (visited * ins["payload"].shape[0] + ins["fout"].numel() + ins["gout"].numel()
-             + sum(x.numel() for x in got if x is not None))
-    out = [bound({"name": "rasterize_bwd", "route": "cuda",
+    visited = blend_rows(ins["b"].bounds, ins["fout"][:, rz.CH_LIVEC, 0]) * rz.NPIX
+    active = active_pairs(args[0], ins["b"], ins["fout"], ins["meta"], ins["ntx"], ins["ntiles"])
+    print(f"  rasterize_bwd pairs: {visited} visited, {active} active ({active / visited:.4f})")
+    moved = (visited // rz.NPIX * args[0].shape[0] + ins["fout"].numel() + ins["gout"].numel()
+             + rows.numel() + gid.numel())
+    out = [bound({"name": f"rasterize_bwd ({phase})", "route": "cuda",
                   "source": "gof_tpu_torch/csrc/rasterize_bwd.cu",
                   "replaces": "gof_tpu/ops/rasterize_pallas.py:508",
-                  "launches": launches["rasterize_bwd"],
-                  "max_abs_err": max(e for e, _ in errs.values()), "ms": ms, "plain_ms": plain_ms},
-                 4 * moved, visited * rz.NPIX * OPS_PER_PAIR["rasterize_bwd"])]
+                  "launches": launches["rasterize_bwd"], "max_abs_err": err, "ms": ms,
+                  "plain_ms": plain_ms},
+                 4 * moved, bwd_ops(visited, active, with_stats, with_reg))]
 
-    blocks = [got[0]] if not with_stats else [got[0], got[2]]
-    rows = torch.cat(blocks, dim=0)
-    gid, P = got[1], ins["P"]
-    err, _ = check_reduce(blocks, gid, P, "the backward's rows")
+    P = ins["P"]
+    c = rz.P_COLS + (3 if with_stats else 0)
+    err, _ = check_reduce(rows, c, gid, P, "the backward's rows")
     R = gid.shape[0]
     g = torch.Generator().manual_seed(SEED)
     skew = gid.clone()
@@ -1113,70 +1252,95 @@ def check_backward_kernels(ins, with_stats: bool, with_reg: bool, launches) -> l
     for label, ids in (("one id owning 5000+ rows", skew),
                        ("every row on one id", torch.full_like(gid, 4242)),
                        ("every row on the sentinel", torch.full_like(gid, P))):
-        check_reduce(blocks, ids, P, label)
-    ms = cuda_ms(lambda: red.reduce_row_blocks(blocks, gid, P), 20)
-    plain_ms = cuda_ms(lambda: red.reduce_rows_by_gid_reference(rows, gid, P), 5)
-    print(f"  reduce (count, scan, fill, reduce): {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    acc, g64, src = torch.zeros((P + 1, rows.shape[0]), device="cuda"), gid.long(), rows.T
-    out.append(bound({"name": "reduce", "route": "cuda",
+        check_reduce(rows, c, ids, P, label)
+    columns = [rows[:, :rz.P_COLS].T.contiguous()] + (
+        [rows[:, rz.P_COLS:].T.contiguous()] if with_stats else [])
+    cm_equal = torch.equal(red.reduce_row_blocks(columns, gid, P)[:, :c],
+                           red.reduce_row_major(rows, gid, P, c))
+    print(f"  reduce, column-major entry on the same rows: equal to the row-major entry "
+          f"{cm_equal}")
+    if not cm_equal:
+        raise RuntimeError("reduce's column-major entry disagrees with its row-major entry")
+    ms, cm_ms = [], []
+    for _ in range(2):  # in turns: the row buffer, the column-major entry
+        ms.append(cuda_ms(lambda: rz.reduce_compact_rows(rows, gid, P), 20))
+        cm_ms.append(cuda_ms(lambda: red.reduce_row_blocks(columns, gid, P), 20))
+    vals = rows[:, :c]
+    plain_ms = cuda_ms(lambda: red.reduce_rows_by_gid_reference(vals.T, gid, P), 5)
+    print(f"  reduce (count, scan, fill, reduce) on the row buffer: "
+          f"{' / '.join(f'{t:.4f}' for t in ms)} ms; on the column-major arrays (the entry "
+          f"that copies them row-major): {' / '.join(f'{t:.4f}' for t in cm_ms)} ms; plain "
+          f"{plain_ms:.4f} ms")
+    acc, g64 = torch.zeros((P + 1, c), device="cuda"), gid.long()
+    out.append(bound({"name": f"reduce ({phase})", "route": "cuda",
                       "source": "gof_tpu_torch/csrc/reduce.cu",
                       "replaces": "gof_tpu/ops/reduce.py:53", "launches": launches["reduce"],
-                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms},
-                     4 * (rows.numel() + gid.numel() + P * rows.shape[0]),
-                     library_ms=cuda_ms(lambda: acc.index_add_(0, g64, src), 20)))
+                      "max_abs_err": err, "ms": statistics.median(ms), "plain_ms": plain_ms},
+                     4 * (R * c + gid.numel() + P * c),
+                     library_ms=cuda_ms(lambda: acc.index_add_(0, g64, vals), 20)))
     return out
 
 
-def check_reduce(blocks, gid, P: int, label: str):
-    """K4 on the card against its plain version on CPU copies of the same
-    inputs (bit for bit: both sum each id's rows in ascending row order
-    from +0.0), and against itself across two launches. Returns (max |err|,
-    ids with rows)."""
+def check_reduce(rows, c: int, gid, P: int, label: str):
+    """K4's row-major entry on the card against its plain version on CPU
+    copies of the same inputs (bit for bit: both sum each id's rows in
+    ascending row order from +0.0), and against itself across two launches.
+    Returns (max |err|, ids with rows)."""
     from gof_tpu_torch.ops import reduce as red
 
-    r1 = red.reduce_row_blocks(blocks, gid, P)
-    r2 = red.reduce_row_blocks(blocks, gid, P)
-    want = red.reduce_rows_by_gid_reference(torch.cat([b.cpu() for b in blocks]), gid.cpu(), P)
+    r1 = red.reduce_row_major(rows, gid, P, c)
+    r2 = red.reduce_row_major(rows, gid, P, c)
+    want = red.reduce_rows_by_gid_reference(rows[:, :c].T.cpu(), gid.cpu(), P)
     got = r1.cpu()
     equal, same = torch.equal(got, want), torch.equal(r1, r2)
     err = float((got - want).abs().max())
     cnt = torch.bincount(gid.long().clamp(0, P), minlength=P + 1)[:P]
-    print(f"  reduce, {label}: rows {tuple(torch.cat(blocks).shape)}, P {P}, {int((cnt > 0).sum())} "
-          f"ids with rows ({int((cnt > 16).sum())} with more than 16, {int(cnt[cnt > 16].sum())} "
-          f"rows; {int((cnt > 128).sum())} with more than 128), the longest {int(cnt.max())}: "
-          f"equal to the plain version on CPU copies {equal} (max |err| {err:.3e}); "
-          f"bit-identical across launches {same}")
+    print(f"  reduce, {label}: rows {tuple(rows.shape)} ({c} columns), P {P}, "
+          f"{int((cnt > 0).sum())} ids with rows ({int((cnt > 16).sum())} with more than 16, "
+          f"{int(cnt[cnt > 16].sum())} rows; {int((cnt > 128).sum())} with more than 128), the "
+          f"longest {int(cnt.max())}: equal to the plain version on CPU copies {equal} (max |err| "
+          f"{err:.3e}); bit-identical across launches {same}")
     if not (equal and same):
         raise RuntimeError(f"reduce kernel disagrees with its plain version ({label})")
     return err, int((cnt > 0).sum())
 
 
-def profile_kernel_calls(ins) -> None:
-    """torch.profiler over single calls of K4 (this phase's rows), K11 and
-    K13 (the scripts' shapes): the device time of each kernel a call
-    launches, median of 10 calls, each behind a device sleep; beside K4,
-    PyTorch's own transposing copy of the same rows ([C, R] -> [R, C]), the
-    one pass of K4 that moves every value twice."""
+def profile_kernel_calls(ins, probes: bool) -> None:
+    """torch.profiler over single calls of K3 and K4 (this phase's inputs),
+    K4's column-major entry (which copies the rows row-major)
+    and, with `probes`, K10, K11 and K13 (the scripts' shapes): the device
+    time of each kernel a call launches, median of 10 calls, each behind a
+    device sleep."""
     from torch.profiler import ProfilerActivity, profile
 
     from gof_tpu_torch.ops import gather_probes as gp
+    from gof_tpu_torch.ops import rasterize as rz
     from gof_tpu_torch.ops import reduce as red
+    from gof_tpu_torch.scripts import pallas_gather_probe
 
-    blocks = [ins["dslot"]] + ([ins["stats"]] if ins["stats"] is not None else [])
-    gid, P = ins["gid"], ins["P"]
-    rows = torch.cat(blocks)
-    dst = torch.empty((rows.shape[1], rows.shape[0]), device="cuda")
+    rows, gid, P = ins["rows"], ins["gid"], ins["P"]
+    with_stats = rows.shape[1] > rz.P_COLS
+    columns = [rows[:, :rz.P_COLS].T.contiguous()] + (
+        [rows[:, rz.P_COLS:].T.contiguous()] if with_stats else [])
+    args = (ins["payload"], ins["fout"], ins["gout"], ins["b"], ins["meta"], ins["ntx"],
+            ins["ntiles"], *ins["half"])
+    kw = dict(with_stats=with_stats, with_reg=not with_stats,
+              compact_cap=max(ins["demand"], rz.CHUNK_SIZE))
+    _, idx10, rows10 = pallas_gather_probe.inputs(16384, 2048, 256)
+    idx10, rows10 = torch.from_numpy(idx10).cuda(), torch.from_numpy(rows10).cuda()
     rng = np.random.default_rng(0)
     tbl = torch.from_numpy(rng.integers(-128, 128, (2048, 128)).astype(np.int8)).cuda()
     big = torch.from_numpy(rng.integers(-128, 128, (8 * 2048, 128)).astype(np.int8)).cuda()
     idx = torch.from_numpy(rng.integers(0, 2048, (512, 1, 1024)).astype(np.int32)).cuda()
     pages = torch.from_numpy(rng.integers(0, 8, 512).astype(np.int32)).cuda()
     pidx = (idx + pages[:, None, None] * 2048).contiguous()
-    calls = (("K4 reduce", lambda: red.reduce_row_blocks(blocks, gid, P)),
-             ("rows.T copy (PyTorch)", lambda: dst.copy_(rows.T)),
+    calls = (("K3 rasterize_bwd", lambda: rz.bwd_rows(*args, **kw)),
+             ("K4 reduce on the row buffer", lambda: rz.reduce_compact_rows(rows, gid, P)),
+             ("K4 reduce, column-major entry", lambda: red.reduce_row_blocks(columns, gid, P)),
+             ("K10 scatmxu", lambda: gp.scatmxu(idx10, rows10, 16384)),
              ("K11 int8_gather", lambda: gp.int8_gather(idx, tbl)),
              ("K13 paged_gather", lambda: gp.paged_gather(pages, pidx, big, 2048)))
-    for name, fn in calls:
+    for name, fn in calls[:None if probes else 3]:
         fn()
         torch.cuda.synchronize()
         per = {}
@@ -1236,10 +1400,10 @@ def bench_phase(label: str, with_stats: bool, with_reg: bool, step_i: int, launc
     return ins
 
 
-def train_kernels(ins, with_stats, with_reg, launches) -> list:
+def train_kernels(ins, phase: str, with_stats, with_reg, launches) -> list:
     kernels = check_kernels(ins["expand"], (ins["payload"], ins["b"], ins["meta"], ins["ntx"],
                                             ins["ntiles"]), launches)
-    return kernels + check_backward_kernels(ins, with_stats, with_reg, launches)
+    return kernels + check_backward_kernels(ins, phase, with_stats, with_reg, launches)
 
 
 def main() -> None:
@@ -1279,11 +1443,12 @@ def main() -> None:
         probe_kernels = probe_phase()
         ins = bench_phase("densify", True, False, 5000, launches)
         print("  kernels against their plain versions at this view's shapes:")
-        kernels = train_kernels(ins, True, False, launches)
-        profile_kernel_calls(ins)
+        kernels = train_kernels(ins, "densify", True, False, launches)
+        profile_kernel_calls(ins, probes=True)
         ins = bench_phase("regularize", False, True, 20000, launches)
         print("  kernels against their plain versions at this view's shapes:")
-        train_kernels(ins, False, True, launches)
+        kernels += train_kernels(ins, "regularize", False, True, launches)[2:]
+        profile_kernel_calls(ins, probes=False)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"render ms per view: {[s['ms'] for s in stats]}")

@@ -5,8 +5,9 @@
 // table?). gof_tpu built K2 (expand.cu) and its payload path on the TPU's
 // answer; these kernels give the H100's.
 //
-// Replaces the Pallas kernels of scripts/pallas_gather_probe.py (K6-K10) and
-// scripts/mxu_gather_probe.py (K11-K13). Each computes the TPU kernel's
+// Replaces the Pallas kernels of scripts/pallas_gather_probe.py (K6-K9; K10,
+// the deterministic segment sum, runs on K4's counting-sort reduce in
+// reduce.cu) and scripts/mxu_gather_probe.py (K11-K13). Each computes the TPU kernel's
 // function, its edge behaviour included (ops/gather_probes.py states it and
 // holds the plain PyTorch versions). On the TPU the table lived in VMEM
 // (2 MiB); a block's shared memory holds at most 227 KB, so here the table
@@ -255,7 +256,7 @@ onehot_kernel(const int32_t* __restrict__ idx, int64_t n, const uint32_t* __rest
 // rate: 16.8M f32 adds into 524k addresses at the script's shapes. Design:
 // one thread per row element, atomicAdd (a fire-and-forget RED in L2);
 // neighbouring threads add neighbouring columns of one row. The sums depend
-// on the order the adds arrive in; K10 is the deterministic twin.
+// on the order the adds arrive in; K10 (reduce.cu) is the deterministic twin.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(THREADS)
 scat_kernel(const int32_t* __restrict__ idx, int64_t n, const float* __restrict__ rows,
@@ -267,37 +268,6 @@ scat_kernel(const int32_t* __restrict__ idx, int64_t n, const float* __restrict_
     int64_t j = idx[r];
     if (j < 0) j += page;
     if (j >= 0 && j < page) atomicAdd(out + j * w + (t - r * w), __ldg(rows + t));
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K10: the same segment sum, deterministic: the TPU kernel's one-hot
-// product drops every index outside [0, page) (no wrap), and here every
-// (output row, column) is summed in ascending row order, with no atomics,
-// so the result is bit-identical from launch to launch. The wrapper sorts
-// the ids with a stable torch.sort (invalid ids to the sentinel `page`) and
-// finds each id's run with searchsorted: perm [n] int64, starts [page + 1].
-//
-// Replaces scripts/pallas_gather_probe.py:152 scatmxu_kernel (call :169).
-// What bounds it: bytes (the rows, read once through the permutation; at
-// the script's shapes the 64 MiB of rows exceed L2, so each 128-byte row is
-// a random DRAM read). A one-hot f32 product on the tensor cores would run
-// in TF32 and round the rows, so there is none. Design: one warp per output
-// row, lane = column: each step reads one whole 128-byte row.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-scatmxu_kernel(const int64_t* __restrict__ perm, const int64_t* __restrict__ starts,
-               const float* __restrict__ rows, int64_t w, int64_t page,
-               float* __restrict__ out) {
-  const int lane = threadIdx.x % 32;
-  for (int64_t o = ((int64_t)blockIdx.x * THREADS + threadIdx.x) / 32; o < page;
-       o += (int64_t)gridDim.x * NWARPS) {
-    const int64_t s = starts[o], e = starts[o + 1];
-    for (int64_t c = lane; c < w; c += 32) {
-      float acc = 0.0f;
-      for (int64_t j = s; j < e; ++j) acc = acc + __ldg(rows + perm[j] * w + c);
-      out[o * w + c] = acc;
-    }
   }
 }
 
@@ -733,16 +703,6 @@ extern "C" int gof_scat(int device, const void* idx, long long n, const void* ro
   if (err != cudaSuccess) return (int)err;
   scat_kernel<<<(unsigned)stride_blocks(n * w), THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)idx, n, (const float*)rows, w, page, (float*)out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int gof_scatmxu(int device, const void* perm, const void* starts, const void* rows,
-                           long long w, long long page, void* out, void* stream) {
-  if (page <= 0 || w <= 0) return 0;
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  scatmxu_kernel<<<(unsigned)stride_blocks(page * 32), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)perm, (const int64_t*)starts, (const float*)rows, w, page, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,20 @@
 // Per-gaussian sum of the backward's compacted gradient rows, with no key sort.
 //
 // Replaces gof_tpu/ops/reduce.py::_reduce_kernel (launched through
-// sorted_segment_reduce / reduce_rows_by_gid). Input: one or two row arrays
-// [Ca, R] and [Cb, R] f32 (the backward's gradient and statistics columns,
-// C = Ca + Cb) and the ids gid [R] int32. Output out[c, g] = the sum over
-// the rows r with gid[r] == g of rows[c, r], taken in ascending r from +0.0,
-// for g in [0, P); rows whose id lies outside [0, P) (the sentinel P) are
-// dropped. That left fold is the plain version's order (a sequential
-// index_add_), so the result is bit-identical to it and from run to run.
+// sorted_segment_reduce / reduce_rows_by_gid) and, through the row-major
+// entry, scripts/pallas_gather_probe.py:152 scatmxu_kernel (call :169), K10,
+// the probe's deterministic segment sum (ops/gather_probes.py::scatmxu). Output
+// out[c, g] = the sum over the rows r with gid[r] == g of the row's column c,
+// taken in ascending r from +0.0, for g in [0, P); rows whose id lies outside
+// [0, P) (the sentinel P, any negative id) are dropped. That left fold is the
+// plain version's order (a sequential index_add_), so the result is
+// bit-identical to it and from run to run. Two entries:
+//   gof_reduce       one or two column-major arrays [Ca, R] and [Cb, R]
+//                    (C = Ca + Cb columns), copied row-major on the way;
+//   gof_reduce_rows  rows that are already row-major, vals [R, cp] (cp a
+//                    multiple of 4, 16-byte aligned), of which the first c
+//                    columns are summed: the backward blend's row buffer and
+//                    K10's rows.
 //
 // Design: a counting sort of the row indices into P buckets, which is all a
 // reduce into P ids needs, in four kernels after one memset:
@@ -19,10 +26,10 @@
 //          go to a list (one atomic per block);
 //   fill   one thread per row writes its row index into a slot of its
 //          bucket (atomicSub on cnt: the order inside a bucket depends on
-//          the atomics), while other blocks of the same launch copy the
-//          rows' C values to vals, row-major (cp = C rounded up to 4 floats
-//          a row), through shared memory so that reads and writes are
-//          whole lines;
+//          the atomics); for the column-major entry other blocks of the same
+//          launch copy the rows' C values to vals, row-major (cp = C rounded
+//          up to 4 floats a row), through shared memory so that reads and
+//          writes are whole lines;
 //   reduce puts each bucket's row indices in ascending order and folds the
 //          rows' values in that order: a thread per id for buckets of up to
 //          SHORT rows (a bitonic network in registers, each row read as
@@ -35,12 +42,13 @@
 // No float atomics and no general sort: the integer atomics only place
 // rows, and every sum runs in row order.
 //
-// What bounds it: bytes. Each row value is read once, coalesced, written
-// once to vals and read back as whole rows. At the training design point
-// (~234k rows, C = 24, 100k ids, ~29k of them with rows, 3.5k with more
-// than SHORT, the longest ~340) that is ~22 MB each way. Reading the
-// values straight from the [C, R] arrays by row index instead (one 32-byte
-// sector per value) measured slower on the H100.
+// What bounds it: bytes. Each row value is read once, coalesced (the
+// column-major entry also writes it once to vals and reads it back as whole
+// rows). At the training design point (~234k rows, 19 columns used of 24,
+// 100k ids, ~29k of them with rows, 3.5k with more than SHORT, the longest
+// ~340) that is ~22 MB. Reading the values straight from [C, R] arrays by
+// row index instead (one 32-byte sector per value) measured slower on the
+// H100, hence the copy, and hence the backward writing its rows row-major.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -461,26 +469,25 @@ int sm_count(int device) {
 
 }  // namespace
 
-// int32 words of the workspace gof_reduce needs for P ids and R rows.
+// int32 words of the workspace gof_reduce and gof_reduce_rows need for P ids
+// and R rows.
 extern "C" long long gof_reduce_workspace(long long P, long long R) {
   return 2 * (P + 1) + CTR_COUNT + scan_tiles(P) + P + 2 * R;
 }
 
-// rows_a [ca, R] and rows_b [cb, R] f32 (cb may be 0), gid [R] int32 ->
-// out [ca + cb, P] f32. ws: gof_reduce_workspace(P, R) int32 words; vals:
-// [R, cp] f32 scratch, cp = ca + cb rounded up to a multiple of 4.
-extern "C" int gof_reduce(int device, const void* rows_a, int ca, const void* rows_b, int cb,
-                          long long R, const void* gid, long long P, void* ws, void* vals,
-                          void* out, void* stream) {
-  if (P <= 0 || ca + cb <= 0) return 0;
+namespace {
+
+// The four kernels after the memset. When a is null, vals already holds the
+// rows and the fill launch only places them.
+int reduce_rows(int device, const float* a, int ca, const float* b, int cb, long long R,
+                const int32_t* g, long long P, int32_t* ws, float* vals, int cp, int c,
+                float* out, cudaStream_t s) {
+  if (P <= 0 || c <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const Workspace w = carve((int32_t*)ws, P);
+  const Workspace w = carve(ws, P);
   err = cudaMemsetAsync(w.cnt, 0, (size_t)(P + 1 + CTR_COUNT) * sizeof(int32_t), s);
   if (err != cudaSuccess) return (int)err;
-  const int c = ca + cb, cp = (c + 3) / 4 * 4;
-  const int32_t* g = (const int32_t*)gid;
   int32_t* order = w.bucket + R;  // the block path's ordered rows
   if (R > 0) {
     count_kernel<<<(unsigned)blocks_for(R), THREADS, 0, s>>>(g, R, P, w);
@@ -489,10 +496,9 @@ extern "C" int gof_reduce(int device, const void* rows_a, int ca, const void* ro
   scan_kernel<<<(unsigned)scan_tiles(P), THREADS, 0, s>>>(P, w);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (R > 0) {
-    const long long copy_blocks = blocks_for(R);
+    const long long copy_blocks = a ? blocks_for(R) : 0;
     fill_kernel<<<(unsigned)(copy_blocks + blocks_for(R)), THREADS, 0, s>>>(
-        (const float*)rows_a, ca, (const float*)rows_b, cb, g, R, P, cp, w, (int)copy_blocks,
-        (float*)vals);
+        a, ca, b, cb, g, R, P, cp, w, (int)copy_blocks, vals);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   const int sms = sm_count(device);
@@ -502,7 +508,29 @@ extern "C" int gof_reduce(int device, const void* rows_a, int ca, const void* ro
   err = cudaFuncSetAttribute(reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   reduce_kernel<<<(unsigned)blocks, THREADS, smem, s>>>((const float4*)vals, R, P, c, cp, w,
-                                                        long_blocks, giant_blocks, order,
-                                                        (float*)out);
+                                                        long_blocks, giant_blocks, order, out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// rows_a [ca, R] and rows_b [cb, R] f32 (cb may be 0), gid [R] int32 ->
+// out [ca + cb, P] f32. ws: gof_reduce_workspace(P, R) int32 words; vals:
+// [R, cp] f32 scratch, cp = ca + cb rounded up to a multiple of 4.
+extern "C" int gof_reduce(int device, const void* rows_a, int ca, const void* rows_b, int cb,
+                          long long R, const void* gid, long long P, void* ws, void* vals,
+                          void* out, void* stream) {
+  const int c = ca + cb;
+  return reduce_rows(device, (const float*)rows_a, ca, (const float*)rows_b, cb, R,
+                     (const int32_t*)gid, P, (int32_t*)ws, (float*)vals, (c + 3) / 4 * 4, c,
+                     (float*)out, (cudaStream_t)stream);
+}
+
+// vals [R, cp] f32 row-major (cp a multiple of 4, 16-byte aligned), gid [R]
+// int32 -> out [c, P] f32, the sums of the first c <= cp columns. ws:
+// gof_reduce_workspace(P, R) int32 words.
+extern "C" int gof_reduce_rows(int device, const void* vals, long long R, int cp, int c,
+                               const void* gid, long long P, void* ws, void* out, void* stream) {
+  return reduce_rows(device, nullptr, 0, nullptr, 0, R, (const int32_t*)gid, P, (int32_t*)ws,
+                     (float*)vals, cp, c, (float*)out, (cudaStream_t)stream);
 }

@@ -4,12 +4,16 @@ Each source is compiled by its own nvcc process for sm_90a, all started
 together, and the objects are linked into one shared library with a plain C
 interface, loaded with ctypes. The library lands in
 `build/gof_tpu_torch/<hash>/` at the repository root, keyed by a hash of the
-sources and flags, so an edit rebuilds and an unchanged tree reuses it.
-Nothing is built at import: the first kernel launch calls `library()`.
+sources and their flags, so an edit rebuilds and an unchanged tree reuses
+it. Nothing is built at import: the first kernel launch calls `library()`.
 
-`-fmad=false` keeps nvcc from contracting a*b+c into FMAs: each kernel then
-rounds every operation as its plain PyTorch version does, so the two agree
-to the last bit where they run the same operations in the same order.
+Every source but K3's is built with `-fmad=false`, which keeps nvcc from
+contracting a*b+c into FMAs: each kernel then rounds every operation as its
+plain PyTorch version does, so the two agree to the last bit where they run
+the same operations in the same order. K3 (rasterize_bwd.cu) is built with
+contraction on: its transmittance chain, which must keep K1's bits, is
+written with intrinsics that nvcc never contracts, and its gradient chain,
+held to its plain version by tolerance, runs on FMAs.
 """
 
 from __future__ import annotations
@@ -25,13 +29,14 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("expand.cu", "rasterize_fwd.cu", "rasterize_bwd.cu", "reduce.cu", "integrate.cu",
-           "gather_probes.cu")
+EXACT = ("-fmad=false",)
+SOURCES = {  # each source and its own nvcc flags
+    "expand.cu": EXACT, "rasterize_fwd.cu": EXACT, "rasterize_bwd.cu": ("-fmad=true",),
+    "reduce.cu": EXACT, "integrate.cu": EXACT, "gather_probes.cu": EXACT,
+}
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "gof_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (
-    *GENCODE, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libgof_tpu_torch.so"
 
 _PTR = ctypes.c_void_p
@@ -44,13 +49,17 @@ _SIGNATURES = {
     "gof_rasterize_fwd": (ctypes.c_int, _PTR, ctypes.c_longlong, _PTR, _PTR, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, _PTR, _PTR, _PTR),
     # device, payload, cap, slot ids, bounds, fout, gout, meta, ntx, ntiles, halfw, halfh,
-    # with_stats, with_reg, R, dslot, gid, stats, stream
+    # with_stats, with_reg, R, rows, gid, tile order, T mismatches, stream
     "gof_rasterize_bwd": (ctypes.c_int, _PTR, ctypes.c_longlong, _PTR, _PTR, _PTR, _PTR, _PTR,
                           ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _PTR, _PTR, _PTR, _PTR),
+                          ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _PTR, _PTR, _PTR, _PTR,
+                          _PTR),
     # device, rows_a, ca, rows_b, cb, R, gid, P, workspace, vals, out, stream
     "gof_reduce": (ctypes.c_int, _PTR, ctypes.c_int, _PTR, ctypes.c_int, _LL, _PTR, _LL, _PTR,
                    _PTR, _PTR, _PTR),
+    # device, vals, R, cp, c, gid, P, workspace, out, stream
+    "gof_reduce_rows": (ctypes.c_int, _PTR, _LL, ctypes.c_int, ctypes.c_int, _PTR, _LL, _PTR,
+                        _PTR, _PTR),
     # device, payload, cap, seg_s, seg_e, n_blocks, rays, nslots, point_of_slot, n_points, out,
     # stream
     "gof_integrate": (ctypes.c_int, _PTR, ctypes.c_longlong, _PTR, _PTR, ctypes.c_int, _PTR,
@@ -63,8 +72,6 @@ _SIGNATURES = {
     "gof_onehot_gather": (ctypes.c_int, _PTR, _LL, _PTR, _PTR, _LL, _LL, _LL, _PTR, _PTR),
     # device, idx, n, rows, w, page, out, stream
     "gof_scat": (ctypes.c_int, _PTR, _LL, _PTR, _LL, _LL, _PTR, _PTR),
-    # device, perm, starts, rows, w, page, out, stream
-    "gof_scatmxu": (ctypes.c_int, _PTR, _PTR, _PTR, _LL, _LL, _PTR, _PTR),
     # device, table, rows, wg, c8, tB, stream
     "gof_s8_layout": (ctypes.c_int, _PTR, _LL, _LL, _LL, _PTR, _PTR),
     # device, pages, nch, npages, order, starts, stream
@@ -101,8 +108,9 @@ def find_nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name, flags in SOURCES.items():
         h.update(name.encode())
+        h.update(" ".join(flags).encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -119,8 +127,8 @@ def build() -> Path:
     nvcc = find_nvcc()
     tag = f"{os.getpid()}.tmp"
     objs = [out_dir / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
-            for s, o in zip(SOURCES, objs)]
+    cmds = [[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(o), str(CSRC / s)]
+            for (s, flags), o in zip(SOURCES.items(), objs)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for c in cmds]
     logs, failed = [], []

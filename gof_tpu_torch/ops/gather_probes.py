@@ -19,7 +19,9 @@ Edge behaviour, as the Pallas kernels give it (run in interpret mode):
 - scat (K9): `.at[idx].add`: an index in [-PAGE, 0) wraps, others outside
   [0, PAGE) are dropped; summed with atomics, in no fixed order;
 - scatmxu (K10): the segment sum with every index outside [0, PAGE) dropped
-  (no wrap), summed per output row in ascending input row: deterministic;
+  (no wrap), summed per output row in ascending input row: deterministic,
+  and bit-equal to its plain version (on the card, K4's counting-sort
+  reduce, csrc/reduce.cu);
 - int8_gather (K11): int32(table[idx]); an index outside [0, WG) gives zero;
 - rld (K12): run-length decode, out[k] = val[w] for off[w] <= k < off[w+1]
   (the last run open up to 2^30), 0 where no run covers k; the offsets of
@@ -34,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .reduce import segment_order
+from .reduce import sum_rows_by_id
 
 TAKE = cuda_lib.LaunchCounter("take_gather")
 VIDX = cuda_lib.LaunchCounter("vidx_gather")
@@ -217,19 +219,18 @@ def scatmxu_reference(idx: torch.Tensor, rows: torch.Tensor, page: int = 16384) 
 def scatmxu(idx: torch.Tensor, rows: torch.Tensor, page: int = 16384) -> torch.Tensor:
     """K10: the same shapes as scat; indices outside [0, PAGE) are dropped
     and each (row, column) is summed in ascending input row, so the result
-    is bit-identical across launches. The ids are sorted (stable torch.sort)
-    and their runs found by searchsorted before the kernel, as K4's
-    (reduce.segment_order)."""
+    equals the plain version's bit for bit and across launches. On CUDA the
+    rows go as they are ([n, W], W a multiple of 4) into K4's counting-sort
+    reduce (ops/reduce.py::sum_rows_by_id), which drops every id outside
+    [0, PAGE) itself; the result is a [PAGE, W] view of its [W, PAGE]
+    output."""
     _check_scatter("scatmxu", idx, rows, page)
     if _on_cpu(idx, rows):
         return scatmxu_reference(idx, rows, page)
     _require_cuda("scatmxu", idx, rows)
-    perm, starts = segment_order(_ids_in_page(idx, page), page)
-    w = rows.shape[1]
-    out = torch.empty((page, w), dtype=torch.float32, device=rows.device)
-    _launch(SCATMXU, rows, perm.data_ptr(), starts.data_ptr(), rows.data_ptr(), w, page,
-            out.data_ptr())
-    return out
+    out = sum_rows_by_id(rows, idx.reshape(-1), page, rows.shape[1])
+    SCATMXU.launches += 1
+    return out.T
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,10 @@ mapped depth m only, the median-depth gradient goes to the median visit
 only, the 0.99 alpha clamp is ignored in dop and dL/dmv, and the caller
 detaches the dilation coef. Its gradient rows cover the live windows only,
 packed at each tile's CH_CSTART, with the gaussian ids in an int32 stream.
+Both versions write the rows into one row-major buffer, [R, 16] or [R, 24]
+with the statistics in columns 16:24 (`bwd_rows`, which the train step
+calls and whose buffer `reduce_compact_rows` reduces as it is);
+`rasterize_bwd` returns gof_tpu's [16, R] and [8, R] arrays as views of it.
 """
 
 from __future__ import annotations
@@ -430,40 +434,59 @@ def _bwd_tiles(payload, fout, gout, binning, meta_vec, ntx, tids, halfw, halfh,
         PwF = incl[:, CHUNK_SIZE - 1]
 
 
-def rasterize_bwd_reference(payload, fout, gout, binning: Binning, meta_vec, ntx: int,
-                            ntiles: int, halfw: float, halfh: float, with_stats: bool = True,
-                            with_reg: bool = True, compact_cap: int = 0):
-    """Plain version of the backward blend (see `rasterize_bwd`), walking
-    BWD_TILE_BLOCK tiles at a time to bound its memory."""
-    dev, dt = payload.device, payload.dtype
+def _bwd_views(rows, gidc, with_stats: bool):
+    """gof_tpu's outputs as views of the row buffer: (dslot [16, R], gidc,
+    stats [8, R] or None)."""
+    return rows[:, :P_COLS].T, gidc, (rows[:, P_COLS:].T if with_stats else None)
+
+
+def bwd_rows_reference(payload, fout, gout, binning: Binning, meta_vec, ntx: int, ntiles: int,
+                       halfw: float, halfh: float, with_stats: bool = True,
+                       with_reg: bool = True, compact_cap: int = 0):
+    """Plain version of `bwd_rows`, walking BWD_TILE_BLOCK tiles at a time
+    to bound its memory."""
+    dev = payload.device
     R = compact_cap or compact_capacity_for(payload.shape[1], ntiles)
-    dslot = torch.zeros((P_COLS, R), dtype=dt, device=dev)
+    rows = torch.zeros((R, P_COLS + (STAT_COLS if with_stats else 0)), dtype=payload.dtype,
+                       device=dev)
     gidc = torch.zeros((R,), dtype=torch.int32, device=dev)
-    stats = torch.zeros((STAT_COLS, R), dtype=dt, device=dev) if with_stats else None
+    dslot, _, stats = _bwd_views(rows, gidc, with_stats)
     for t0 in range(0, ntiles, BWD_TILE_BLOCK):
         tids = torch.arange(t0, min(t0 + BWD_TILE_BLOCK, ntiles), device=dev)
         _bwd_tiles(payload, fout, gout, binning, meta_vec, ntx, tids, halfw, halfh,
                    with_stats, with_reg, dslot, gidc, stats)
-    return dslot, gidc, stats
+    return rows, gidc
 
 
-def rasterize_bwd(payload, fout, gout, binning: Binning, meta_vec, ntx: int, ntiles: int,
-                  halfw: float, halfh: float, with_stats: bool = True, with_reg: bool = True,
-                  compact_cap: int = 0):
-    """Backward blend.
+def rasterize_bwd_reference(payload, fout, gout, binning: Binning, meta_vec, ntx: int,
+                            ntiles: int, halfw: float, halfh: float, with_stats: bool = True,
+                            with_reg: bool = True, compact_cap: int = 0):
+    """Plain version of `rasterize_bwd`."""
+    return _bwd_views(*bwd_rows_reference(payload, fout, gout, binning, meta_vec, ntx, ntiles,
+                                          halfw, halfh, with_stats, with_reg, compact_cap),
+                      with_stats)
+
+
+def bwd_rows(payload, fout, gout, binning: Binning, meta_vec, ntx: int, ntiles: int,
+             halfw: float, halfh: float, with_stats: bool = True, with_reg: bool = True,
+             compact_cap: int = 0, t_mismatch=None):
+    """The backward blend into one row-major buffer.
 
     payload: [16, CAP], or [24, CAP] with the statistics columns when
     with_stats; fout: the forward's [NTILES, 16, 1024]; gout: its cotangent.
-    Returns (dslot [16, R] f32, gid [R] int32, stats [8, R] f32 or None),
-    R = compact_cap or compact_capacity_for(CAP, ntiles): each tile's live
-    windows land at the forward's CH_CSTART, one row per slot; columns past
-    the walked windows stay zero with gid 0 (a zero add in the reduction).
-    CPU tensors take `rasterize_bwd_reference`; CUDA tensors launch
-    csrc/rasterize_bwd.cu or raise.
+    Returns (rows [R, 16] f32, or [R, 24] with the statistics in columns
+    16:24; gid [R] int32), R = compact_cap or compact_capacity_for(CAP,
+    ntiles): each tile's live windows land at the forward's CH_CSTART, one
+    row per slot; rows past the walked windows stay zero with gid 0 (a zero
+    add in the reduction). CPU tensors take `bwd_rows_reference`; CUDA
+    tensors launch csrc/rasterize_bwd.cu or raise. t_mismatch (CUDA only):
+    an int32 [1] tensor to which the kernel adds the pixels of the tiles it
+    walked whole whose recomputed T differs from the forward's CH_TFINAL (0
+    when its transmittance chain keeps the forward's bits).
     """
     if payload.device.type == "cpu":
-        return rasterize_bwd_reference(payload, fout, gout, binning, meta_vec, ntx, ntiles,
-                                       halfw, halfh, with_stats, with_reg, compact_cap)
+        return bwd_rows_reference(payload, fout, gout, binning, meta_vec, ntx, ntiles, halfw,
+                                  halfh, with_stats, with_reg, compact_cap)
     pcols = PAYLOAD_STATS_COLS if with_stats else P_COLS
     dev = payload.device
     sg, bounds = binning.slot_to_gaussian, binning.bounds
@@ -484,28 +507,46 @@ def rasterize_bwd(payload, fout, gout, binning: Binning, meta_vec, ntx: int, nti
                      "rasterize_bwd: bounds [NTILES+1], meta [1, 8], slot ids [CAP]")
     cuda_lib.require(all(x.is_contiguous() for x in (payload, fout, gout, meta_vec, sg, bounds)),
                      "rasterize_bwd: non-contiguous input")
+    if t_mismatch is not None:
+        cuda_lib.require(t_mismatch.device == dev and t_mismatch.dtype == torch.int32,
+                         "rasterize_bwd: t_mismatch is an int32 tensor on the payload's device")
     R = compact_cap or compact_capacity_for(payload.shape[1], ntiles)
-    dslot = torch.zeros((P_COLS, R), dtype=torch.float32, device=dev)
+    rows = torch.zeros((R, P_COLS + (STAT_COLS if with_stats else 0)), dtype=torch.float32,
+                       device=dev)
     gidc = torch.zeros((R,), dtype=torch.int32, device=dev)
-    stats = torch.zeros((STAT_COLS, R), dtype=torch.float32, device=dev) if with_stats else None
+    order = torch.empty((ntiles,), dtype=torch.int32, device=dev)
     rc = cuda_lib.library().gof_rasterize_bwd(
         dev.index, payload.data_ptr(), payload.shape[1], sg.data_ptr(), bounds.data_ptr(),
         fout.data_ptr(), gout.data_ptr(), meta_vec.data_ptr(), ntx, ntiles, float(halfw),
-        float(halfh), int(with_stats), int(with_reg), R, dslot.data_ptr(), gidc.data_ptr(),
-        stats.data_ptr() if with_stats else None, cuda_lib.stream_ptr(payload))
+        float(halfh), int(with_stats), int(with_reg), R, rows.data_ptr(), gidc.data_ptr(),
+        order.data_ptr(), None if t_mismatch is None else t_mismatch.data_ptr(),
+        cuda_lib.stream_ptr(payload))
     cuda_lib.check(rc, "rasterize_bwd")
     BWD.launches += 1
-    return dslot, gidc, stats
+    return rows, gidc
 
 
-def reduce_compact_rows(dslot, gidc, stats, P: int):
-    """Per-gaussian sums of the compacted gradient rows: ([P, 16], [P, 3] or
-    None), through one reduction over the 16 (+8) columns of the two row
-    arrays, with no concatenation (ops/reduce.py)."""
-    from .reduce import reduce_row_blocks
+def rasterize_bwd(payload, fout, gout, binning: Binning, meta_vec, ntx: int, ntiles: int,
+                  halfw: float, halfh: float, with_stats: bool = True, with_reg: bool = True,
+                  compact_cap: int = 0, t_mismatch=None):
+    """Backward blend in gof_tpu's layout: `bwd_rows`, returned as (dslot
+    [16, R] f32, gid [R] int32, stats [8, R] f32 or None), views of its row
+    buffer."""
+    return _bwd_views(*bwd_rows(payload, fout, gout, binning, meta_vec, ntx, ntiles, halfw,
+                                halfh, with_stats, with_reg, compact_cap, t_mismatch),
+                      with_stats)
 
-    per = reduce_row_blocks([dslot] if stats is None else [dslot, stats], gidc, P)
-    return per[:, :P_COLS], (None if stats is None else per[:, P_COLS:P_COLS + 3])
+
+def reduce_compact_rows(rows, gidc, P: int):
+    """Per-gaussian sums of the backward's row buffer (`bwd_rows`): ([P, 16],
+    [P, 3] or None), through one reduction over its 16 (+3 statistics)
+    columns that reads the buffer as it is (ops/reduce.py::reduce_row_major).
+    gof_tpu's reduce_compact_rows takes the [16, R] and [8, R] arrays."""
+    from .reduce import reduce_row_major
+
+    with_stats = rows.shape[1] > P_COLS
+    per = reduce_row_major(rows, gidc, P, P_COLS + (3 if with_stats else 0))
+    return per[:, :P_COLS], (per[:, P_COLS:] if with_stats else None)
 
 
 def quadric_chain(per_g, M, u0):
@@ -575,11 +616,11 @@ class RasterizeFn(torch.autograd.Function):
         ntiles = meta.ntx * meta.nty
         last = fout[ntiles - 1]
         demand = int(last[CH_CSTART, 0] + last[CH_LIVEC, 0] * CHUNK_SIZE)  # host read
-        dslot, gidc, stats = rasterize_bwd(
+        rows, gidc = bwd_rows(
             payload, fout, gout.contiguous(), ctx.binning, mv, meta.ntx, ntiles,
             meta.width / 2.0, meta.height / 2.0, with_stats=meta.with_stats,
             with_reg=meta.with_reg, compact_cap=max(demand, CHUNK_SIZE))
-        per_g, per_s = reduce_compact_rows(dslot, gidc, stats, P)
+        per_g, per_s = reduce_compact_rows(rows, gidc, P)
         dM, du0 = quadric_chain(per_g, M, u0)
         dev = M.device
         dcarrier = per_s if per_s is not None else torch.zeros((P, 3), device=dev)

@@ -10,12 +10,13 @@ tensors launch csrc/reduce.cu, a counting sort of the rows into one bucket
 per id (count, scan, fill) and a reduce that orders each bucket by row and
 folds it; CPU tensors run the plain version, a sequential scatter-add into
 [P + 1, C], which sums in the same order. `reduce_row_blocks` takes the
-columns as several row arrays, so the backward's gradient and statistics
-rows need no concatenation.
+columns as one or two column-major row arrays; `reduce_row_major` takes
+rows that are already row-major ([R, cp], the backward blend's row buffer
+and K10's rows), so the kernel skips its copy to row-major.
 
-`segment_order` (a stable id sort and each id's segment start) is K10's
-presort (ops/gather_probes.py::scatmxu); `bucket_order_reference` is the
-plain twin of the order K4's reduce walks.
+`segment_order` (a stable id sort and each id's segment start) is the plain
+order that `bucket_order_reference`, the plain twin of the order K4's
+reduce walks, is held to.
 """
 
 from __future__ import annotations
@@ -76,6 +77,16 @@ def reduce_rows_by_gid(rows_t: torch.Tensor, gidc: torch.Tensor, P: int) -> torc
     return reduce_row_blocks([rows_t], gidc, P)
 
 
+def _on_cpu_or_one_cuda(name: str, tensors) -> bool:
+    """True for all-CPU tensors; otherwise all must lie on one CUDA device."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    dev = tensors[0].device
+    cuda_lib.require(all(t.is_cuda and t.device == dev for t in tensors),
+                     f"{name}: tensors on {[str(t.device) for t in tensors]}")
+    return False
+
+
 def reduce_row_blocks(blocks, gidc: torch.Tensor, P: int) -> torch.Tensor:
     """`reduce_rows_by_gid` of the rows stacked from `blocks`, one or two
     [C_i, R] f32 arrays: [P, sum C_i], column order as stacked."""
@@ -85,12 +96,10 @@ def reduce_row_blocks(blocks, gidc: torch.Tensor, P: int) -> torch.Tensor:
         cuda_lib.require(b.dim() == 2 and gidc.dim() == 1 and gidc.shape[0] == b.shape[1],
                          f"reduce: rows {tuple(b.shape)}, gid {tuple(gidc.shape)} "
                          "(need [C, R], [R])")
-    if all(b.device.type == "cpu" for b in blocks) and gidc.device.type == "cpu":
+    if _on_cpu_or_one_cuda("reduce", blocks + [gidc]):
         rows = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=0)
         return reduce_rows_by_gid_reference(rows, gidc, P)
     dev = blocks[0].device
-    cuda_lib.require(all(b.is_cuda and b.device == dev for b in blocks) and gidc.device == dev,
-                     f"reduce: tensors on {[str(b.device) for b in blocks]} and {gidc.device}")
     cuda_lib.require(all(b.dtype == torch.float32 for b in blocks) and gidc.dtype == torch.int32,
                      f"reduce: dtypes {[b.dtype for b in blocks]}, {gidc.dtype} "
                      "(need float32, int32)")
@@ -110,3 +119,45 @@ def reduce_row_blocks(blocks, gidc: torch.Tensor, P: int) -> torch.Tensor:
     cuda_lib.check(rc, "reduce")
     REDUCE.launches += 1
     return out.T
+
+
+def reduce_row_major(vals: torch.Tensor, gidc: torch.Tensor, P: int, c: int = 0) -> torch.Tensor:
+    """`reduce_rows_by_gid` of rows that are already row-major: vals [R, cp]
+    f32, of which the first c columns (all when c is 0) are summed per id,
+    each in ascending row order from +0.0. Returns [P, c]. On CUDA vals is
+    contiguous and 16-byte aligned with cp a multiple of 4, and ids outside
+    [0, P) are dropped; CPU tensors take the plain version of the
+    transposed rows (ids in [0, P], P the sentinel)."""
+    c = c or vals.shape[1]
+    cuda_lib.require(vals.dim() == 2 and gidc.dim() == 1 and gidc.shape[0] == vals.shape[0]
+                     and 0 < c <= vals.shape[1],
+                     f"reduce_row_major: vals {tuple(vals.shape)}, gid {tuple(gidc.shape)}, "
+                     f"c {c} (need [R, cp], [R], 0 < c <= cp)")
+    cuda_lib.require(P > 0, "reduce_row_major: P must be positive")
+    if _on_cpu_or_one_cuda("reduce_row_major", [vals, gidc]):
+        return reduce_rows_by_gid_reference(vals[:, :c].T, gidc, P)
+    out = sum_rows_by_id(vals, gidc, P, c)
+    REDUCE.launches += 1
+    return out.T
+
+
+def sum_rows_by_id(vals: torch.Tensor, ids: torch.Tensor, P: int, c: int) -> torch.Tensor:
+    """csrc/reduce.cu's row-major entry on CUDA tensors, uncounted: the sums
+    of vals[:, :c] per id in [0, P), as [c, P] (ids outside [0, P) dropped).
+    Raises on what the kernel does not take."""
+    cuda_lib.require(vals.dtype == torch.float32 and ids.dtype == torch.int32,
+                     f"reduce_row_major: dtypes {vals.dtype}, {ids.dtype} (need float32, int32)")
+    cuda_lib.require(vals.is_contiguous() and ids.is_contiguous(),
+                     "reduce_row_major: non-contiguous input")
+    R, cp = vals.shape
+    cuda_lib.require(cp % 4 == 0 and vals.data_ptr() % 16 == 0,
+                     f"reduce_row_major: rows of {cp} floats (need a multiple of 4, 16-byte "
+                     "aligned)")
+    dev = vals.device
+    lib = cuda_lib.library()
+    ws = torch.empty(lib.gof_reduce_workspace(P, R), dtype=torch.int32, device=dev)
+    out = torch.empty((c, P), dtype=torch.float32, device=dev)
+    rc = lib.gof_reduce_rows(dev.index, vals.data_ptr(), R, cp, c, ids.data_ptr(), P,
+                             ws.data_ptr(), out.data_ptr(), cuda_lib.stream_ptr(vals))
+    cuda_lib.check(rc, "reduce_row_major")
+    return out

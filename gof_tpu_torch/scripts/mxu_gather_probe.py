@@ -10,7 +10,8 @@ and reduce: the script's two keys (tile, depth) with one and with two
 carries at 4,194,304 keys, ordered by ops/binning.py's slot_order (with the
 carried gaussian id as its third key: a stable sort by id, then a stable
 sort of the int64 key), the carries gathered after; and one key with one
-carry at 1,310,720, the stable torch.sort of K10's presort. The inputs
+carry at 1,310,720, the script's reduce presort as a stable torch.sort
+(K4 and K10 count-sort instead: csrc/reduce.cu). The inputs
 are the script's: np.random.default_rng(0) draws them in its order and at
 its shapes (the shape flags exist for small test runs). Timings cycle
 distinct input buffers. `main` returns the numbers as a dict.
@@ -158,7 +159,7 @@ def main(argv=None) -> dict:
         f"2key+1carry @{a.cap} (binning slot_order)": time_ms(sort2carry1, [(t, db, gid) for t in tiles], dev, REPS),
         f"2key+2carry @{a.cap} (binning slot_order)": time_ms(sort2carry2, [(t, db, gid, dup) for t in tiles], dev,
                                          REPS),
-        f"1key+1carry @{a.presort} (K10 presort)": time_ms(
+        f"1key+1carry @{a.presort} (reduce presort)": time_ms(
             sort1carry1, [(g, rid) for g in gids_s], dev, REPS)}
     o = slot_order(tiles[0], db, gid)
     key, g = (tiles[0].long() * (1 << 32) + db.long())[o], gid[o]

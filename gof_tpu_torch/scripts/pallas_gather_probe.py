@@ -6,13 +6,13 @@ one? The port of scripts/pallas_gather_probe.py (K6-K10):
 (1) take_gather, jnp.take's semantics, 4-byte accesses (K6); (1b)
 vidx_gather, the ref indexer's, 16-byte accesses (K7); (2) the one-hot bf16
 product over pages of PAGE_B rows (K8); (3) scat, the segment sum by atomic
-adds (K9); (4) scatmxu, the deterministic segment sum (K10). The inputs are
-the script's: np.random.default_rng(0) draws the table, the indices and the
-rows in its order and at its shapes (the shape flags exist for small test
-runs). Each line gives the kernel's time, its plain version's, the PyTorch
-library call's for the same function and the card's bound, then the check
-against the plain version and the library call. `main` returns the same
-numbers as a dict.
+adds (K9); (4) scatmxu, the deterministic segment sum (K10, on K4's
+counting-sort reduce). The inputs are the script's: np.random.default_rng(0)
+draws the table, the indices and the rows in its order and at its shapes
+(the shape flags exist for small test runs). Each line gives the kernel's
+time, its plain version's, the PyTorch library call's for the same function
+and the card's bound, then the check against the plain version and the
+library call. `main` returns the same numbers as a dict.
 """
 
 from __future__ import annotations
@@ -111,7 +111,7 @@ def main(argv=None) -> dict:
     for name, fn, plain, label in (
             ("scat", gp.scat, gp.scat_reference, f"scat: atomic segment sum into [{a.page},{W}]"),
             ("scatmxu", gp.scatmxu, gp.scatmxu_reference,
-             "scatmxu: sorted deterministic segment sum")):
+             "scatmxu: deterministic segment sum (counting sort)")):
         r = res[name] = probe(lambda i, r_, f=fn: f(i, r_, a.page),
                               lambda i, r_, f=plain: f(i, r_, a.page), index_add,
                               [(i, rows) for i in idxs], dev, REPS, scat_bytes, close)

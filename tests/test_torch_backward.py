@@ -145,6 +145,64 @@ def test_backward_tile_blocks_agree(bwd_scene, monkeypatch):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("flags", [(False, False), *FLAGS], ids=["plain", "stats", "reg",
+                                                                  "stats_reg"])
+def test_bwd_reference_views_hold_the_column_arrays(bwd_scene, flags):
+    """The plain version's dslot [16, R] and stats [8, R] are views of one
+    row-major buffer ([R, 16], or [R, 24] with the statistics), and hold
+    bit for bit what the tile walk writes into separate column-major arrays
+    (the layout before the buffer), in each (with_stats, with_reg)
+    instance."""
+    _, b, meta, ntx, ntiles, gout, refs = bwd_scene
+    ws, wr = flags
+    payload = t(refs[ws, True][0])
+    fout = tr.rasterize_fwd(payload, b, meta, ntx, ntiles, with_reg=wr)
+    args = (payload, fout, t(gout), b, meta, ntx, ntiles, W / 2.0, H / 2.0)
+    dslot, gid, stats = tr.rasterize_bwd_reference(*args, with_stats=ws, with_reg=wr)
+    R, width = gid.shape[0], 24 if ws else 16
+    assert dslot.stride() == (1, width) and dslot.T.is_contiguous() == (not ws)
+    want_d = torch.zeros((16, R))
+    want_g = torch.zeros((R,), dtype=torch.int32)
+    want_s = torch.zeros((8, R)) if ws else None
+    tr._bwd_tiles(*args[:6], torch.arange(ntiles), W / 2.0, H / 2.0, ws, wr, want_d, want_g,
+                  want_s)
+    assert torch.equal(dslot, want_d) and torch.equal(gid, want_g)
+    assert float(want_d.abs().max()) > 0
+    if ws:
+        assert stats.stride() == (1, width)
+        assert stats.data_ptr() == dslot.data_ptr() + 16 * dslot.element_size()
+        assert torch.equal(stats, want_s)
+    else:
+        assert stats is None
+
+
+@pytest.mark.parametrize("with_stats", [True, False])
+def test_reduce_compact_rows_equals_the_two_array_reduce(bwd_scene, with_stats):
+    """reduce_compact_rows reduces the backward's row buffer (bwd_rows) as
+    it is; its sums equal the column-major reduce of gof_tpu's two arrays
+    (rasterize_bwd's views of the same buffer)."""
+    from gof_tpu_torch.ops import reduce as tred
+
+    name, b, meta, ntx, ntiles, gout, refs = bwd_scene
+    P = SCENES[name]
+    payload = t(refs[with_stats, True][0])
+    fout = tr.rasterize_fwd(payload, b, meta, ntx, ntiles)
+    args = (payload, fout, t(gout), b, meta, ntx, ntiles, W / 2.0, H / 2.0)
+    rows, gid = tr.bwd_rows(*args, with_stats=with_stats)
+    assert tuple(rows.shape) == (gid.shape[0], 24 if with_stats else 16)
+    per_g, per_s = tr.reduce_compact_rows(rows, gid, P)
+    dslot, gid_v, stats = tr.rasterize_bwd(*args, with_stats=with_stats)
+    assert torch.equal(gid_v, gid) and torch.equal(dslot, rows[:, :16].T)
+    cols = [dslot.contiguous()] + ([stats.contiguous()] if with_stats else [])
+    want = tred.reduce_row_blocks(cols, gid, P)
+    assert tuple(per_g.shape) == (P, 16) and torch.equal(per_g, want[:, :16])
+    assert float(per_g.abs().max()) > 0
+    if with_stats:
+        assert tuple(per_s.shape) == (P, 3) and torch.equal(per_s, want[:, 16:19])
+    else:
+        assert per_s is None
+
+
 def test_backward_nonfinite_row_stays_in_its_tile():
     """A NaN payload row outside a tile's segment (in its first window) is
     skipped by select: that tile's gradient rows stay finite and unchanged,

@@ -3,9 +3,10 @@
 Marked `cuda`: each test skips (from a fixture) where torch sees no CUDA
 device. On a machine with an NVIDIA GPU and nvcc:
     python -m pytest tests/test_torch_cuda.py -q
-The kernels are built with -fmad=false and follow their plain versions'
-operation order, so most comparisons are exact; the blend's float channels
-are held to atol 1e-5, rtol 1e-4 like the CPU parity tests.
+The kernels but K3 are built with -fmad=false and follow their plain
+versions' operation order, so most comparisons are exact; the blend's float
+channels are held to atol 1e-5, rtol 1e-4 like the CPU parity tests, and
+K3's gradient rows (contracted into FMAs) to 1e-4 x max |plain|.
 """
 
 import numpy as np
@@ -148,13 +149,24 @@ def test_wrappers_check_inputs(dev):
 BWD_BOUND = 1e-4  # max |kernel - plain| / max |plain| per output group
 
 
-def bwd_inputs(dev, width, height, with_stats, n=3000, seed=4):
+def bwd_inputs(dev, width, height, with_stats, n=3000, seed=4, crowd=0):
     """The backward's inputs for one view: payload (with the statistics
     columns when with_stats), binning, meta, the forward's fout and a
-    seeded cotangent that is zero outside the image, as assemble's is."""
+    seeded cotangent that is zero outside the image, as assemble's is.
+    crowd: that many extra faint small gaussians (opacity 0.01) in front of
+    the rest, at the view's centre, so that its tiles walk far more windows
+    than the others."""
     from gof_tpu_torch.ops import binning, quadrics, tiled_ref
 
     args, cam = scene(n, width, height, seed=seed)
+    if crowd:
+        rng = np.random.default_rng(seed + 1)
+        xyz = np.stack([rng.normal(0, 0.02, crowd), rng.normal(0, 0.02, crowd),
+                        rng.uniform(1.5, 2.5, crowd)], -1)
+        extra = (xyz, np.full((crowd, 3), 0.03), rng.normal(size=(crowd, 4)),
+                 np.full(crowd, 0.01), rng.normal(0, 0.5, (crowd, 16, 3)))
+        args = tuple(torch.cat([a, torch.tensor(e, dtype=torch.float32)])
+                     for a, e in zip(args, extra))
     c = cameras.look_at_camera(**cam, device=dev)
     a = [x.to(dev) for x in args]
     pre = quadrics.preprocess(a[0], a[1], a[2], a[4], 3, c, 0.1, opacities=a[3])
@@ -196,19 +208,80 @@ def assert_bwd_close(got, want, demand):
         assert float((sg - sw).abs().max()) <= BWD_BOUND * float(sw.abs().max())
 
 
+def assert_row_buffer_views(dslot, stats, R):
+    """dslot [16, R] and stats [8, R] are views of one row-major buffer."""
+    width = 16 if stats is None else 24
+    assert tuple(dslot.shape) == (16, R) and dslot.stride() == (1, width)
+    if stats is not None:
+        assert tuple(stats.shape) == (8, R) and stats.stride() == (1, width)
+        assert stats.data_ptr() == dslot.data_ptr() + 16 * 4
+
+
 @pytest.mark.parametrize("size", [(160, 96), (237, 131)])
 @pytest.mark.parametrize("flags", [(True, False), (False, True), (True, True), (False, False)])
 def test_bwd_kernel_matches_plain(dev, size, flags):
     ws, wr = flags
     args, demand = bwd_pair(dev, *size, ws, wr)
     before = rz.BWD.launches
-    got = rz.rasterize_bwd(*args, with_stats=ws, with_reg=wr, compact_cap=demand)
+    miss = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = rz.rasterize_bwd(*args, with_stats=ws, with_reg=wr, compact_cap=demand,
+                           t_mismatch=miss)
     assert rz.BWD.launches == before + 1
+    assert int(miss) == 0  # the transmittance chain keeps the forward's bits
+    assert_row_buffer_views(got[0], got[2], demand)
     want = rz.rasterize_bwd_reference(*args, with_stats=ws, with_reg=wr, compact_cap=demand)
+    assert_row_buffer_views(want[0], want[2], demand)
     assert_bwd_close(got, want, demand)
     again = rz.rasterize_bwd(*args, with_stats=ws, with_reg=wr, compact_cap=demand)
     for x, y in zip(got, again):  # deterministic: no atomics
         assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.parametrize("flags", [(True, False), (False, True)])
+def test_bwd_kernel_longest_tile_first(dev, flags):
+    """A crowd of faint gaussians makes the centre tiles walk far more
+    windows than the rest, so the kernel's tile order (by CH_LIVEC,
+    descending) is not blockIdx order: the result is the plain version's,
+    the same across launches, and T matches the forward's."""
+    ws, wr = flags
+    args, demand = bwd_pair(dev, 237, 131, ws, wr, crowd=4000)
+    live = args[1][:, rz.CH_LIVEC, 0]
+    top = int(live.argmax())
+    assert float(live[top]) >= 3 * float(live[live > 0].median()) and top > 0
+    miss = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = rz.rasterize_bwd(*args, with_stats=ws, with_reg=wr, compact_cap=demand,
+                           t_mismatch=miss)
+    assert int(miss) == 0
+    want = rz.rasterize_bwd_reference(*args, with_stats=ws, with_reg=wr, compact_cap=demand)
+    assert_bwd_close(got, want, demand)
+    for _ in range(2):
+        again = rz.rasterize_bwd(*args, with_stats=ws, with_reg=wr, compact_cap=demand)
+        for x, y in zip(got, again):
+            assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.parametrize("with_stats", [True, False])
+def test_reduce_compact_rows_reads_the_row_buffer(dev, with_stats):
+    """The row-major entry on the backward's buffer equals the column-major
+    entry on the two arrays, bit for bit, and the plain version."""
+    from gof_tpu_torch.ops import reduce as red
+
+    args, demand = bwd_pair(dev, 237, 131, with_stats, True)
+    rows, gid = rz.bwd_rows(*args, with_stats=with_stats, compact_cap=demand)
+    dslot, _, stats = rz._bwd_views(rows, gid, with_stats)
+    P = int(gid.max()) + 5
+    before = red.REDUCE.launches
+    per_g, per_s = rz.reduce_compact_rows(rows, gid, P)
+    assert red.REDUCE.launches == before + 1
+    cols = [dslot.contiguous()] + ([stats.contiguous()] if with_stats else [])
+    ref = red.reduce_row_blocks(cols, gid, P)
+    assert torch.equal(per_g, ref[:, :16])
+    plain = red.reduce_rows_by_gid_reference(torch.cat([c.cpu() for c in cols]), gid.cpu(), P)
+    assert torch.equal(per_g.cpu(), plain[:, :16])
+    if with_stats:
+        assert torch.equal(per_s, ref[:, 16:19]) and torch.equal(per_s.cpu(), plain[:, 16:19])
+    else:
+        assert per_s is None
 
 
 def test_bwd_kernel_default_capacity_zero_tail(dev):
@@ -277,6 +350,36 @@ def test_reduce_kernel_skewed_ids_bit_exact(dev, kind):
     assert torch.equal(got, red.reduce_row_blocks(blocks, gid.to(dev), P))
 
 
+@pytest.mark.parametrize("kind", ["uniform", "one_id_5000_rows", "all_rows_on_one_id",
+                                  "all_sentinel"])
+@pytest.mark.parametrize("cp,c", [(24, 19), (16, 16), (32, 32), (64, 37)])
+def test_reduce_row_major_kernel_bit_exact(dev, kind, cp, c):
+    """The row-major entry ([R, cp] rows, the first c columns summed)
+    against its plain version on CPU copies, bit for bit, and across
+    launches; ids past a warp's bucket, on one id and all on the
+    sentinel."""
+    from gof_tpu_torch.ops import reduce as red
+
+    R, P = 240_000, 100_000
+    g = torch.Generator().manual_seed(cp + c)
+    vals = torch.randn((R, cp), generator=g) * 10.0 ** torch.randint(-3, 4, (R, 1), generator=g)
+    gid = torch.randint(0, P + 1, (R,), generator=g, dtype=torch.int32)
+    if kind == "one_id_5000_rows":
+        gid[torch.randperm(R, generator=g)[:5000]] = 777
+    elif kind == "all_rows_on_one_id":
+        gid[:] = 4242
+    elif kind == "all_sentinel":
+        gid[:] = P
+    before = red.REDUCE.launches
+    got = red.reduce_row_major(vals.to(dev), gid.to(dev), P, c)
+    assert red.REDUCE.launches == before + 1
+    assert tuple(got.shape) == (P, c)
+    assert torch.equal(got.cpu(), red.reduce_rows_by_gid_reference(vals[:, :c].T, gid, P))
+    assert torch.equal(got, red.reduce_row_major(vals.to(dev), gid.to(dev), P, c))
+    if kind == "all_sentinel":
+        assert not got.any()
+
+
 @pytest.mark.parametrize("C", [1, 7, 40])
 def test_reduce_kernel_column_counts_bit_exact(dev, C):
     """Column counts off the 4-float row padding and past one warp's 32
@@ -309,6 +412,15 @@ def test_bwd_and_reduce_wrappers_check_inputs(dev):
         rz.rasterize_bwd(payload, fout, gout.double(), *args[3:])
     with pytest.raises(ValueError):
         rz.rasterize_bwd(payload, fout, gout[:, :, :-1].contiguous(), *args[3:])
+    vals, ids = torch.zeros((10, 16), device=dev), torch.zeros(10, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # rows of 6 floats: not whole float4s
+        red.reduce_row_major(vals[:, :6].contiguous(), ids, 5)
+    with pytest.raises(ValueError):  # more columns summed than the rows hold
+        red.reduce_row_major(vals, ids, 5, 17)
+    with pytest.raises(ValueError):  # CPU ids, CUDA rows
+        red.reduce_row_major(vals, ids.cpu(), 5)
+    with pytest.raises(ValueError):  # non-contiguous rows
+        red.reduce_row_major(vals.T, torch.zeros(16, dtype=torch.int32, device=dev), 5)
     rows = torch.zeros((16, 10), device=dev)
     with pytest.raises(ValueError):
         red.reduce_rows_by_gid(rows, torch.zeros(10, dtype=torch.int64, device=dev), 5)
@@ -523,12 +635,38 @@ def test_probe_scatters_match_plain(dev, shapes):
     rows = torch.from_numpy(rng.normal(size=(n, s["w"])).astype(np.float32)).to(dev)
     idx = probe_idx(rng, (s["nchunk"], 1, s["chunk"]), -page - 8, page + 8,
                     (-2**31, 2**31 - 1, -page - 1, -page, -1, page)).to(dev)
-    for fn, plain in ((gp.scat, gp.scat_reference), (gp.scatmxu, gp.scatmxu_reference)):
-        got = fn(idx, rows, page)
-        want = plain(idx, rows, page)
-        tol = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
-        assert bool(((got - want).abs() <= tol).all()), fn.__name__
-    assert torch.equal(gp.scatmxu(idx, rows, page), gp.scatmxu(idx, rows, page))
+    got = gp.scat(idx, rows, page)
+    want = gp.scat_reference(idx, rows, page)
+    tol = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
+    assert bool(((got - want).abs() <= tol).all())
+    # K10 folds each id's rows in ascending input row, as its plain version
+    # does on the CPU: equal bit for bit, and across launches
+    before = gp.SCATMXU.launches
+    got = gp.scatmxu(idx, rows, page)
+    assert gp.SCATMXU.launches == before + 1
+    assert torch.equal(got.cpu(), gp.scatmxu_reference(idx.cpu(), rows.cpu(), page))
+    assert torch.equal(got, gp.scatmxu(idx, rows, page))
+
+
+@pytest.mark.parametrize("kind", ["one_id_5000_rows", "all_rows_on_one_id", "all_sentinel"])
+def test_probe_scatmxu_skewed_ids_bit_exact(dev, kind):
+    """K10 at the script's shapes with one id owning 5000+ rows (the reduce's
+    block path), every row on one id, every row on the sentinel."""
+    from gof_tpu_torch.ops import gather_probes as gp
+
+    s, _ = PROBE_SHAPES["script"]
+    rng = np.random.default_rng(17)
+    page, n = s["page"], s["nchunk"] * s["chunk"]
+    rows = torch.from_numpy(rng.normal(size=(n, s["w"])).astype(np.float32))
+    idx = rng.integers(0, page, n).astype(np.int32)
+    if kind == "one_id_5000_rows":
+        idx[rng.permutation(n)[:6000]] = 777
+    else:
+        idx[:] = 4242 if kind == "all_rows_on_one_id" else page
+    idx = torch.from_numpy(idx.reshape(s["nchunk"], 1, s["chunk"]))
+    got = gp.scatmxu(idx.to(dev), rows.to(dev), page)
+    assert torch.equal(got.cpu(), gp.scatmxu_reference(idx, rows, page))
+    assert torch.equal(got, gp.scatmxu(idx.to(dev), rows.to(dev), page))
 
 
 @pytest.mark.parametrize("shapes", list(PROBE_SHAPES))
@@ -625,6 +763,8 @@ def test_probe_wrappers_refuse_bad_inputs(dev):
         gp.onehot_gather(idx, torch.zeros((256, 40), device=dev), 64)
     with pytest.raises(ValueError):  # non-contiguous rows
         gp.scatmxu(idx, torch.zeros((32, 512), device=dev).T, 256)
+    with pytest.raises(ValueError):  # the rows are whole float4s
+        gp.scatmxu(idx, torch.zeros((512, 30), device=dev), 256)
     with pytest.raises(ValueError):  # int8 slab of 64 columns
         gp.int8_gather(idx, torch.zeros((256, 32), dtype=torch.int8, device=dev))
     with pytest.raises(ValueError):  # CV a multiple of 4

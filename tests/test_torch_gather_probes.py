@@ -146,6 +146,23 @@ def test_scatmxu_sums_in_ascending_row_order():
         assert torch.equal(got[o], acc)
 
 
+@pytest.mark.parametrize("page", [7, 256])
+def test_scatmxu_cpu_path_is_the_row_major_reduce(page):
+    """scatmxu's CPU path (its plain version, unchanged) equals, bit for
+    bit, the plain version of the reduce its CUDA path launches, fed the ids
+    with everything outside [0, PAGE) on the sentinel."""
+    from gof_tpu_torch.ops import reduce as tred
+
+    rng = np.random.default_rng(page)
+    idx = torch.from_numpy(rng.integers(-page - 3, page + 3, (4, 1, 128)).astype(np.int32))
+    rows = torch.from_numpy((rng.normal(size=(512, 32))
+                             * 10.0 ** rng.integers(-4, 5, (512, 1))).astype(np.float32))
+    got = gp.scatmxu(idx, rows, page)
+    assert torch.equal(got, gp.scatmxu_reference(idx, rows, page))
+    assert torch.equal(got, tred.reduce_row_major(rows, gp._ids_in_page(idx, page), page))
+
+
+
 def test_int8_gather_matches_pallas(mxu_probe):
     c = SMALL_MXU
     rng = np.random.default_rng(4)

@@ -160,3 +160,40 @@ def test_reduce_row_blocks_equals_the_stacked_rows():
         tred.reduce_row_blocks([t[:8], t[8:16], t[16:]], g, 100)
     with pytest.raises(ValueError):
         tred.reduce_row_blocks([t[:16], t[16:, :100]], g, 100)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one_id_4500_rows", "all_rows_on_one_id",
+                                  "all_sentinel"])
+@pytest.mark.parametrize("c", [19, 24])
+def test_row_major_plain_is_the_transposed_reduce(kind, c):
+    """The row-major entry's plain version ([R, cp] rows, the first c
+    columns) is the plain reduce of the transposed rows, bit for bit."""
+    if kind == "uniform":
+        rows, ids = case(3000, 40, seed=8)
+        P = 40
+    elif kind == "all_sentinel":
+        rows, ids = case(3000, 40, seed=9)
+        ids, P = np.full_like(ids, 40), 40
+    else:
+        rows, ids, P = skewed_case(kind)
+    vals, g = torch.from_numpy(np.ascontiguousarray(rows.T)), torch.from_numpy(ids)
+    before = tred.REDUCE.launches
+    got = tred.reduce_row_major(vals, g, P, c)
+    assert tred.REDUCE.launches == before
+    assert tuple(got.shape) == (P, c)
+    assert torch.equal(got, tred.reduce_rows_by_gid_reference(torch.from_numpy(rows[:c]), g, P))
+    assert torch.equal(got, tred.reduce_rows_by_gid(torch.from_numpy(rows[:c]), g, P))
+    if kind == "all_sentinel":
+        assert float(got.abs().max()) == 0.0
+
+
+def test_row_major_refuses_bad_shapes_and_devices():
+    rows, ids = case(256, 10, 1)
+    vals, g = torch.from_numpy(np.ascontiguousarray(rows.T)), torch.from_numpy(ids)
+    assert torch.equal(tred.reduce_row_major(vals, g, 10), tred.reduce_row_major(vals, g, 10, 24))
+    with pytest.raises(ValueError):  # more columns than the rows hold
+        tred.reduce_row_major(vals, g, 10, 25)
+    with pytest.raises(ValueError):
+        tred.reduce_row_major(vals, g[:-1], 10)
+    with pytest.raises(ValueError):
+        tred.reduce_row_major(vals.to("meta"), g, 10)
