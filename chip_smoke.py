@@ -17,9 +17,11 @@ paths and its gather/scatter probes once on one CUDA GPU.
    over that run are checked, and a small scene's CUDA render is held
    against the plain CPU path;
 5. hold the forward kernels against their plain PyTorch versions on the
-   card, at the shapes of one of those views, and time both with CUDA
-   events; time each layer of that view's render, and profile a steady pass
-   over the views;
+   card, at the shapes of one of those views (K1 in the serving path's
+   regularizer instance: T, median depth, MEDIDX, LIVEC and CSTART
+   bit-exact, the other channels within ATOL / RTOL, bit-identical across
+   launches), and time both with CUDA events; time each layer of that
+   view's render, and profile a steady pass over the views;
 6. train: a Blender-format scene with 8 training and 4 test views at
    1237x822 on the same orbit (seeded random ground truth) and a
    points3d.ply of bench's 100k-point recipe; gof_tpu_torch.train.main runs
@@ -54,7 +56,10 @@ paths and its gather/scatter probes once on one CUDA GPU.
    regularizers on, step 20000): the median step time, the time of each
    layer of the step by CUDA events, the device idle share from
    torch.profiler, and all four kernels held against their plain versions
-   at that view's shapes: K3 in the phase's (REG, STATS) instance and the
+   at that view's shapes: K1 in the instance the phase launches (without
+   the regularizers in the densify phase, with them in the regularize
+   phase; as in 5, and equal to the step's own forward), K3 on that
+   forward's output in the phase's (REG, STATS) instance and the
    one with the statistics flipped (its gaussian-id stream exactly, its
    recomputed T equal to the forward's at every pixel, bit-identical across
    two launches); K4 on the backward's row buffer bit-identical to its
@@ -63,10 +68,11 @@ paths and its gather/scatter probes once on one CUDA GPU.
    timed beside its column-major entry, whose result must equal it; each
    timed beside its plain version and its library call, with
    its bound (K3's counted per instance from this view's active pairs);
-10. profile single calls of K3, K4 (both entries), K10, K11 and K13 (device
+10. profile single calls of K1, K3, K4 (both entries), K10, K11 and K13 (device
    time of each kernel they launch) in each phase;
-11. print the kernels' JSON line (the four of the first bench phase, K3 and
-   K4 of the second, K5 and K6-K13, each with its bound and library time),
+11. print the kernels' JSON line (the four of the first bench phase, K1, K3
+   and K4 of the second, K1 at the serving view, K5 and K6-K13, each with
+   its bound and library time),
    the card's name and power limit, and as the last line
    {"ok": true, "device": {...}}.
 
@@ -444,20 +450,32 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return time_ms(fn, [()], torch.device("cuda"), reps, warmup)
 
 
-# f32 operations per (pixel or point, gaussian row) pair, as the kernels'
-# sources count them (csrc/rasterize_fwd.cu, integrate.cu)
-OPS_PER_PAIR = {"rasterize_fwd": 60, "integrate": 42}
-# K3's f32 operations as csrc/rasterize_bwd.cu writes them (an expf, a
-# divide, an rsqrtf count one each): the transmittance chain for every
-# visited (pixel, row) pair; the gradient chain for the active pairs only,
-# with the regularizers' and the statistics' terms in the instances that
-# have them. The per-visit warp sums (16-21 adds a warp) are not counted.
-BWD_OPS = {"chain": 40, "grad": 53, "reg": 81, "stats": 23}
+# f32 operations as the kernels' sources write them (an expf, a divide, an
+# rsqrtf count one each; a contracted a * b + c two). CHAIN_OPS is
+# csrc/ray_alpha.cuh's alpha chain, which K1 and K3 run for every visited
+# (pixel, row) pair; K5 runs it with min(t, z) and the T update for every
+# (point, row) pair.
+CHAIN_OPS = 40
+INTEGRATE_OPS = 42
+# K1 per active pair (csrc/rasterize_fwd.cu): the T_EPS test, the weight,
+# the colour and acc sums and the T update ("blend"); with the regularizer
+# channels also the ndc depth, the normal and its rsqrtf, s1, s2 and the
+# median test ("reg").
+FWD_OPS = {"blend": 11, "reg": 39}
+# K3 per active pair (csrc/rasterize_bwd.cu): the gradient chain, with the
+# regularizers' and the statistics' terms in the instances that have them.
+# The per-visit warp sums (16-21 adds a warp) are not counted.
+BWD_OPS = {"grad": 53, "reg": 81, "stats": 23}
+
+
+def fwd_ops(visited_pairs: int, active_pairs: int, with_reg: bool) -> int:
+    return visited_pairs * CHAIN_OPS + active_pairs * (
+        FWD_OPS["blend"] + FWD_OPS["reg"] * with_reg)
 
 
 def bwd_ops(visited_pairs: int, active_pairs: int, with_stats: bool, with_reg: bool) -> int:
     grad = BWD_OPS["grad"] + BWD_OPS["reg"] * with_reg + BWD_OPS["stats"] * with_stats
-    return visited_pairs * BWD_OPS["chain"] + active_pairs * grad
+    return visited_pairs * CHAIN_OPS + active_pairs * grad
 
 
 def active_pairs(payload, b, fout, meta, ntx: int, ntiles: int) -> int:
@@ -530,7 +548,10 @@ def bound(entry: dict, nbytes: float, ops: float = 0.0, library_ms=None) -> dict
     return entry
 
 
-def check_kernels(expand_in, raster_in, launches) -> list:
+def check_kernels(expand_in, raster_in, launches, with_reg: bool, phase: str,
+                  fout=None) -> list:
+    """K2 bit-exact against its plain version and K1 (check_fwd) at one
+    view's shapes, each timed beside its plain version."""
     from gof_tpu_torch.ops import class_gather
     from gof_tpu_torch.ops import rasterize as rz
 
@@ -555,37 +576,60 @@ def check_kernels(expand_in, raster_in, launches) -> list:
                          4 * (tbl.numel() + gidx.numel() + tbl.shape[0] * gidx.shape[0]),
                          library_ms=cuda_ms(lambda: tbl[:, g64], 20)))
 
+    return results + [check_fwd(raster_in, launches, with_reg, phase, fout)]
+
+
+# K1's channels that come from its exact chain (T, the median depth and visit
+# index) or from integer counts: bit-exact against the plain version; the
+# other float channels are accumulations, held to ATOL / RTOL
+FWD_EXACT = {"T": 9, "median depth": 6, "MEDIDX": 11, "LIVEC": 12, "CSTART": 13}
+FWD_TOL = [0, 1, 2, 3, 4, 5, 7, 8, 10]
+
+
+def check_fwd(raster_in, launches, with_reg: bool, phase: str, fout=None) -> dict:
+    """K1 in the instance the phase launches against its plain version at
+    this view's shapes: T, median depth, MEDIDX, LIVEC and CSTART bit-exact,
+    channels 0-5, 7, 8 and 10 within ATOL / RTOL, bit-identical across two
+    launches (and to `fout`, the phase's own forward, when given); timed
+    beside its plain version. Returns its kernels-line entry."""
+    from gof_tpu_torch.ops import rasterize as rz
+
     payload, b, meta, ntx, ntiles = raster_in
-    got = rz.rasterize_fwd(payload, b, meta, ntx, ntiles, with_reg=True)
-    want = rz.rasterize_fwd_reference(payload, b, meta, ntx, ntiles, with_reg=True)
+    got = rz.rasterize_fwd(payload, b, meta, ntx, ntiles, with_reg=with_reg)
+    again = rz.rasterize_fwd(payload, b, meta, ntx, ntiles, with_reg=with_reg)
+    want = rz.rasterize_fwd_reference(payload, b, meta, ntx, ntiles, with_reg=with_reg)
     torch.cuda.synchronize()
-    chans = list(range(9)) + [rz.CH_TFINAL, rz.CH_DFINAL]
-    err = (got[:, chans] - want[:, chans]).abs()
-    tol_ok = bool((err <= ATOL + RTOL * want[:, chans].abs()).all())
+    err = (got[:, FWD_TOL] - want[:, FWD_TOL]).abs()
+    tol_ok = bool((err <= ATOL + RTOL * want[:, FWD_TOL].abs()).all())
     max_err = float(err.max())
-    exact = {ch: int((got[:, ch] != want[:, ch]).sum())
-             for ch in (rz.CH_MEDIDX, rz.CH_LIVEC, rz.CH_CSTART)}
+    exact = {n: int((got[:, ch] != want[:, ch]).sum()) for n, ch in FWD_EXACT.items()}
+    same = torch.equal(got, again) and (fout is None or torch.equal(got, fout))
     identical = int((got == want).all(dim=(1, 2)).sum())
-    print(f"rasterize_fwd: payload {tuple(payload.shape)}, {ntiles} tiles: max |err| "
-          f"{max_err:.3e} on channels 0-10, within atol {ATOL}/rtol {RTOL}: {tol_ok}; "
-          f"mismatches in MEDIDX/LIVEC/CSTART {list(exact.values())}; "
-          f"{identical}/{ntiles} tiles bit-identical; live windows "
-          f"{int(got[:, rz.CH_LIVEC, 0].sum())}")
-    if not tol_ok or any(exact.values()):
-        raise RuntimeError("rasterize_fwd kernel disagrees with its plain version")
-    ms = cuda_ms(lambda: rz.rasterize_fwd(payload, b, meta, ntx, ntiles), 10)
-    plain_ms = cuda_ms(lambda: rz.rasterize_fwd_reference(payload, b, meta, ntx, ntiles), 3)
-    print(f"rasterize_fwd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print(f"rasterize_fwd ({phase}, REG={int(with_reg)}): payload {tuple(payload.shape)}, "
+          f"{ntiles} tiles: max |err| {max_err:.3e} on channels {FWD_TOL}, within atol "
+          f"{ATOL}/rtol {RTOL}: {tol_ok}; pixels differing in the exact channels {exact}; "
+          f"bit-identical across launches{'' if fout is None else ' and to the step'}s "
+          f"{same}; {identical}/{ntiles} tiles bit-identical to the plain version; live "
+          f"windows {int(got[:, rz.CH_LIVEC, 0].sum())}")
+    if not tol_ok or any(exact.values()) or not same:
+        raise RuntimeError(f"rasterize_fwd ({phase}) disagrees with its plain version")
+    ms = cuda_ms(lambda: rz.rasterize_fwd(payload, b, meta, ntx, ntiles, with_reg=with_reg), 10)
+    plain_ms = cuda_ms(lambda: rz.rasterize_fwd_reference(payload, b, meta, ntx, ntiles,
+                                                          with_reg=with_reg), 3)
+    print(f"rasterize_fwd ({phase}, REG={int(with_reg)}): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
     visited = blend_rows(b.bounds, got[:, rz.CH_LIVEC, 0])
-    results.append(bound({"name": "rasterize_fwd", "route": "cuda",
-                          "source": "gof_tpu_torch/csrc/rasterize_fwd.cu",
-                          "replaces": "gof_tpu/ops/rasterize_pallas.py:344",
-                          "launches": launches["rasterize_fwd"], "max_abs_err": max_err,
-                          "ms": ms, "plain_ms": plain_ms},
-                         4 * (visited * payload.shape[0] + got.numel() + b.bounds.numel()
-                              + meta.numel()),
-                         visited * rz.NPIX * OPS_PER_PAIR["rasterize_fwd"]))
-    return results
+    active = active_pairs(payload, b, got, meta, ntx, ntiles)
+    print(f"rasterize_fwd ({phase}) pairs: {visited * rz.NPIX} visited, {active} active "
+          f"({active / (visited * rz.NPIX):.4f})")
+    return bound({"name": f"rasterize_fwd ({phase})", "route": "cuda",
+                  "source": "gof_tpu_torch/csrc/rasterize_fwd.cu",
+                  "replaces": "gof_tpu/ops/rasterize_pallas.py:344",
+                  "launches": launches["rasterize_fwd"], "max_abs_err": max_err,
+                  "ms": ms, "plain_ms": plain_ms},
+                 4 * (visited * payload.shape[0] + got.numel() + b.bounds.numel()
+                      + meta.numel()),
+                 fwd_ops(visited * rz.NPIX, active, with_reg))
 
 
 # ---------------------------------------------------------------------------
@@ -818,10 +862,15 @@ def check_integrate(model: str, launches) -> dict:
     binned[pb.point_of_slot.long()] = True
     unproj = ~binned[:n]
     unproj_ok = bool((got[unproj] == 1).all())
-    pairs = int(((b.bounds[pb.block_tile.long() + 1] - b.bounds[pb.block_tile.long()])
-                 .to(torch.int64) * ti.PBLOCK).sum())
+    # the pairs the data needs: each real point with each row of its tile
+    # (padding slots, which fill each tile's last block, are not counted)
+    seg_rows = (b.bounds[pb.block_tile.long() + 1] - b.bounds[pb.block_tile.long()]).long()
+    real = (pb.point_of_slot < n).reshape(pb.n_blocks, ti.PBLOCK).sum(1)
+    pairs = int((seg_rows * real).sum())
     print(f"integrate: {n} tetra points of view 0, payload {tuple(payload.shape)}, "
-          f"{pb.n_blocks} point blocks, {pairs} (point slot, gaussian row) pairs: max |err| "
+          f"{pb.n_blocks} point blocks ({int(real.sum())} real slots of "
+          f"{pb.n_blocks * ti.PBLOCK}), {pairs} (point, gaussian row) pairs "
+          f"({int((seg_rows * ti.PBLOCK).sum())} over all slots): max |err| "
           f"{err:.3e} (bound 1e-6), {identical}/{n} points bit-identical; bit-identical across "
           f"launches {same}; {int(unproj.sum())} unprojected points exactly 1: {unproj_ok}; "
           f"min T {float(got.min()):.4f}")
@@ -836,7 +885,7 @@ def check_integrate(model: str, launches) -> dict:
                   "source": "gof_tpu_torch/csrc/integrate.cu",
                   "replaces": "gof_tpu/ops/integrate.py:113", "launches": launches["integrate"],
                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms},
-                 4 * moved, pairs * OPS_PER_PAIR["integrate"])
+                 4 * moved, pairs * INTEGRATE_OPS)
 
 
 def check_small_mesh(device: str = "cuda", steps: int = 4) -> None:
@@ -1306,7 +1355,8 @@ def check_reduce(rows, c: int, gid, P: int, label: str):
 
 
 def profile_kernel_calls(ins, probes: bool) -> None:
-    """torch.profiler over single calls of K3 and K4 (this phase's inputs),
+    """torch.profiler over single calls of K1 (with its wrapper's compact
+    layout), K3 and K4 (this phase's inputs),
     K4's column-major entry (which copies the rows row-major)
     and, with `probes`, K10, K11 and K13 (the scripts' shapes): the device
     time of each kernel a call launches, median of 10 calls, each behind a
@@ -1334,13 +1384,15 @@ def profile_kernel_calls(ins, probes: bool) -> None:
     idx = torch.from_numpy(rng.integers(0, 2048, (512, 1, 1024)).astype(np.int32)).cuda()
     pages = torch.from_numpy(rng.integers(0, 8, 512).astype(np.int32)).cuda()
     pidx = (idx + pages[:, None, None] * 2048).contiguous()
-    calls = (("K3 rasterize_bwd", lambda: rz.bwd_rows(*args, **kw)),
+    fwd = (ins["payload"], ins["b"], ins["meta"], ins["ntx"], ins["ntiles"])
+    calls = (("K1 rasterize_fwd", lambda: rz.rasterize_fwd(*fwd, with_reg=not with_stats)),
+             ("K3 rasterize_bwd", lambda: rz.bwd_rows(*args, **kw)),
              ("K4 reduce on the row buffer", lambda: rz.reduce_compact_rows(rows, gid, P)),
              ("K4 reduce, column-major entry", lambda: red.reduce_row_blocks(columns, gid, P)),
              ("K10 scatmxu", lambda: gp.scatmxu(idx10, rows10, 16384)),
              ("K11 int8_gather", lambda: gp.int8_gather(idx, tbl)),
              ("K13 paged_gather", lambda: gp.paged_gather(pages, pidx, big, 2048)))
-    for name, fn in calls[:None if probes else 3]:
+    for name, fn in calls[:None if probes else 4]:
         fn()
         torch.cuda.synchronize()
         per = {}
@@ -1401,8 +1453,11 @@ def bench_phase(label: str, with_stats: bool, with_reg: bool, step_i: int, launc
 
 
 def train_kernels(ins, phase: str, with_stats, with_reg, launches) -> list:
+    """K2 and K1 in the instance this phase launches (K1 also equal to the
+    step's own forward), then K3 and K4 on that forward's output."""
     kernels = check_kernels(ins["expand"], (ins["payload"], ins["b"], ins["meta"], ins["ntx"],
-                                            ins["ntiles"]), launches)
+                                            ins["ntiles"]), launches, with_reg, phase,
+                            fout=ins["fout"])
     return kernels + check_backward_kernels(ins, phase, with_stats, with_reg, launches)
 
 
@@ -1419,7 +1474,7 @@ def main() -> None:
         out, expand_in, raster_in = view_inputs(model, "cuda")
         check_render(out, WIDTH, HEIGHT)
         check_small_scene()
-        check_kernels(expand_in, raster_in, serve_launches)
+        serve_fwd = check_kernels(expand_in, raster_in, serve_launches, True, "serve")[1]
         profile_renders(model, N_VIEWS)
 
         t0 = time.perf_counter()
@@ -1447,12 +1502,12 @@ def main() -> None:
         profile_kernel_calls(ins, probes=True)
         ins = bench_phase("regularize", False, True, 20000, launches)
         print("  kernels against their plain versions at this view's shapes:")
-        kernels += train_kernels(ins, "regularize", False, True, launches)[2:]
+        kernels += train_kernels(ins, "regularize", False, True, launches)[1:]
         profile_kernel_calls(ins, probes=False)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"render ms per view: {[s['ms'] for s in stats]}")
-    print(json.dumps({"kernels": kernels + [integrate_kernel] + probe_kernels}))
+    print(json.dumps({"kernels": kernels + [serve_fwd, integrate_kernel] + probe_kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

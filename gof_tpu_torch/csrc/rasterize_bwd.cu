@@ -39,11 +39,11 @@
 // the statistics); per visit and warp one reduction of 14-17 sums over 32
 // lanes. At the training design point (1237x822, 100k gaussians) the tiles
 // visit ~175M (pixel, row) pairs, 63% of them active. Design:
-// - only the transmittance chain has to keep the forward's bits: it is
-//   written with __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn, which nvcc
-//   never contracts, and this source alone is built with contraction on, so
-//   the gradient chain runs on FMAs; its divides (1 / (1 - a), 1 / dd,
-//   1 / t) are __fdividef;
+// - only the transmittance chain has to keep the forward's bits: it is the
+//   forward's own (ray_alpha.cuh), written with __fmul_rn / __fadd_rn /
+//   __fsub_rn / __fdiv_rn, which nvcc never contracts, and this source is
+//   built with contraction on, so the gradient chain runs on FMAs; its
+//   divides (1 / (1 - a), 1 / dd, 1 / t) are __fdividef;
 // - each warp reduces its 16 sums of a visit by a reduce-scatter butterfly:
 //   at each xor level a lane sends half of the sums it holds and keeps the
 //   other half (8 + 4 + 2 + 1 + 1 shuffles, not 5 per sum), and lanes 2j,
@@ -68,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ray_alpha.cuh"
+
 namespace {
 
 constexpr int CHUNK = 128;
@@ -89,13 +91,11 @@ constexpr int CH_MEDIDX = 11;
 constexpr int CH_LIVEC = 12;
 constexpr int CH_CSTART = 13;
 
-constexpr float NEAR_PLANE = 0.2f;
+constexpr float NEAR_PLANE = ray_alpha::NEAR_PLANE;
 constexpr float FAR_PLANE = 100.0f;
 constexpr float FAR_X_NEAR = (float)(100.0 * 0.2);
 constexpr float INV_FAR_MINUS_NEAR = (float)(1.0 / (100.0 - 0.2));
 constexpr float DM_DT_SCALE = (float)(100.0 * 0.2 / (100.0 - 0.2));
-constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
-constexpr float ALPHA_MAX = 0.99f;
 constexpr float T_EPS = 1e-4f;
 
 // the per-pixel constants of the gradient chain, [Q][NPIX] in shared memory
@@ -217,14 +217,14 @@ bwd_kernel(const float* __restrict__ payload, int64_t cap, const int32_t* __rest
   const float ty = (float)((tile / ntx) * TILE);
   const float pxm = tx + (float)(tid % TILE);  // pixel centre - 0.5, exact
   // the rays as the forward computes them
-  const float rx = __fdiv_rn(__fsub_rn(__fadd_rn(pxm, 0.5f), half_w), fx);
+  const float rx = ray_alpha::pixel_ray(pxm, half_w, fx);
   const float rxx = rx * rx;
   float T[PPT], PwF[PPT], ry[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int pix = tid + k * THREADS;
     const float pym = ty + (float)(tid / TILE + k * ROWS_PER_PASS);
-    ry[k] = __fdiv_rn(__fsub_rn(__fadd_rn(pym, 0.5f), half_h), fy);
+    ry[k] = ray_alpha::pixel_ray(pym, half_h, fy);
     T[k] = 1.0f;
     PwF[k] = 0.0f;
     if (nc == 0) continue;
@@ -279,9 +279,10 @@ bwd_kernel(const float* __restrict__ payload, int64_t cap, const int32_t* __rest
         const float p8 = q2.x, p9 = q2.y, p10 = q2.z, p11 = q2.w;
         const float p12 = q3.x, p13 = q3.y, p14 = q3.z, p15 = q3.w;
         const float glob_row = (float)(c * CHUNK + i);
-        // the forward's p * rx terms, the same for the thread's 4 pixels
-        const float p4rx = __fmul_rn(p4, rx), p7rx = __fmul_rn(p7, rx);
-        const float p10rx = __fmul_rn(p10, rx);
+        // the forward's M[:, 0] * rx, the same for the thread's 4 pixels
+        const float mat[9] = {p4, p5, p6, p7, p8, p9, p10, p11, p12};
+        const float u[3] = {p13, p14, p15};
+        const ray_alpha::RayX x = ray_alpha::ray_x(p4, p7, p10, rx);
         float v[16];
 #pragma unroll
         for (int j = 0; j < 16; ++j) v[j] = 0.0f;
@@ -290,28 +291,14 @@ bwd_kernel(const float* __restrict__ payload, int64_t cap, const int32_t* __rest
 #pragma unroll
         for (int k = 0; k < PPT; ++k) {
           // transmittance chain: K1's operations, rounded one by one
-          const float y = ry[k];
-          const float d0 = __fadd_rn(__fadd_rn(p4rx, __fmul_rn(p5, y)), p6);
-          const float d1 = __fadd_rn(__fadd_rn(p7rx, __fmul_rn(p8, y)), p9);
-          const float d2 = __fadd_rn(__fadd_rn(p10rx, __fmul_rn(p11, y)), p12);
-          const float ud =
-              __fadd_rn(__fadd_rn(__fmul_rn(p13, d0), __fmul_rn(p14, d1)), __fmul_rn(p15, d2));
-          const float dd = __fadd_rn(
-              __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2)),
-              1e-12f);
-          const float t = __fdiv_rn(-ud, dd);
-          const float v0 = __fadd_rn(p13, __fmul_rn(t, d0));
-          const float v1 = __fadd_rn(p14, __fmul_rn(t, d1));
-          const float v2 = __fadd_rn(p15, __fmul_rn(t, d2));
-          const float mv =
-              __fadd_rn(__fadd_rn(__fmul_rn(v0, v0), __fmul_rn(v1, v1)), __fmul_rn(v2, v2));
-          const float E = expf(__fmul_rn(-0.5f, mv));
-          const float opE = __fmul_rn(op, E);
-          const float a = opE > ALPHA_MAX ? ALPHA_MAX : opE;
-          if (!(t > NEAR_PLANE && a >= ALPHA_MIN)) continue;
+          const ray_alpha::RayPeak r = ray_alpha::ray_peak(mat, u, x, ry[k]);
+          const ray_alpha::Alpha al = ray_alpha::alpha_at(r, u, op, r.t);
+          const float d0 = r.d0, d1 = r.d1, d2 = r.d2, dd = r.dd, t = r.t;
+          const float E = al.E, opE = al.opE, a = al.a;
+          if (!ray_alpha::active(t, a)) continue;
           any = true;
           const float Te = T[k];
-          T[k] = __fmul_rn(Te, __fsub_rn(1.0f, a));
+          T[k] = ray_alpha::transmit(Te, a);
 
           // gradient chain: contracted into FMAs, held to the plain version
           // by tolerance

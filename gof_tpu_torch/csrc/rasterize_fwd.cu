@@ -23,140 +23,151 @@
 // Inactive and out-of-segment rows are skipped by branches, never multiplied
 // by zero, so a non-finite row of a neighbouring tile cannot leak in.
 //
-// What bounds it: arithmetic. About 60 f32 operations, an expf and (with the
-// regularizer channels) an rsqrtf per (pixel, gaussian) pair visited; the
-// payload is 64 bytes per key, read once per tile. At the serving design
-// point (1237x822, 100k gaussians: 1.07M keys over 1014 tiles) the early
-// exit leaves about 2000 windows, some 260M pairs. Design: each window's 128 payload rows are staged in shared
-// memory (8.5 KB) and read back as broadcasts. 256 threads each own 4 pixels
-// (rows ty, ty+8, ty+16, ty+24 of the tile): the 16 payload floats a thread
-// reads per row serve 4 pixels, the 4 independent serial chains hide the
-// expf/divide latency, and the state (14 registers per pixel) fits the
-// 128-register cap that keeps 2 blocks resident per SM. One pixel per
-// thread with 1024 threads would cap registers at 64 and re-read each row
-// per pixel. Each pixel blends serially in row order; the library is built
-// with -fmad=false so every operation rounds as in the plain PyTorch version.
+// What bounds it: arithmetic. About 60 f32 operations, an IEEE divide and
+// an expf per (pixel, gaussian) pair visited, and per contributing pair the
+// accumulations (and with the regularizer channels an rsqrtf and ~30 more);
+// the payload is 64 bytes per key, read once per tile. At the design point
+// (1237x822, 100k gaussians: ~1.07M keys over 1014 tiles) the early exit
+// leaves ~175M visited pairs. Design:
+// - only the alpha/T chain has to keep the plain version's bits (T, the
+//   median depth and row; the backward recomputes T and counts mismatches):
+//   it is ray_alpha.cuh's, written in intrinsics nvcc never contracts, and
+//   this source is built with contraction on, so the accumulations, the
+//   ndc-depth divide and the distortion epilogue run on FMAs and fast
+//   divides, held to the plain version by tolerance;
+// - each window's 128 rows are staged by cp.async into one of two shared
+//   buffers (windows.cuh) while the block blends the previous window; the
+//   exit vote at the boundary is the one barrier per window, and a window
+//   is prefetched only if it lies in the tile's segment;
+// - a row reads back as four float4 broadcasts at fixed offsets and serves
+//   the thread's PPT pixels (one column, PPT rows of the tile), whose
+//   chains are all formed before any pixel's branches;
+// - pixels per thread and blocks per SM (PPT, MIN_BLOCKS) were chosen by
+//   timing the alternatives in each instance (blend_steps.py);
+// - tiles run in blockIdx order: ordering them by window count, longest
+//   first, measured slower (blend_steps.py), since the early exit, not the
+//   segment, sets a tile's walk.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ray_alpha.cuh"
+#include "windows.cuh"
+
 namespace {
 
-constexpr int CHUNK = 128;
+using windows::CHUNK;
 constexpr int TILE = 32;
 constexpr int NPIX = TILE * TILE;
-constexpr int P_COLS = 16;
 constexpr int OUT_CH = 16;
-constexpr int THREADS = 256;
-constexpr int PPT = NPIX / THREADS;  // pixels per thread
-constexpr int ROWS_PER_PASS = THREADS / TILE;
-constexpr int SROW = P_COLS + 1;  // padded shared-memory row: conflict-free fill
 
-constexpr float NEAR_PLANE = 0.2f;
+constexpr float NEAR_PLANE = ray_alpha::NEAR_PLANE;
 constexpr float FAR_PLANE = 100.0f;
 constexpr float FAR_X_NEAR = (float)(100.0 * 0.2);
-constexpr float FAR_MINUS_NEAR = (float)(100.0 - 0.2);
-constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
-constexpr float ALPHA_MAX = 0.99f;
+constexpr float INV_FAR_MINUS_NEAR = (float)(1.0 / (100.0 - 0.2));
 constexpr float T_EPS = 1e-4f;
 constexpr float MEDIAN_T = 0.5f;
 
+// pixels per thread and the blocks per SM the registers must allow, in
+// both instances (timed per instance, the same shape won in each)
+constexpr int PPT = 2;
+constexpr int MIN_BLOCKS = 2;
+constexpr int THREADS = NPIX / PPT;
+constexpr int ROWS_PER_PASS = THREADS / TILE;
+
 template <bool REG>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fwd_kernel(const float* __restrict__ payload, int64_t cap, const int32_t* __restrict__ bounds,
            const float* __restrict__ meta, int ntx, float* __restrict__ out,
            int32_t* __restrict__ livec) {
-  __shared__ float sp[CHUNK][SROW];
+  __shared__ __align__(16) float sp[2][windows::WINDOW_FLOATS];
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
   const int seg_s = bounds[tile];
   const int seg_e = bounds[tile + 1];
   const int base = (seg_s / CHUNK) * CHUNK;
-  const int nc = seg_e > seg_s ? (seg_e - base + CHUNK - 1) / CHUNK : 0;
+  const int nc = windows::count(seg_s, seg_e);
 
   const float fx = meta[0], fy = meta[1];
   const float half_w = meta[5], half_h = meta[6];
   const float tx = (float)((tile % ntx) * TILE);
   const float ty = (float)((tile / ntx) * TILE);
-  const float lx = (float)(tid % TILE);
-  const float rx = ((tx + lx) + 0.5f - half_w) / fx;
+  const float rx = ray_alpha::pixel_ray(tx + (float)(tid % TILE), half_w, fx);
   float ry[PPT];
   float T[PPT], r0[PPT], r1[PPT], r2[PPT], m0[PPT], m1[PPT], m2[PPT];
   float acc[PPT], s1[PPT], s2[PPT], depth[PPT];
   int med[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const float ly = (float)(tid / TILE + k * ROWS_PER_PASS);
-    ry[k] = ((ty + ly) + 0.5f - half_h) / fy;
+    ry[k] = ray_alpha::pixel_ray(ty + (float)(tid / TILE + k * ROWS_PER_PASS), half_h, fy);
     T[k] = 1.0f;
     r0[k] = r1[k] = r2[k] = m0[k] = m1[k] = m2[k] = 0.0f;
     acc[k] = s1[k] = s2[k] = depth[k] = 0.0f;
     med[k] = -1;
   }
 
+  if (nc > 0) windows::stage<THREADS>(sp[0], payload, cap, base, tid);
   int c = 0;
   while (c < nc) {
+    windows::wait_staged();
     int alive = 0;
 #pragma unroll
     for (int k = 0; k < PPT; ++k) alive |= (T[k] >= T_EPS);
-    // the vote is also the barrier before the window buffer is refilled
+    // the vote is also the barrier that publishes window c and frees the
+    // other buffer (window c - 1 is blended)
     if (!__syncthreads_or(alive)) break;
+    if (c + 1 < nc)
+      windows::stage<THREADS>(sp[(c + 1) & 1], payload, cap, base + (c + 1) * CHUNK, tid);
 
-    const int row0 = base + c * CHUNK;  // row0 + CHUNK <= cap: cap is a multiple
-    for (int idx = tid; idx < P_COLS * CHUNK; idx += THREADS) {  // of CHUNK >= seg_e
-      const int f = idx / CHUNK;
-      const int i = idx % CHUNK;
-      sp[i][f] = payload[(int64_t)f * cap + row0 + i];
-    }
-    __syncthreads();
-
+    const float* buf = sp[c & 1];
+    const int row0 = base + c * CHUNK;
     const int i0 = max(seg_s - row0, 0);
     const int i1 = min(seg_e - row0, CHUNK);
     for (int i = i0; i < i1; ++i) {
-      const float* p = sp[i];
+      const windows::Row p = windows::load_row(buf, i);
+      const float mat[9] = {p.q1.x, p.q1.y, p.q1.z, p.q1.w, p.q2.x,
+                            p.q2.y, p.q2.z, p.q2.w, p.q3.x};
+      const float u[3] = {p.q3.y, p.q3.z, p.q3.w};
+      const ray_alpha::RayX x = ray_alpha::ray_x(mat[0], mat[3], mat[6], rx);
+      ray_alpha::RayPeak rk[PPT];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) rk[k] = ray_alpha::ray_peak(mat, u, x, ry[k]);
+      ray_alpha::Alpha ak[PPT];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) ak[k] = ray_alpha::alpha_at(rk[k], u, p.q0.w, rk[k].t);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const float d0 = p[4] * rx + p[5] * ry[k] + p[6];
-        const float d1 = p[7] * rx + p[8] * ry[k] + p[9];
-        const float d2 = p[10] * rx + p[11] * ry[k] + p[12];
-        const float ud = p[13] * d0 + p[14] * d1 + p[15] * d2;
-        const float dd = d0 * d0 + d1 * d1 + d2 * d2 + 1e-12f;
-        const float t = -ud / dd;
-        const float v0 = p[13] + t * d0;
-        const float v1 = p[14] + t * d1;
-        const float v2 = p[15] + t * d2;
-        const float mv = v0 * v0 + v1 * v1 + v2 * v2;
-        const float opE = p[3] * expf(-0.5f * mv);
-        const float a = opE > ALPHA_MAX ? ALPHA_MAX : opE;
-        if (!(t > NEAR_PLANE && a >= ALPHA_MIN)) continue;
+        const ray_alpha::RayPeak& r = rk[k];
+        const ray_alpha::Alpha& al = ak[k];
+        if (!ray_alpha::active(r.t, al.a)) continue;
         const float Te = T[k];
         if (Te > T_EPS) {
-          const float w = a * Te;
-          r0[k] = r0[k] + p[0] * w;
-          r1[k] = r1[k] + p[1] * w;
-          r2[k] = r2[k] + p[2] * w;
-          acc[k] = acc[k] + w;
+          // contributions: contracted into FMAs, held by tolerance
+          const float w = al.a * Te;
+          r0[k] += p.q0.x * w;
+          r1[k] += p.q0.y * w;
+          r2[k] += p.q0.z * w;
+          acc[k] += w;
           if (REG) {
-            const float tc = fmaxf(t, NEAR_PLANE);
-            const float m = (FAR_PLANE * tc - FAR_X_NEAR) / (FAR_MINUS_NEAR * tc);
+            const float itc = __fdividef(1.0f, fmaxf(r.t, NEAR_PLANE));
+            const float m = (FAR_PLANE - FAR_X_NEAR * itc) * INV_FAR_MINUS_NEAR;
             const float wm = w * m;
-            const float n0 = p[4] * d0 + p[7] * d1 + p[10] * d2;
-            const float n1 = p[5] * d0 + p[8] * d1 + p[11] * d2;
-            const float n2 = p[6] * d0 + p[9] * d1 + p[12] * d2;
-            const float inv_len = rsqrtf(n0 * n0 + n1 * n1 + n2 * n2 + 1e-7f);
-            const float sneg = inv_len * w;
-            m0[k] = m0[k] - n0 * sneg;
-            m1[k] = m1[k] - n1 * sneg;
-            m2[k] = m2[k] - n2 * sneg;
-            s1[k] = s1[k] + wm;
-            s2[k] = s2[k] + wm * m;
+            const float n0 = mat[0] * r.d0 + mat[3] * r.d1 + mat[6] * r.d2;
+            const float n1 = mat[1] * r.d0 + mat[4] * r.d1 + mat[7] * r.d2;
+            const float n2 = mat[2] * r.d0 + mat[5] * r.d1 + mat[8] * r.d2;
+            const float sneg = rsqrtf(n0 * n0 + n1 * n1 + n2 * n2 + 1e-7f) * w;
+            m0[k] -= n0 * sneg;
+            m1[k] -= n1 * sneg;
+            m2[k] -= n2 * sneg;
+            s1[k] += wm;
+            s2[k] += wm * m;
             if (Te > MEDIAN_T) {
-              depth[k] = t;
+              depth[k] = r.t;
               med[k] = c * CHUNK + i;
             }
           }
         }
-        T[k] = Te * (1.0f - a);
+        T[k] = ray_alpha::transmit(Te, al.a);
       }
     }
     ++c;
@@ -166,7 +177,7 @@ fwd_kernel(const float* __restrict__ payload, int64_t cap, const int32_t* __rest
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const float omT = 1.0f - T[k];
-    const float dist = (acc[k] * s2[k] - s1[k] * s1[k]) / (omT * omT + 1e-7f);
+    const float dist = __fdividef(acc[k] * s2[k] - s1[k] * s1[k], omT * omT + 1e-7f);
     float* o = out + (int64_t)tile * OUT_CH * NPIX + tid + k * THREADS;
     o[0 * NPIX] = r0[k] + T[k] * bg0;
     o[1 * NPIX] = r1[k] + T[k] * bg1;
@@ -186,6 +197,15 @@ fwd_kernel(const float* __restrict__ payload, int64_t cap, const int32_t* __rest
   if (tid == 0) livec[tile] = c;
 }
 
+template <bool REG>
+cudaError_t launch(const void* payload, long long cap, const void* bounds, const void* meta,
+                   int ntx, int ntiles, void* out, void* livec, cudaStream_t s) {
+  fwd_kernel<REG><<<ntiles, THREADS, 0, s>>>(
+      (const float*)payload, cap, (const int32_t*)bounds, (const float*)meta, ntx, (float*)out,
+      (int32_t*)livec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int gof_rasterize_fwd(int device, const void* payload, long long cap,
@@ -196,14 +216,6 @@ extern "C" int gof_rasterize_fwd(int device, const void* payload, long long cap,
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (with_reg) {
-    fwd_kernel<true><<<ntiles, THREADS, 0, s>>>(
-        (const float*)payload, cap, (const int32_t*)bounds, (const float*)meta, ntx,
-        (float*)out, (int32_t*)livec);
-  } else {
-    fwd_kernel<false><<<ntiles, THREADS, 0, s>>>(
-        (const float*)payload, cap, (const int32_t*)bounds, (const float*)meta, ntx,
-        (float*)out, (int32_t*)livec);
-  }
-  return (int)cudaGetLastError();
+  return (int)(with_reg ? launch<true>(payload, cap, bounds, meta, ntx, ntiles, out, livec, s)
+                        : launch<false>(payload, cap, bounds, meta, ntx, ntiles, out, livec, s));
 }

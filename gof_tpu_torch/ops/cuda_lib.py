@@ -7,13 +7,16 @@ interface, loaded with ctypes. The library lands in
 sources and their flags, so an edit rebuilds and an unchanged tree reuses
 it. Nothing is built at import: the first kernel launch calls `library()`.
 
-Every source but K3's is built with `-fmad=false`, which keeps nvcc from
-contracting a*b+c into FMAs: each kernel then rounds every operation as its
-plain PyTorch version does, so the two agree to the last bit where they run
-the same operations in the same order. K3 (rasterize_bwd.cu) is built with
-contraction on: its transmittance chain, which must keep K1's bits, is
-written with intrinsics that nvcc never contracts, and its gradient chain,
-held to its plain version by tolerance, runs on FMAs.
+Every source but K1's and K3's is built with `-fmad=false`, which keeps
+nvcc from contracting a*b+c into FMAs: each kernel then rounds every
+operation as its plain PyTorch version does, so the two agree to the last
+bit where they run the same operations in the same order. K1
+(rasterize_fwd.cu) and K3 (rasterize_bwd.cu) are built with contraction
+on: their alpha/transmittance chain (csrc/ray_alpha.cuh, shared with K5),
+which must keep the plain version's bits, is written with intrinsics that
+nvcc never contracts, and their accumulations and gradients, held to their
+plain versions by tolerance, run on FMAs. The headers (csrc/*.cuh) are
+part of the library's hash.
 """
 
 from __future__ import annotations
@@ -30,8 +33,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 EXACT = ("-fmad=false",)
+CONTRACT = ("-fmad=true",)
 SOURCES = {  # each source and its own nvcc flags
-    "expand.cu": EXACT, "rasterize_fwd.cu": EXACT, "rasterize_bwd.cu": ("-fmad=true",),
+    "expand.cu": EXACT, "rasterize_fwd.cu": CONTRACT, "rasterize_bwd.cu": CONTRACT,
     "reduce.cu": EXACT, "integrate.cu": EXACT, "gather_probes.cu": EXACT,
 }
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "gof_tpu_torch"
@@ -112,6 +116,9 @@ def source_hash() -> str:
         h.update(name.encode())
         h.update(" ".join(flags).encode())
         h.update((CSRC / name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -27,9 +27,12 @@ branch (kernel) or a select (plain version), never multiplied by zero, so
 a non-finite payload row cannot leak into another tile's pixels.
 
 The plain version runs each window as one [NTILES, 128, 1024] step. Its
-in-window transmittance is a cumprod over [T, 1 - a_0, 1 - a_1, ...] and its
-sums are cumsums seeded with the running value: on CUDA both scan serially
-along that axis, so they round exactly as the kernel's serial loop does.
+in-window transmittance is a cumprod over [T, 1 - a_0, 1 - a_1, ...], which
+scans serially along that axis, so T, the median depth and the median
+visit round exactly as the kernel's chain (csrc/ray_alpha.cuh) does; its
+sums are cumsums seeded with the running value, which the kernel forms on
+FMAs, so the colour, alpha, normal, distortion and s1 channels agree to a
+tolerance.
 
 The backward recomputes T with that same serial arithmetic (not gof_tpu's
 `T * shift_down(prod_incl)`), so its T > 1e-4 cutoff and median visit agree

@@ -3,10 +3,12 @@
 Marked `cuda`: each test skips (from a fixture) where torch sees no CUDA
 device. On a machine with an NVIDIA GPU and nvcc:
     python -m pytest tests/test_torch_cuda.py -q
-The kernels but K3 are built with -fmad=false and follow their plain
-versions' operation order, so most comparisons are exact; the blend's float
-channels are held to atol 1e-5, rtol 1e-4 like the CPU parity tests, and
-K3's gradient rows (contracted into FMAs) to 1e-4 x max |plain|.
+The kernels but K1 and K3 are built with -fmad=false and follow their
+plain versions' operation order, so most comparisons are exact; K1's T,
+median depth and counts are bit-exact (its alpha/T chain never contracts),
+its accumulated channels (on FMAs) held to atol 1e-5, rtol 1e-4 like the
+CPU parity tests, and K3's gradient rows (contracted into FMAs) to 1e-4 x
+max |plain|.
 """
 
 import numpy as np
@@ -106,16 +108,104 @@ def blend_inputs(dev, n=3000, width=200, height=150, seed=4):
     return payload, b, meta, ntx, ntx * nty
 
 
+# K1's channels from its exact chain (T, median depth and visit index) and
+# its integer counts are bit-exact; its accumulations run on FMAs
+FWD_EXACT = [rz.CH_TFINAL, 6, rz.CH_MEDIDX, rz.CH_LIVEC, rz.CH_CSTART]
+FWD_TOL = [0, 1, 2, 3, 4, 5, 7, 8, rz.CH_DFINAL]
+
+
+def assert_fwd_matches(got, want):
+    torch.testing.assert_close(got[:, FWD_TOL], want[:, FWD_TOL], atol=ATOL, rtol=RTOL)
+    for ch in FWD_EXACT:
+        assert torch.equal(got[:, ch], want[:, ch]), ch
+
+
 @pytest.mark.parametrize("n", [3000, 40])
 @pytest.mark.parametrize("with_reg", [True, False])
 def test_blend_kernel_matches_plain(dev, with_reg, n):
     payload, b, meta, ntx, ntiles = blend_inputs(dev, n=n)
     got = rz.rasterize_fwd(payload, b, meta, ntx, ntiles, with_reg=with_reg)
     want = rz.rasterize_fwd_reference(payload, b, meta, ntx, ntiles, with_reg=with_reg)
-    chans = list(range(9)) + [rz.CH_TFINAL, rz.CH_DFINAL]
-    torch.testing.assert_close(got[:, chans], want[:, chans], atol=ATOL, rtol=RTOL)
-    for ch in (rz.CH_MEDIDX, rz.CH_LIVEC, rz.CH_CSTART):
-        assert torch.equal(got[:, ch], want[:, ch]), ch
+    assert_fwd_matches(got, want)
+    assert torch.equal(got, rz.rasterize_fwd(payload, b, meta, ntx, ntiles, with_reg=with_reg))
+
+
+def synthetic_rows(rng, n, rx_span, ry_span):
+    """n payload rows ([16, n] f32) of isotropic gaussians seen along rays
+    with slopes in the given spans: centre c = z (rx, ry, 1), scale s,
+    M = R / s for a small rotation R, u0 = -M c, so the ray-gaussian
+    maximum lies at c's depth and the footprint spans 1-10 pixels at a
+    focal length of 100."""
+    z = rng.uniform(2.0, 10.0, n)
+    c = np.stack([rng.uniform(*rx_span, n) * z, rng.uniform(*ry_span, n) * z, z], -1)
+    s = z * rng.uniform(0.005, 0.05, n)
+    R = np.eye(3) + rng.normal(0, 0.05, (n, 3, 3))
+    M = R / s[:, None, None]
+    u0 = -np.einsum("nij,nj->ni", M, c)
+    rows = np.concatenate([rng.uniform(0, 1, (n, 3)), rng.uniform(0.05, 0.95, (n, 1)),
+                           M.reshape(n, 9), u0], 1)
+    return rows.T.astype(np.float32)
+
+
+# a row every pixel sees at alpha 0.99: d = (0, 0, 1), t = 5, v = 0
+WALL_ROW = np.array([0.5, 0.5, 0.5, 0.99, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, -5], np.float32)
+
+
+def synthetic_tiles(dev, segs=(0, 2000, 37, 1000, 600, 5), walls=((3, 150),), faint=(1,),
+                    start=77, seed=6, width=96, height=64, focal=100.0):
+    """The blend's inputs for hand-made tiles: tile t owns segs[t] random
+    rows (synthetic_rows over its own pixels), the segments back to back
+    from an unaligned start; (tile, row) in walls puts three WALL_ROWs at
+    that row of the tile's segment, so every pixel of the tile saturates
+    there, mid-window; the tiles in faint get a tenth of the opacity, so
+    they walk all their windows. Returns payload, a binning with its bounds, meta,
+    ntx, ntiles."""
+    from types import SimpleNamespace
+
+    from gof_tpu_torch.ops import binning
+
+    rng = np.random.default_rng(seed)
+    ntx, nty = binning.tile_grid(width, height)
+    assert len(segs) == ntx * nty
+    cols, bounds = [np.zeros((16, start), np.float32)], [start]
+    for t, n in enumerate(segs):
+        x0, y0 = (t % ntx) * 32 - width / 2, (t // ntx) * 32 - height / 2
+        rows = synthetic_rows(rng, n, (x0 / focal - 0.05, (x0 + 32) / focal + 0.05),
+                              (y0 / focal - 0.05, (y0 + 32) / focal + 0.05))
+        if t in faint:
+            rows[3] *= 0.1
+        for tw, at in walls:
+            if tw == t:
+                rows[:, at:at + 3] = WALL_ROW[:, None]
+        cols.append(rows)
+        bounds.append(bounds[-1] + n)
+    payload = np.concatenate(cols, 1)
+    cap = -(-payload.shape[1] // 128) * 128 + 128
+    payload = np.pad(payload, ((0, 0), (0, cap - payload.shape[1])))
+    b = SimpleNamespace(bounds=torch.tensor(bounds, dtype=torch.int32, device=dev))
+    meta = rz._meta_vec(torch.tensor(focal), torch.tensor(focal),
+                        torch.tensor([0.1, 0.2, 0.3], device=dev), width, height).to(dev)
+    return torch.from_numpy(payload).to(dev), b, meta, ntx, ntx * nty
+
+
+@pytest.mark.parametrize("with_reg", [True, False])
+def test_blend_kernel_long_tile_wall_and_empty_tiles(dev, with_reg):
+    """One tile ten times longer than the others, one whose pixels all
+    saturate mid-window (the exit vote at the next boundary, past a
+    prefetched window), empty tiles: exact and close to the plain version,
+    the same across launches."""
+    from gof_tpu_torch.ops import windows
+
+    payload, b, meta, ntx, ntiles = synthetic_tiles(dev)
+    got = rz.rasterize_fwd(payload, b, meta, ntx, ntiles, with_reg=with_reg)
+    want = rz.rasterize_fwd_reference(payload, b, meta, ntx, ntiles, with_reg=with_reg)
+    assert_fwd_matches(got, want)
+    assert torch.equal(got, rz.rasterize_fwd(payload, b, meta, ntx, ntiles, with_reg=with_reg))
+    nc = windows.window_counts(b.bounds[:-1], b.bounds[1:]).cpu()
+    live = got[:, rz.CH_LIVEC, 0].cpu().long()
+    assert int(nc[1]) >= 10 * int(nc[[2, 5]].max()) and int(live[1]) == int(nc[1])
+    assert int(live[3]) == 2 < int(nc[3]) and float(got[3, rz.CH_TFINAL].max()) < 1e-4
+    assert int(nc[0]) == int(live[0]) == 0 and bool((got[0, rz.CH_TFINAL] == 1).all())
 
 
 def test_blend_kernel_nan_row_stays_in_its_tile(dev):
@@ -528,6 +618,51 @@ def test_integrate_kernel_matches_plain(dev):
     assert float((got - want).abs().max()) <= 1e-6
     assert bool((got[:100] == 1).all())
     assert float(got.min()) < 0.5 and pb.n_blocks > b.bounds.shape[0] - 1
+
+
+def test_integrate_kernel_uneven_blocks_bit_exact(dev):
+    """Point blocks over segments of 1 to 3000 rows, an empty segment, full,
+    partial and padding-only CUDA blocks (eighths of a point block): bit-equal to the plain
+    version and across launches; points in no slot exactly 1."""
+    from types import SimpleNamespace
+
+    from gof_tpu_torch.ops import integrate as ti
+
+    payload, b, meta, ntx, ntiles = synthetic_tiles(dev, segs=(1, 3000, 0, 600, 129, 40),
+                                                    walls=(), faint=())
+    rng = np.random.default_rng(7)
+    focal, width, height = 100.0, 96, 64
+    points = (3 * 1024 + 100, 10, 500, 1024, 700, 256)  # per tile: its point blocks' fill
+    n_unproj = 7
+    N = sum(points) + n_unproj
+    ids = rng.permutation(N)
+    slots, tiles, rxs, rys, zs, k = [], [], [], [], [], 0
+    for t, n in enumerate(points):
+        nb = -(-n // ti.PBLOCK)
+        pid = np.full(nb * ti.PBLOCK, N, np.int32)
+        pid[:n] = ids[k:k + n]
+        k += n
+        x0, y0 = (t % ntx) * 32 - width / 2, (t // ntx) * 32 - height / 2
+        rx = np.where(pid < N, rng.uniform(x0, x0 + 32, pid.size) / focal, 0.0)
+        ry = np.where(pid < N, rng.uniform(y0, y0 + 32, pid.size) / focal, 0.0)
+        slots.append(pid)
+        tiles += [t] * nb
+        rxs.append(rx), rys.append(ry)
+        zs.append(np.where(pid < N, rng.uniform(1, 12, pid.size), 0))
+    f32 = lambda x: torch.tensor(np.concatenate(x), dtype=torch.float32, device=dev)  # noqa: E731
+    pb = SimpleNamespace(n_blocks=len(tiles),
+                         block_tile=torch.tensor(tiles, dtype=torch.int32, device=dev),
+                         rx=f32(rxs), ry=f32(rys), depth=f32(zs),
+                         point_of_slot=torch.tensor(np.concatenate(slots), device=dev))
+    before = ti.INTEGRATE.launches
+    got = ti.integrate_transmittance(payload, b, pb, N)
+    assert ti.INTEGRATE.launches == before + 1
+    want = ti.integrate_transmittance_reference(payload, b, pb, N)
+    assert torch.equal(got, want)
+    assert torch.equal(got, ti.integrate_transmittance(payload, b, pb, N))
+    unproj = torch.tensor(ids[k:], device=dev).long()
+    assert len(unproj) == n_unproj and bool((got[unproj] == 1).all())
+    assert float(got.min()) < 0.5
 
 
 def test_integrate_kernel_nan_row_stays_in_its_tile(dev):

@@ -8,6 +8,8 @@ the two sum and multiply in different orders). CH_MEDIDX, CH_LIVEC and
 CH_CSTART, the conventions the backward relies on, must match exactly.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,8 @@ from gof_tpu.ops import rasterize_pallas as rp
 from gof_tpu.sh import rgb_to_sh_dc
 from gof_tpu_torch.ops import binning as tb
 from gof_tpu_torch.ops import rasterize as tr
+from gof_tpu_torch.ops import windows as tw
+from test_torch_cuda import synthetic_tiles
 
 torch.set_num_threads(2)
 
@@ -152,3 +156,44 @@ def test_wrapper_refuses_non_cuda_devices(multi):
                     num_keys=b.num_keys, overflow=b.overflow, num_slots=b.num_slots)
     with pytest.raises(ValueError):
         tr.rasterize_fwd(payload.to("meta"), mb, meta.to("meta"), ntx, ntiles)
+
+
+def test_window_counts_are_the_windows_walked(scene):
+    """Where no tile exits early, each tile walks window_counts(bounds)
+    windows (gof_tpu's CH_LIVEC); the early exit only ever cuts it short."""
+    _, inputs, want = scene
+    bounds = inputs[1].bounds
+    nc = tw.window_counts(bounds[:-1], bounds[1:]).numpy()
+    livec = want[:, tr.CH_LIVEC, 0]
+    assert (livec <= nc).all()
+    walked = want[:, tr.CH_TFINAL].max(axis=1) >= 1e-4
+    np.testing.assert_array_equal(livec[walked], nc[walked])
+
+
+@pytest.mark.parametrize("with_reg", [True, False])
+def test_forward_matches_pallas_on_synthetic_tiles(with_reg):
+    """Hand-made tiles (test_torch_cuda.synthetic_tiles): empty ones, one
+    seventeen windows long, one whose every pixel saturates mid-window, on
+    segments that start off the window grid."""
+    payload, b, meta, ntx, ntiles = synthetic_tiles("cpu", segs=(0, 1200, 37, 700, 300, 5))
+    want = np.asarray(rp.rasterize_fwd_pallas(
+        jnp.asarray(payload.numpy()), SimpleNamespace(bounds=jnp.asarray(b.bounds.numpy())),
+        jnp.asarray(meta.numpy()), ntx, ntiles, interpret=True, with_reg=with_reg))
+    got = tr.rasterize_fwd(payload, b, meta, ntx, ntiles, with_reg=with_reg).numpy()
+    check(got, want)
+    livec, nc = got[:, tr.CH_LIVEC, 0], tw.window_counts(b.bounds[:-1], b.bounds[1:]).numpy()
+    assert livec[0] == nc[0] == 0 and livec[1] == nc[1] >= 10
+    assert livec[3] == 2 < nc[3] and got[3, tr.CH_TFINAL].max() < 1e-4
+
+
+@pytest.mark.parametrize("seed", [1, 3])
+def test_window_counts_match_the_aligned_windows(seed):
+    """window_counts against a plain loop: empty segments, one segment of
+    300k rows, starts off the window grid."""
+    rng = np.random.default_rng(seed)
+    lens = np.concatenate([[0, 300_000, 1], rng.integers(0, 2000, 200)])
+    ends = np.cumsum(lens) + 33
+    seg_s = torch.tensor(ends - lens, dtype=torch.int32)
+    seg_e = torch.tensor(ends, dtype=torch.int32)
+    nc = [(e - s // 128 * 128 + 127) // 128 if e > s else 0 for s, e in zip(ends - lens, ends)]
+    np.testing.assert_array_equal(tw.window_counts(seg_s, seg_e).numpy(), nc)
