@@ -49,7 +49,9 @@ paths and its gather/scatter probes once on one CUDA GPU.
    every row on one id and every row on the sentinel; each timed beside its
    plain version, its library call and its bound; K11 and K13 also on every
    chunk on one page, on fewer chunks than the product's persistent blocks
-   and on pages outside the table;
+   and on pages outside the table; K8 and K9 also on sorted indices, every
+   row on one index, consecutive rows on distinct k-steps, indices outside
+   the table and (K8) 64 k-steps per sorted tile, each case timed;
 9. the bench design point: bench.py's model, look-at camera and seeded
    random ground truth, through the port's build_train_step in bench's two
    phases (statistics on, regularizers off, step 5000; statistics off,
@@ -68,8 +70,8 @@ paths and its gather/scatter probes once on one CUDA GPU.
    timed beside its column-major entry, whose result must equal it; each
    timed beside its plain version and its library call, with
    its bound (K3's counted per instance from this view's active pairs);
-10. profile single calls of K1, K3, K4 (both entries), K10, K11 and K13 (device
-   time of each kernel they launch) in each phase;
+10. profile single calls of K1, K3, K4 (both entries), K8, K9, K10, K11 and
+   K13 (device time of each kernel they launch) in each phase;
 11. print the kernels' JSON line (the four of the first bench phase, K1, K3
    and K4 of the second, K1 at the serving view, K5 and K6-K13, each with
    its bound and library time),
@@ -129,7 +131,7 @@ def preflight() -> str:
 
 
 SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "FFMA", "FMUL", "FADD", "MUFU", "SHFL", "FSEL",
-            "SEL", "BRA", "BSSY", "WARPSYNC")
+            "SEL", "BRA", "BSSY", "WARPSYNC", "RED", "REDG", "ATOMG")
 
 
 def sass_counts(path) -> dict:
@@ -169,7 +171,7 @@ def build() -> None:
     # tensor-core products, FMAs, the special-function unit's, shuffles,
     # selects and branches
     for fn, c in sass_counts(path).items():
-        if "bwd_kernel" in fn or "fwd_kernel" in fn or "MMA" in "".join(c):
+        if "bwd_kernel" in fn or "fwd_kernel" in fn or "MMA" in "".join(c) or "scat" in fn:
             print(f"  sass: {fn}: {c}")
 
 
@@ -981,7 +983,9 @@ def probe_phase() -> list:
     version (and to torch.index_select where that computes the same
     function), K9/K10 within rtol 1e-5 / atol 1e-5 x max |plain| of theirs
     and of index_add_ on the card; then K10 bit-equal to its plain version
-    on CPU copies and across launches (check_scatmxu_cases)."""
+    on CPU copies and across launches (check_scatmxu_cases), K11/K13 on
+    extra cases (check_int8_cases), K8/K9 on skewed indices
+    (check_onehot_cases)."""
     from gof_tpu_torch.ops import gather_probes as gp
     from gof_tpu_torch.scripts import mxu_gather_probe, pallas_gather_probe
 
@@ -1007,6 +1011,7 @@ def probe_phase() -> list:
         raise RuntimeError(f"probe kernels failed their checks or never launched: {bad}")
     check_scatmxu_cases()
     check_int8_cases()
+    check_onehot_cases()
     out = []
     for name, r in res.items():
         src = "reduce.cu" if name == "scatmxu" else "gather_probes.cu"
@@ -1090,6 +1095,65 @@ def check_int8_cases() -> None:
           f"K13 = index_select on its pages): {results}")
     if not all(all(r[1:]) for r in results):
         raise RuntimeError("K11/K13 disagree with their plain versions on the extra cases")
+
+
+def check_onehot_cases() -> None:
+    """K8 and K9 at the script's shapes (PAGE 16384, W 32, 524,288 rows; the
+    script's table and rows) on index distributions the probe does not
+    draw: sorted, every row on one index, consecutive rows on distinct
+    k-steps, every index outside [-PAGE, PAGE), and PAGE / 16 rows each on a
+    k-step of its own (each 64 sorted rows hit 64 k-steps, K8's slowest
+    tiles). K8 bit-equal to its plain version and to index_select of the
+    bf16-rounded table; K9 within rtol 1e-5 / atol 1e-5 x max |plain| of its
+    plain version and of index_add_, and with every row on one index, on
+    integer rows in [-8, 8] (each f32 add exact in any order), equal to the
+    float64 sum. Prints each case's K8 and K9 times (CUDA events)."""
+    from gof_tpu_torch.ops import gather_probes as gp
+    from gof_tpu_torch.scripts import pallas_gather_probe as pgp
+    from gof_tpu_torch.utils.timing import time_ms
+
+    page, n = 16384, 524288
+    table_np, _, rows_np = pgp.inputs(page, 2048, 256)
+    table, rows = torch.from_numpy(table_np).cuda(), torch.from_numpy(rows_np).cuda()
+    tbl_bf = table.bfloat16().float()
+    rng = np.random.default_rng(SEED)
+    r, nk = np.arange(n), page // 16
+    cases = {
+        "sorted": np.sort(rng.integers(0, page, n)),
+        "every row on one index": np.full(n, page // 3),
+        "consecutive rows on distinct k-steps": 16 * (r % nk) + (r // nk + 5 * r) % 16,
+        "every index outside the table": rng.choice(
+            [-2**31, 2**31 - 1, -page - 1, -2 * page, page, page + 7], n),
+        "PAGE / 16 rows, 64 k-steps per sorted tile": 16 * rng.permutation(nk)
+        + rng.integers(0, 16, nk)}
+    dev = torch.device("cuda")
+    results, ok = [], True
+    for label, ix in cases.items():
+        idx = torch.from_numpy(ix.astype(np.int32).reshape(1, 1, -1)).cuda()
+        flat = idx.reshape(-1)
+        inside = label != "every index outside the table"
+        got = gp.onehot_gather(idx, table)
+        lib = torch.index_select(tbl_bf, 0, flat) if inside else torch.zeros_like(got)
+        k8 = (torch.equal(got, gp.onehot_gather_reference(idx, table)), torch.equal(got, lib))
+        ms8 = time_ms(lambda: gp.onehot_gather(idx, table), [()], dev, 10)
+        one = label == "every row on one index"
+        rws = (torch.from_numpy(rng.integers(-8, 9, rows.shape).astype(np.float32)).cuda() if one
+               else rows[:flat.numel()])
+        g9 = gp.scat(idx, rws, page)
+        want = gp.scat_reference(idx, rws, page)
+        lib9 = (torch.zeros_like(want).index_add_(0, flat, rws) if inside
+                else torch.zeros_like(want))
+        k9 = [pgp.within(g9, want), pgp.within(g9, lib9)]
+        if one:
+            k9.append(torch.equal(g9[page // 3].double(), rws.double().sum(0)))
+        ms9 = time_ms(lambda: gp.scat(idx, rws, page), [()], dev, 10)
+        results.append((label, k8, tuple(k9), round(ms8, 4), round(ms9, 4)))
+        ok = ok and all(k8) and all(k9)
+    print("one-hot gather (K8: exact, = index_select of the bf16 table) and scat (K9: within tol "
+          "of plain, of index_add_[, = float64 sum]) on skewed indices, with K8 / K9 ms: "
+          f"{results}")
+    if not ok:
+        raise RuntimeError("K8/K9 disagree with their plain versions on skewed indices")
 
 
 def bench_state():
@@ -1358,7 +1422,7 @@ def profile_kernel_calls(ins, probes: bool) -> None:
     """torch.profiler over single calls of K1 (with its wrapper's compact
     layout), K3 and K4 (this phase's inputs),
     K4's column-major entry (which copies the rows row-major)
-    and, with `probes`, K10, K11 and K13 (the scripts' shapes): the device
+    and, with `probes`, K8, K9, K10, K11 and K13 (the scripts' shapes): the device
     time of each kernel a call launches, median of 10 calls, each behind a
     device sleep."""
     from torch.profiler import ProfilerActivity, profile
@@ -1376,8 +1440,8 @@ def profile_kernel_calls(ins, probes: bool) -> None:
             ins["ntiles"], *ins["half"])
     kw = dict(with_stats=with_stats, with_reg=not with_stats,
               compact_cap=max(ins["demand"], rz.CHUNK_SIZE))
-    _, idx10, rows10 = pallas_gather_probe.inputs(16384, 2048, 256)
-    idx10, rows10 = torch.from_numpy(idx10).cuda(), torch.from_numpy(rows10).cuda()
+    table8, idx10, rows10 = (torch.from_numpy(x).cuda()
+                             for x in pallas_gather_probe.inputs(16384, 2048, 256))
     rng = np.random.default_rng(0)
     tbl = torch.from_numpy(rng.integers(-128, 128, (2048, 128)).astype(np.int8)).cuda()
     big = torch.from_numpy(rng.integers(-128, 128, (8 * 2048, 128)).astype(np.int8)).cuda()
@@ -1389,6 +1453,8 @@ def profile_kernel_calls(ins, probes: bool) -> None:
              ("K3 rasterize_bwd", lambda: rz.bwd_rows(*args, **kw)),
              ("K4 reduce on the row buffer", lambda: rz.reduce_compact_rows(rows, gid, P)),
              ("K4 reduce, column-major entry", lambda: red.reduce_row_blocks(columns, gid, P)),
+             ("K8 onehot_gather", lambda: gp.onehot_gather(idx10, table8)),
+             ("K9 scat", lambda: gp.scat(idx10, rows10, 16384)),
              ("K10 scatmxu", lambda: gp.scatmxu(idx10, rows10, 16384)),
              ("K11 int8_gather", lambda: gp.int8_gather(idx, tbl)),
              ("K13 paged_gather", lambda: gp.paged_gather(pages, pidx, big, 2048)))

@@ -11,8 +11,9 @@
 // function, its edge behaviour included (ops/gather_probes.py states it and
 // holds the plain PyTorch versions). On the TPU the table lived in VMEM
 // (2 MiB); a block's shared memory holds at most 227 KB, so here the table
-// lives in the 50 MB L2 and the one-hot products stage one page (K8) or one
-// 64-column slab of a page (K11, K13) at a time.
+// lives in the 50 MB L2 and the one-hot products stage one 16-row k-step of
+// a 32-column slab (K8: only the k-steps its rows hit, the rows grouped by
+// k-step first) or one 64-column slab of a page (K11, K13) at a time.
 //
 // Index layout as in the scripts: idx [nchunks, 1, chunk] int32 is read as
 // one flat [n] stream, except where the chunk matters (K12's base, K13's
@@ -85,18 +86,10 @@ vidx_kernel(const int32_t* __restrict__ idx, int64_t n, const float4* __restrict
 
 // ---------------------------------------------------------------------------
 // Tensor-core helpers (fragment layouts of the PTX ISA, "Matrix Fragments
-// for mma.m16n8k16"; wgmma's register A for s8 is, per warp of the
-// warpgroup, that of mma.m16n8k32). groupID g = lane / 4 and
-// threadID_in_group tg = lane % 4.
+// for mma.m16n8k16"; wgmma's register A is, per warp of the warpgroup, that
+// of mma.m16n8k16 for bf16 and of mma.m16n8k32 for s8). groupID g =
+// lane / 4 and threadID_in_group tg = lane % 4.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Two bf16 one-hot entries (k, k + 1) of a row whose hit lies e columns
 // past k: bf16 1.0 (0x3F80) in the low half for e == 0, the high for e == 1.
@@ -119,131 +112,322 @@ __device__ __forceinline__ int local_row(int32_t ix, uint32_t start, uint32_t si
   return l < size ? (int)l : NO_HIT;
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma (CUTLASS's warpgroup_fence_operand).
+__device__ __forceinline__ void fence_regs(int (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// One thread: copy `bytes` from global to shared memory by cp.async.bulk,
+// completing on the mbarrier at `bar` (which expects them).
+__device__ __forceinline__ void bulk_stage(uint32_t dst, const void* src, uint32_t bytes,
+                                           uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(phase)
+        : "memory");
+}
+
 // ---------------------------------------------------------------------------
-// K8: out[r] = bf16(table)[idx[r]] as f32, computed as gof_tpu computed it:
-// for each page of page_b rows, a one-hot [rows, page_b] bf16 matrix times
-// the page in bf16, summed in f32. An index outside [0, npages * page_b)
-// gives a zero row. Exact: one-hot times bf16 adds exact zeros.
+// K8: out[r] = bf16(table)[idx[r]] as f32, computed as gof_tpu computed it,
+// as a one-hot bf16 product summed in f32, but only over the k-steps some
+// row hits. An index outside [0, page) gives a zero row. Exact for a finite
+// table: each row's one-hot row has one 1, so every other product is an
+// exact zero (a non-finite entry would spread 0 x inf = NaN to the rows
+// that share its k-step, as the TPU's dense product spread it over a page).
 //
 // Replaces scripts/pallas_gather_probe.py:88 onehot_kernel (call :101).
-// What bounds it: the product, 2 * n * npages * page_b * w operations
-// (5.5e11 at the script's shapes: 0.556 ms at 989 TFLOP/s bf16) against 68
-// MiB of bytes (21 us): the one-hot product is what the probe measures, the
-// matrix unit used as a gather engine. Design: mma.sync m16n8k16 (bf16 in,
-// f32 accumulate). A first pass rounds the table to bf16 and transposes it
-// (tT [w][page], 1 MiB at the script's shapes), so a block stages a page
-// with 16-byte copies. A block owns 512 rows (8 warps x 4 m-tiles) and one
-// slab of 32 columns, 4 n-tiles of 8 (the slabs on grid.y; w % 32 == 0), with
-// all its accumulators in registers (64 f32 per thread), and walks the
-// pages; each page's slab is staged in dynamic shared memory (32 columns x
-// page_b rows, 128 KB at page_b = 2048, padded by 8 rows so the B-fragment
-// loads are conflict-free). A is the one-hot tile: each row hits one
-// 16-wide k-step of its page, so its two A words are worked out once per
-// page and each k-step only selects them or zero; each B fragment serves 4
-// m-tiles.
+// What bounds it: bytes (the index and the table read once, the output, 64
+// MiB at the script's shapes, written once: 21 us), once the product skips
+// the k-steps no row hits (the dense product, 2 * n * page * w = 5.5e11
+// bf16 operations, would take 0.556 ms). Each output row depends only on
+// its own index, and a k-step of 16 table rows is all of the table a row
+// needs, so the rows are grouped by k-step and each group meets only its own
+// slab. Four passes:
+// - prep (onehot_prep_kernel): rounds the table to bf16 once, into wgmma's
+//   K-major B layout without swizzle, one contiguous 1 KB block per (k-step,
+//   32-column slab): 2 k halves x 4 column groups x 8 columns x 16 bytes;
+//   block 0 zeroes the sort's counts;
+// - count (onehot_count_kernel): a counting sort of the rows by k-step
+//   (idx >> 4; every index outside the table in one sentinel bucket, last),
+//   each block counting its OH_SORT_BLOCK rows in a shared histogram and
+//   adding it to the global counts; the last block to finish scans them into
+//   each bucket's first slot;
+// - fill (onehot_fill_kernel): each block ranks its rows in its shared
+//   histogram, reserves a run of slots per bucket with one atomic, and
+//   writes (row, index) to the slots; the order inside a bucket is the
+//   atomics' (no stability is needed: a row's result depends only on it);
+// - product (onehot_wgmma_kernel): a warpgroup per 64 sorted rows and
+//   32-column slab finds the distinct k-steps its rows hit (1-2 at the
+//   script's shapes, at most 64), stages each one's 1 KB slab by
+//   cp.async.bulk on an mbarrier, two ahead in a double buffer, and issues
+//   one wgmma.mma_async m64n32k16 bf16 -> f32 per k-step with the one-hot A
+//   in registers; the accumulators start at +0.0 (so a -0.0 entry comes out
+//   +0.0, equal under ==) and leave as 16-byte stores, each row to its own
+//   place out[row] (a lane pair swaps halves so each lane holds 4 columns
+//   of one row); the sentinel bucket's rows hit no k-step and store zeros.
+// Needs w % 32 == 0 and page % 16 == 0 (the wrapper checks).
 // ---------------------------------------------------------------------------
-constexpr int OH_SLAB = 32;
-constexpr int OH_NT = OH_SLAB / 8;
-constexpr int OH_MT = 4;
-constexpr int OH_ROWS = NWARPS * OH_MT * 16;  // 512 rows per block
-constexpr int OH_KPAD = 8;                    // pad rows per staged column
+constexpr int OH_KSTEP = 16;                             // table rows per k-step: the wgmma K
+constexpr int OH_N = 32;                                 // columns per slab: the wgmma N
+constexpr int OH_HALF_BYTES = OH_N * 16;                 // one k half of a slab block
+constexpr int OH_SLAB_BYTES = 2 * OH_HALF_BYTES;         // a (k-step, slab) block of B
+constexpr int OH_MTILE = 64;                             // sorted rows per warpgroup: the M
+constexpr int OH_SORT_THREADS = 512;                     // threads per count / fill block
+constexpr int OH_SORT_ROWS = 8;                          // rows per thread in count and fill
+constexpr int OH_SORT_BLOCK = OH_SORT_THREADS * OH_SORT_ROWS;  // rows per count / fill block
 
-// tT[c][k2 pair] = bf16(table[2 k2, c]), bf16(table[2 k2 + 1, c]) (rows k, k + 1)
+// A row's bucket: its k-step, or `sentinel` (page / 16) off the table.
+__device__ __forceinline__ int oh_key(int32_t ix, int64_t page, int sentinel) {
+  return (ix >= 0 && ix < page) ? ix >> 4 : sentinel;
+}
+
+// tB line t (16 bytes: bf16 of rows 16 K + 8 h .. + 7 of one column) at
+// ((K * slabs + slab) * 64 + h * 32 + column in the slab) * 16 bytes
 __global__ void __launch_bounds__(THREADS)
 onehot_prep_kernel(const float* __restrict__ table, int64_t page, int64_t w,
-                   uint32_t* __restrict__ tT) {
-  const int64_t half = page / 2;
-  for (int64_t t = (int64_t)blockIdx.x * THREADS + threadIdx.x; t < w * half;
+                   uint4* __restrict__ tB, int32_t* __restrict__ zero, int nzero) {
+  const int64_t slabs = w / OH_N;
+  const int64_t lines = page * w / 8;
+  for (int64_t t = (int64_t)blockIdx.x * THREADS + threadIdx.x; t < lines;
        t += (int64_t)gridDim.x * THREADS) {
-    const int64_t c = t / half, kp = t - c * half;
-    const __nv_bfloat162 v =
-        __floats2bfloat162_rn(__ldg(table + 2 * kp * w + c), __ldg(table + (2 * kp + 1) * w + c));
-    tT[t] = *reinterpret_cast<const uint32_t*>(&v);
+    const int64_t blk = t / (OH_SLAB_BYTES / 16);
+    const int q = (int)(t - blk * (OH_SLAB_BYTES / 16));
+    const int h = q / OH_N, col = q % OH_N;
+    const int64_t k = blk / slabs, slab = blk - k * slabs;
+    const float* src = table + (k * OH_KSTEP + h * 8) * w + slab * OH_N + col;
+    uint32_t v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(__ldg(src + 2 * i * w),
+                                                     __ldg(src + (2 * i + 1) * w));
+      v[i] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+    tB[t] = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i < nzero; i += THREADS) zero[i] = 0;
+}
+
+// ws: done [1], cnt [nb] (both zeroed by the prep pass), first [nb]
+__global__ void __launch_bounds__(OH_SORT_THREADS)
+onehot_count_kernel(const int32_t* __restrict__ idx, int64_t n, int64_t page, int nb,
+                    int32_t* __restrict__ ws) {
+  extern __shared__ int32_t hist[];  // [nb]
+  __shared__ int32_t wsum[OH_SORT_THREADS / 32];
+  __shared__ bool last;
+  int32_t* done = ws;
+  int32_t* cnt = ws + 1;
+  int32_t* first = ws + 1 + nb;
+  for (int b = threadIdx.x; b < nb; b += OH_SORT_THREADS) hist[b] = 0;
+  __syncthreads();
+  const int64_t r0 = (int64_t)blockIdx.x * OH_SORT_BLOCK + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < OH_SORT_ROWS; ++i) {
+    const int64_t r = r0 + i * OH_SORT_THREADS;
+    if (r < n) atomicAdd(&hist[oh_key(idx[r], page, nb - 1)], 1);
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < nb; b += OH_SORT_THREADS)
+    if (hist[b]) atomicAdd(&cnt[b], hist[b]);
+  // the last block to finish turns the counts into each bucket's first slot
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(done, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int b = threadIdx.x; b < nb; b += OH_SORT_THREADS) hist[b] = __ldcg(cnt + b);
+  __syncthreads();
+  const int per = (nb + OH_SORT_THREADS - 1) / OH_SORT_THREADS;
+  const int b0 = threadIdx.x * per, b1 = min(b0 + per, nb);
+  int sum = 0;
+  for (int b = b0; b < b1; ++b) sum += hist[b];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int x = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(~0u, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  int run = x - sum;
+  for (int i = 0; i < warp; ++i) run += wsum[i];
+  for (int b = b0; b < b1; ++b) {
+    first[b] = run;
+    run += hist[b];
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-onehot_kernel(const int32_t* __restrict__ idx, int64_t n, const uint32_t* __restrict__ tT,
-              int64_t w, int npages, int page_b, float* __restrict__ out) {
-  extern __shared__ uint32_t sB[];           // [OH_SLAB][ks] bf16 pairs (rows k, k + 1)
-  const int ks = (page_b + OH_KPAD) / 2;      // words per staged column
+// srt[slot] = (row, idx[row]), the rows grouped by bucket
+__global__ void __launch_bounds__(OH_SORT_THREADS)
+onehot_fill_kernel(const int32_t* __restrict__ idx, int64_t n, int64_t page, int nb,
+                   int32_t* __restrict__ first, int2* __restrict__ srt) {
+  extern __shared__ int32_t hist[];  // [nb]: counts, then each bucket's reserved base
+  for (int b = threadIdx.x; b < nb; b += OH_SORT_THREADS) hist[b] = 0;
+  __syncthreads();
+  const int64_t r0 = (int64_t)blockIdx.x * OH_SORT_BLOCK + threadIdx.x;
+  int32_t ix[OH_SORT_ROWS];
+  int key[OH_SORT_ROWS], rank[OH_SORT_ROWS];
+#pragma unroll
+  for (int i = 0; i < OH_SORT_ROWS; ++i) {
+    const int64_t r = r0 + i * OH_SORT_THREADS;
+    ix[i] = r < n ? idx[r] : 0;
+    key[i] = oh_key(ix[i], page, nb - 1);
+    rank[i] = r < n ? atomicAdd(&hist[key[i]], 1) : 0;
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < nb; b += OH_SORT_THREADS)
+    if (hist[b]) hist[b] = atomicAdd(&first[b], hist[b]);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < OH_SORT_ROWS; ++i) {
+    const int64_t r = r0 + i * OH_SORT_THREADS;
+    if (r < n) srt[hist[key[i]] + rank[i]] = make_int2((int)r, ix[i]);
+  }
+}
+
+// Shared-memory matrix descriptor of a K-major B block without swizzle: the
+// two 16-byte k halves of a k-step lie OH_HALF_BYTES apart (leading byte
+// offset), the 8-column core matrices 128 bytes apart (stride byte offset).
+__device__ __forceinline__ uint64_t bf16_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(OH_HALF_BYTES >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// d[64 x 32] += A[64 x 16] (registers, bf16) x B[16 x 32] (shared, bf16)
+__device__ __forceinline__ void wgmma_bf16_m64n32k16(float (&d)[16], const uint32_t (&a)[4],
+                                                     uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__global__ void __launch_bounds__(128)
+onehot_wgmma_kernel(const int2* __restrict__ srt, int64_t n, const uint8_t* __restrict__ tB,
+                    int64_t w, int64_t page, float* __restrict__ out) {
+  __shared__ __align__(128) uint8_t slab_buf[2][OH_SLAB_BYTES];
+  __shared__ __align__(8) uint64_t bar[2];
+  __shared__ int32_t kstep[OH_MTILE];  // each sorted row's k-step, -1 off the table
+  __shared__ uint32_t starts[2];       // the tile's rows where a new k-step starts
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tg = lane % 4;
-  const int64_t row0 = (int64_t)blockIdx.x * OH_ROWS + warp * (OH_MT * 16);
-  const int64_t c0 = (int64_t)blockIdx.y * OH_SLAB;
-  const int64_t page = (int64_t)npages * page_b;
-
-  int32_t ix[OH_MT][2];
+  const int64_t slabs = w / OH_N, slab = blockIdx.y;
+  const int64_t p0 = (int64_t)blockIdx.x * OH_MTILE + warp * 16 + g;  // this lane's rows p0, p0 + 8
+  int32_t row[2], ks[2], loc[2];
 #pragma unroll
-  for (int mt = 0; mt < OH_MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int64_t r = row0 + mt * 16 + g + 8 * h;
-      ix[mt][h] = r < n ? idx[r] : -1;
-    }
-  float acc[OH_MT][OH_NT][4];
-#pragma unroll
-  for (int mt = 0; mt < OH_MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < OH_NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0f;
-
-  const int chunks = page_b / 8;  // 16-byte chunks per staged column
-  for (int b = 0; b < npages; ++b) {
-    __syncthreads();  // every warp is done with the previous page
-    for (int t = threadIdx.x; t < OH_NT * 8 * chunks; t += THREADS) {
-      const int c = t / chunks, q = t - c * chunks;
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(tT + ((c0 + c) * page + (int64_t)b *
-                                                                 page_b) / 2) + q);
-      *reinterpret_cast<uint4*>(sB + c * ks + 4 * q) = v;
-    }
-    __syncthreads();
-
-    // the k-step each row hits (-1: none on this page) and its A words there
-    int hit[OH_MT][2];
-    uint32_t alo[OH_MT][2], ahi[OH_MT][2];
-#pragma unroll
-    for (int mt = 0; mt < OH_MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int l = local_row(ix[mt][h], (uint32_t)b * (uint32_t)page_b, (uint32_t)page_b);
-        const int e = (l & 15) - 2 * tg;
-        hit[mt][h] = l >= 0 ? (l & ~15) : -1;
-        alo[mt][h] = onehot_bf16x2(e);      // k-step rows 2tg, 2tg + 1
-        ahi[mt][h] = onehot_bf16x2(e - 8);  // rows 2tg + 8, 2tg + 9
-      }
-
-    for (int kb = 0; kb < page_b; kb += 16) {
-      uint32_t bf[OH_NT][2];
-#pragma unroll
-      for (int nt = 0; nt < OH_NT; ++nt) {
-        const uint32_t* col = sB + (nt * 8 + g) * ks + kb / 2 + tg;
-        bf[nt][0] = col[0];  // rows kb + 2tg, +1
-        bf[nt][1] = col[4];  // rows kb + 2tg + 8, +9
-      }
-#pragma unroll
-      for (int mt = 0; mt < OH_MT; ++mt) {
-        const bool h0 = hit[mt][0] == kb, h1 = hit[mt][1] == kb;  // rows g, g + 8
-        const uint32_t a[4] = {h0 ? alo[mt][0] : 0u, h1 ? alo[mt][1] : 0u,
-                               h0 ? ahi[mt][0] : 0u, h1 ? ahi[mt][1] : 0u};
-#pragma unroll
-        for (int nt = 0; nt < OH_NT; ++nt) mma_bf16_16816(acc[mt][nt], a, bf[nt][0], bf[nt][1]);
-      }
-    }
+  for (int h = 0; h < 2; ++h) {
+    const int64_t p = p0 + 8 * h;
+    const int2 e = p < n ? srt[p] : make_int2(-1, -1);
+    row[h] = e.x;
+    ks[h] = (e.y >= 0 && e.y < page) ? e.y / OH_KSTEP : -1;
+    loc[h] = e.y & (OH_KSTEP - 1);
+    if (tg == 0) kstep[warp * 16 + g + 8 * h] = ks[h];
   }
-
+  const uint32_t bar0 = smem_u32(&bar[0]), buf0 = smem_u32(&slab_buf[0][0]);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0 + 8) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < OH_MTILE) {
+    const int k = kstep[threadIdx.x];
+    const unsigned m =
+        __ballot_sync(~0u, k >= 0 && (threadIdx.x == 0 || k != kstep[threadIdx.x - 1]));
+    if (lane == 0) starts[warp] = m;
+  }
+  __syncthreads();
+  // the hit k-steps, one bit each (the sorted rows' keys never decrease)
+  uint64_t todo = starts[0] | (uint64_t)starts[1] << 32;
+  const int nhit = __popcll(todo);
+  auto slab_src = [&](uint64_t m) {
+    return tB + ((int64_t)kstep[__ffsll((long long)m) - 1] * slabs + slab) * OH_SLAB_BYTES;
+  };
+  if (threadIdx.x == 0) {
+    uint64_t m = todo;
+    for (int j = 0; j < 2 && j < nhit; ++j, m &= m - 1)
+      bulk_stage(buf0 + j * OH_SLAB_BYTES, slab_src(m), OH_SLAB_BYTES, bar0 + 8 * j);
+  }
+  float acc[16];
 #pragma unroll
-  for (int mt = 0; mt < OH_MT; ++mt)
+  for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+  for (int j = 0; j < nhit; ++j) {
+    const int k = kstep[__ffsll((long long)todo) - 1];
+    todo &= todo - 1;
+    const int b = j & 1;
+    mbar_wait(bar0 + 8 * b, (j >> 1) & 1);
+    // rows g, g + 8 of the warp's 16; k-step columns 2tg, 2tg + 1, then + 8
+    const uint32_t a[4] = {ks[0] == k ? onehot_bf16x2(loc[0] - 2 * tg) : 0u,
+                           ks[1] == k ? onehot_bf16x2(loc[1] - 2 * tg) : 0u,
+                           ks[0] == k ? onehot_bf16x2(loc[0] - 2 * tg - 8) : 0u,
+                           ks[1] == k ? onehot_bf16x2(loc[1] - 2 * tg - 8) : 0u};
+    fence_regs(acc);
+    wgmma_fence();
+    wgmma_bf16_m64n32k16(acc, a, bf16_desc(buf0 + b * OH_SLAB_BYTES));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every warp's product has read buffer b
+    if (threadIdx.x == 0 && j + 2 < nhit)
+      bulk_stage(buf0 + b * OH_SLAB_BYTES, slab_src(todo & (todo - 1)), OH_SLAB_BYTES,
+                 bar0 + 8 * b);
+  }
+  // accumulator n-tile q: acc[4q], acc[4q + 1] at row g, columns 8q + 2tg, +1;
+  // acc[4q + 2], acc[4q + 3] at row g + 8. Lanes tg, tg ^ 1 swap halves:
+  // even tg stores row g, odd tg row g + 8, four columns each.
+  const bool odd = tg & 1;
+  const int32_t r = odd ? row[1] : row[0];
+  float* orow = out + (int64_t)r * w + slab * OH_N + 2 * (tg & ~1);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int64_t r = row0 + mt * 16 + g + 8 * h;
-      if (r >= n) continue;
-#pragma unroll
-      for (int nt = 0; nt < OH_NT; ++nt)
-        *reinterpret_cast<float2*>(out + r * w + c0 + nt * 8 + 2 * tg) =
-            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-    }
+  for (int q = 0; q < 4; ++q) {
+    const float s0 = odd ? acc[4 * q] : acc[4 * q + 2];
+    const float s1 = odd ? acc[4 * q + 1] : acc[4 * q + 3];
+    const float r0 = __shfl_xor_sync(~0u, s0, 1), r1 = __shfl_xor_sync(~0u, s1, 1);
+    const float4 val = odd ? make_float4(r0, r1, acc[4 * q + 2], acc[4 * q + 3])
+                           : make_float4(acc[4 * q], acc[4 * q + 1], r0, r1);
+    if (r >= 0) *reinterpret_cast<float4*>(orow + 8 * q) = val;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -252,22 +436,25 @@ onehot_kernel(const int32_t* __restrict__ idx, int64_t n, const uint32_t* __rest
 // [-page, 0) wraps, any other index outside [0, page) is dropped.
 //
 // Replaces scripts/pallas_gather_probe.py:120 scat_kernel (call :132).
-// What bounds it: bytes (the rows, 64 MiB, read once) and the L2's atomic
-// rate: 16.8M f32 adds into 524k addresses at the script's shapes. Design:
-// one thread per row element, atomicAdd (a fire-and-forget RED in L2);
-// neighbouring threads add neighbouring columns of one row. The sums depend
-// on the order the adds arrive in; K10 (reduce.cu) is the deterministic twin.
+// What bounds it: bytes (the rows, 64 MiB at the script's shapes, read once;
+// 21 us) and the L2's reduction rate. Design: one thread per 16 bytes of a
+// row; each row is read once by a streaming load (__ldcs: it is not kept in
+// L1) and added by one 16-byte vector reduction (atomicAdd on a float4,
+// sm_90's red.global.add.v4.f32): 4.19M reductions at the script's shapes
+// where one per float would be 16.8M. The sums depend on the order the
+// reductions arrive in; K10 (reduce.cu) is the deterministic twin.
+// Needs w % 4 == 0 and 16-byte aligned rows (the wrapper checks).
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(THREADS)
-scat_kernel(const int32_t* __restrict__ idx, int64_t n, const float* __restrict__ rows,
-            int64_t w, int64_t page, float* __restrict__ out) {
-  const int64_t total = n * w;
+scat_kernel(const int32_t* __restrict__ idx, int64_t n, const float4* __restrict__ rows,
+            int64_t w4, int64_t page, float4* __restrict__ out) {
+  const int64_t total = n * w4;
   for (int64_t t = (int64_t)blockIdx.x * THREADS + threadIdx.x; t < total;
        t += (int64_t)gridDim.x * THREADS) {
-    const int64_t r = t / w;
+    const int64_t r = t / w4;
     int64_t j = idx[r];
     if (j < 0) j += page;
-    if (j >= 0 && j < page) atomicAdd(out + j * w + (t - r * w), __ldg(rows + t));
+    if (j >= 0 && j < page) atomicAdd(out + j * w4 + (t - r * w4), __ldcs(rows + t));
   }
 }
 
@@ -404,28 +591,6 @@ page_group_kernel(const int32_t* __restrict__ pages, int64_t nch, int64_t npages
     }
   }
   if (lane == 0) starts[nb] = carry;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accesses of the accumulators across the
-// asynchronous wgmma (CUTLASS's warpgroup_fence_operand).
-__device__ __forceinline__ void fence_regs(int (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Shared-memory matrix descriptor of a K-major B tile without swizzle: the
@@ -673,36 +838,56 @@ extern "C" int gof_vidx_gather(int device, const void* idx, long long n, const v
   return (int)cudaGetLastError();
 }
 
-// tT: the caller's [w, npages * page_b] bf16 scratch for the rounded,
-// transposed table; w % 32 == 0.
-extern "C" int gof_onehot_gather(int device, const void* idx, long long n, const void* table,
-                                 void* tT, long long w, long long npages, long long page_b,
-                                 void* out, void* stream) {
-  if (n <= 0 || w <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
+// K8's four passes (prep, count + scan, fill, product) on stream s.
+static int onehot_passes(const int32_t* idx, long long n, const float* table, long long page,
+                         long long w, uint8_t* tB, int32_t* ws, int2* srt, float* out,
+                         cudaStream_t s) {
+  const int nb = (int)(page / OH_KSTEP) + 1;  // the k-steps and the sentinel bucket
+  onehot_prep_kernel<<<(unsigned)stride_blocks(page * w / 8), THREADS, 0, s>>>(
+      table, page, w, (uint4*)tB, ws, nb + 1);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const long long page = npages * page_b;
-  onehot_prep_kernel<<<(unsigned)stride_blocks(w * page / 2), THREADS, 0, s>>>(
-      (const float*)table, page, w, (uint32_t*)tT);
+  const int smem = nb * 4;
+  const unsigned blocks = (unsigned)((n + OH_SORT_BLOCK - 1) / OH_SORT_BLOCK);
+  err = cudaFuncSetAttribute(onehot_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  onehot_count_kernel<<<blocks, OH_SORT_THREADS, smem, s>>>(idx, n, page, nb, ws);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int smem = (int)(OH_SLAB * ((page_b + OH_KPAD) / 2) * 4);
-  err = cudaFuncSetAttribute(onehot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaFuncSetAttribute(onehot_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((n + OH_ROWS - 1) / OH_ROWS), (unsigned)(w / OH_SLAB));
-  onehot_kernel<<<grid, THREADS, smem, s>>>((const int32_t*)idx, n, (const uint32_t*)tT, w,
-                                            (int)npages, (int)page_b, (float*)out);
+  onehot_fill_kernel<<<blocks, OH_SORT_THREADS, smem, s>>>(idx, n, page, nb, ws + 1 + nb, srt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((n + OH_MTILE - 1) / OH_MTILE), (unsigned)(w / OH_N));
+  onehot_wgmma_kernel<<<grid, 128, 0, s>>>(srt, n, tB, w, page, out);
   return (int)cudaGetLastError();
 }
 
+// tB: the caller's [page * w] bf16 scratch for the rounded table in wgmma's
+// B layout; ws: int32 [2 * (page / 16 + 1) + 1]; srt: int32 [n, 2];
+// w % 32 == 0, page % 16 == 0.
+extern "C" int gof_onehot_gather(int device, const void* idx, long long n, const void* table,
+                                 long long page, long long w, void* tB, void* ws, void* srt,
+                                 void* out, void* stream) {
+  if (n <= 0 || w <= 0) return 0;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return onehot_passes((const int32_t*)idx, n, (const float*)table, page, w, (uint8_t*)tB,
+                       (int32_t*)ws, (int2*)srt, (float*)out, (cudaStream_t)stream);
+}
+
+// w % 4 == 0; rows and out 16-byte aligned.
 extern "C" int gof_scat(int device, const void* idx, long long n, const void* rows, long long w,
                         long long page, void* out, void* stream) {
   if (n <= 0 || w <= 0) return 0;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  scat_kernel<<<(unsigned)stride_blocks(n * w), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)idx, n, (const float*)rows, w, page, (float*)out);
+  const long long w4 = w / 4;
+  scat_kernel<<<(unsigned)stride_blocks(n * w4), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)idx, n, (const float4*)rows, w4, page, (float4*)out);
   return (int)cudaGetLastError();
 }
 

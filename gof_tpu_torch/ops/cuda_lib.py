@@ -72,8 +72,9 @@ _SIGNATURES = {
     # device, idx, n, table, page, w, out, stream
     "gof_take_gather": (ctypes.c_int, _PTR, _LL, _PTR, _LL, _LL, _PTR, _PTR),
     "gof_vidx_gather": (ctypes.c_int, _PTR, _LL, _PTR, _LL, _LL, _PTR, _PTR),
-    # device, idx, n, table, tT (bf16 scratch), w, npages, page_b, out, stream
-    "gof_onehot_gather": (ctypes.c_int, _PTR, _LL, _PTR, _PTR, _LL, _LL, _LL, _PTR, _PTR),
+    # device, idx, n, table, page, w, tB (bf16 scratch), ws (int32 scratch), srt, out, stream
+    "gof_onehot_gather": (ctypes.c_int, _PTR, _LL, _PTR, _LL, _LL, _PTR, _PTR, _PTR, _PTR,
+                          _PTR),
     # device, idx, n, rows, w, page, out, stream
     "gof_scat": (ctypes.c_int, _PTR, _LL, _PTR, _LL, _LL, _PTR, _PTR),
     # device, table, rows, wg, c8, tB, stream

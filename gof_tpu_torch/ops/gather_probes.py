@@ -15,9 +15,11 @@ Edge behaviour, as the Pallas kernels give it (run in interpret mode):
 - vidx_gather (K7): a negative index wraps once, then the row is clamped to
   [0, PAGE - 1];
 - onehot_gather (K8): bf16(table)[idx] as f32; an index outside [0, PAGE)
-  gives a zero row;
+  gives a zero row; defined on finite tables; on the card a one-hot product
+  over only the k-steps the rows hit, after a counting sort of the rows;
 - scat (K9): `.at[idx].add`: an index in [-PAGE, 0) wraps, others outside
-  [0, PAGE) are dropped; summed with atomics, in no fixed order;
+  [0, PAGE) are dropped; summed with 16-byte vector atomics, in no fixed
+  order;
 - scatmxu (K10): the segment sum with every index outside [0, PAGE) dropped
   (no wrap), summed per output row in ascending input row: deterministic,
   and bit-equal to its plain version (on the card, K4's counting-sort
@@ -149,8 +151,18 @@ def onehot_gather_reference(idx: torch.Tensor, table: torch.Tensor,
 
 def onehot_gather(idx: torch.Tensor, table: torch.Tensor, page_b: int = 2048) -> torch.Tensor:
     """K8: idx [nchunk, 1, chunk] int32, table [PAGE, W] f32 -> [n, W] f32
-    = bf16(table)[idx], by one-hot bf16 products over PAGE // page_b pages.
-    PAGE % page_b == 0; the kernel needs page_b % 16 == 0 and W % 32 == 0."""
+    = bf16(table)[idx], by one-hot bf16 products on the tensor cores. PAGE %
+    page_b == 0 (the TPU kernel's pages); page_b does not change the result.
+
+    Defined on finite tables (the script draws them): a one-hot product
+    gives 0 x inf = NaN in the rows that share a non-finite entry's k-step.
+    On CUDA, four passes: the table rounded to bf16 in wgmma's B layout; a
+    counting sort of the rows by k-step (16 table rows; indices outside
+    [0, PAGE) in a bucket of their own); then per 64 sorted rows one
+    m64n32k16 product per k-step the rows hit (not every k-step of every
+    page), each row written to its own place. A -0.0 entry comes out +0.0
+    (equal under ==, as torch.equal compares). The kernel needs W % 32 == 0
+    and PAGE % 16 == 0, and fewer than 2**31 rows."""
     _check_idx("onehot_gather", idx)
     _check("onehot_gather", ("table", table, torch.float32, 2))
     page, w = table.shape
@@ -159,13 +171,19 @@ def onehot_gather(idx: torch.Tensor, table: torch.Tensor, page_b: int = 2048) ->
     if _on_cpu(idx, table):
         return onehot_gather_reference(idx, table, page_b)
     _require_cuda("onehot_gather", idx, table)
-    cuda_lib.require(w % 32 == 0 and page_b % 16 == 0 and 32 * (page_b + 8) * 2 <= SMEM_MAX,
-                     f"onehot_gather: W {w}, PAGE_B {page_b} (need W a multiple of 32, PAGE_B a "
-                     "multiple of 16 up to 3616)")
-    out = torch.empty((idx.numel(), w), dtype=torch.float32, device=table.device)
-    tT = torch.empty((w, page), dtype=torch.bfloat16, device=table.device)
-    _launch(ONEHOT, table, idx.data_ptr(), idx.numel(), table.data_ptr(), tT.data_ptr(), w,
-            page // page_b, page_b, out.data_ptr())
+    nb = page // 16 + 1  # the k-steps and the bucket off the table
+    cuda_lib.require(w % 32 == 0 and page % 16 == 0 and 4 * nb + 1024 <= SMEM_MAX,
+                     f"onehot_gather: W {w}, PAGE {page} (need W a multiple of 32, PAGE a "
+                     "multiple of 16 up to 925,680)")
+    n = idx.numel()
+    cuda_lib.require(n < 2**31, f"onehot_gather: {n} indices (need fewer than 2**31)")
+    dev = table.device
+    out = torch.empty((n, w), dtype=torch.float32, device=dev)
+    tB = torch.empty(page * w, dtype=torch.bfloat16, device=dev)
+    ws = torch.empty(2 * nb + 1, dtype=torch.int32, device=dev)
+    srt = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    _launch(ONEHOT, table, idx.data_ptr(), n, table.data_ptr(), page, w, tB.data_ptr(),
+            ws.data_ptr(), srt.data_ptr(), out.data_ptr())
     return out
 
 
@@ -192,12 +210,16 @@ def scat_reference(idx: torch.Tensor, rows: torch.Tensor, page: int = 16384) -> 
 
 def scat(idx: torch.Tensor, rows: torch.Tensor, page: int = 16384) -> torch.Tensor:
     """K9: idx [nchunk, 1, chunk] int32, rows [n, W] f32 -> [PAGE, W] f32,
-    the segment sum by atomic adds (order-dependent)."""
+    the segment sum by atomic adds (order-dependent). On CUDA each 16 bytes
+    of a row go by one vector reduction (red.global.add.v4.f32), so the
+    kernel needs W % 4 == 0 and 16-byte aligned rows."""
     _check_scatter("scat", idx, rows, page)
     if _on_cpu(idx, rows):
         return scat_reference(idx, rows, page)
     _require_cuda("scat", idx, rows)
     w = rows.shape[1]
+    cuda_lib.require(w % 4 == 0 and rows.data_ptr() % 16 == 0,
+                     f"scat: W = {w} (need a multiple of 4, 16-byte aligned rows)")
     out = torch.zeros((page, w), dtype=torch.float32, device=rows.device)
     _launch(SCAT, rows, idx.data_ptr(), idx.numel(), rows.data_ptr(), w, page, out.data_ptr())
     return out

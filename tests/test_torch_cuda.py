@@ -804,6 +804,97 @@ def test_probe_scatmxu_skewed_ids_bit_exact(dev, kind):
     assert torch.equal(got, gp.scatmxu(idx.to(dev), rows.to(dev), page))
 
 
+PROBE_DISTS = ("uniform", "sorted", "one_index", "own_kstep", "outside")
+
+
+def probe_dist_idx(kind: str, s: dict, seed: int) -> torch.Tensor:
+    """K8's and K9's index distributions at a PROBE_SHAPES entry: the
+    uniform draw, the same sorted, every row on one index, consecutive rows
+    on distinct k-steps (cycling over all of them), every index outside
+    [-PAGE, PAGE)."""
+    rng = np.random.default_rng(seed)
+    page, n = s["page"], s["nchunk"] * s["chunk"]
+    r = np.arange(n)
+    v = {"uniform": lambda: rng.integers(0, page, n),
+         "sorted": lambda: np.sort(rng.integers(0, page, n)),
+         "one_index": lambda: np.full(n, page // 3),
+         "own_kstep": lambda: 16 * (r % (page // 16)) + (r // (page // 16) + 5 * r) % 16,
+         "outside": lambda: rng.choice([-2**31, 2**31 - 1, -page - 1, -2 * page, page, page + 7],
+                                       n)}[kind]()
+    return torch.from_numpy(v.astype(np.int32).reshape(s["nchunk"], 1, s["chunk"]))
+
+
+@pytest.mark.parametrize("dist", PROBE_DISTS)
+@pytest.mark.parametrize("shapes", list(PROBE_SHAPES))
+def test_probe_onehot_index_distributions_bit_exact(dev, shapes, dist):
+    """K8 (sort by k-step, then a product per hit k-step) bit-equal to its
+    plain version and to index_select of the bf16-rounded table."""
+    from gof_tpu_torch.ops import gather_probes as gp
+
+    s, _ = PROBE_SHAPES[shapes]
+    rng = np.random.default_rng(18)
+    table = torch.from_numpy(rng.normal(size=(s["page"], s["w"])).astype(np.float32)).to(dev)
+    idx = probe_dist_idx(dist, s, 19).to(dev)
+    got = gp.onehot_gather(idx, table, s["page_b"])
+    assert torch.equal(got, gp.onehot_gather_reference(idx, table, s["page_b"]))
+    if dist == "outside":
+        assert not got.any()
+    else:
+        assert torch.equal(got, torch.index_select(table.bfloat16().float(), 0, idx.reshape(-1)))
+
+
+@pytest.mark.parametrize("shapes", list(PROBE_SHAPES))
+def test_probe_onehot_every_sorted_tile_on_64_ksteps(dev, shapes):
+    """K8's slowest tiles: PAGE / 16 rows, each on a k-step of its own, so
+    each 64 sorted rows hit 64 k-steps (the product's double buffer wraps
+    32 times)."""
+    from gof_tpu_torch.ops import gather_probes as gp
+
+    s, _ = PROBE_SHAPES[shapes]
+    rng = np.random.default_rng(20)
+    page = s["page"]
+    table = torch.from_numpy(rng.normal(size=(page, s["w"])).astype(np.float32)).to(dev)
+    nk = page // 16
+    ix = 16 * rng.permutation(nk) + rng.integers(0, 16, nk)
+    idx = torch.from_numpy(ix.astype(np.int32).reshape(1, 1, nk)).to(dev)
+    got = gp.onehot_gather(idx, table, s["page_b"])
+    assert torch.equal(got, torch.index_select(table.bfloat16().float(), 0, idx.reshape(-1)))
+
+
+@pytest.mark.parametrize("dist", PROBE_DISTS)
+@pytest.mark.parametrize("shapes", list(PROBE_SHAPES))
+def test_probe_scat_index_distributions(dev, shapes, dist):
+    """K9 (16-byte vector reductions) within rtol 1e-5 / atol 1e-5 x max
+    |plain| of its plain version and of index_add_. Every row on one index
+    sums n rows into one address in any order: there the rows are integers
+    in [-8, 8], so every partial sum is an integer below 2**24 and each f32
+    add is exact in any order; the result must equal the float64 sum (and
+    the plain version, and index_add_) exactly."""
+    from gof_tpu_torch.ops import gather_probes as gp
+
+    s, _ = PROBE_SHAPES[shapes]
+    rng = np.random.default_rng(21)
+    page, n, w = s["page"], s["nchunk"] * s["chunk"], s["w"]
+    rows = (rng.integers(-8, 9, (n, w)) if dist == "one_index" else rng.normal(size=(n, w)))
+    rows = torch.from_numpy(rows.astype(np.float32)).to(dev)
+    idx = probe_dist_idx(dist, s, 22).to(dev)
+    got = gp.scat(idx, rows, page)
+    want = gp.scat_reference(idx, rows, page)
+    if dist == "outside":
+        assert not got.any() and not want.any()
+        return
+    lib = torch.zeros((page, w), device=dev).index_add_(0, idx.reshape(-1), rows)
+    if dist == "one_index":
+        exact = torch.zeros((page, w), dtype=torch.float64, device=dev)
+        exact[page // 3] = rows.double().sum(0)
+        assert torch.equal(got.double(), exact)
+        assert torch.equal(got, want) and torch.equal(got, lib)
+        return
+    for ref in (want, lib):
+        tol = 1e-5 * ref.abs() + 1e-5 * float(ref.abs().max())
+        assert bool(((got - ref).abs() <= tol).all())
+
+
 @pytest.mark.parametrize("shapes", list(PROBE_SHAPES))
 def test_probe_int8_and_paged_match_plain(dev, shapes):
     from gof_tpu_torch.ops import gather_probes as gp
@@ -894,8 +985,16 @@ def test_probe_wrappers_refuse_bad_inputs(dev):
         gp.take_gather(idx.cpu(), table)
     with pytest.raises(ValueError):  # non-contiguous table
         gp.vidx_gather(idx, torch.zeros((32, 256), device=dev).T)
-    with pytest.raises(ValueError):  # the kernel's width is a multiple of 32
+    with pytest.raises(ValueError):  # the kernel's width is a multiple of 32 (the wgmma N)
         gp.onehot_gather(idx, torch.zeros((256, 40), device=dev), 64)
+    with pytest.raises(ValueError):  # the table is whole k-steps of 16 rows
+        gp.onehot_gather(idx, torch.zeros((264, 32), device=dev), 8)
+    with pytest.raises(ValueError):  # the sort's histogram fits in shared memory
+        gp.onehot_gather(idx, torch.zeros((16 * 60000, 32), device=dev), 16)
+    with pytest.raises(ValueError):  # the rows are whole float4s
+        gp.scat(idx, torch.zeros((512, 30), device=dev), 256)
+    with pytest.raises(ValueError):  # 16-byte aligned rows
+        gp.scat(idx, torch.zeros(512 * 32 + 1, device=dev)[1:].view(512, 32), 256)
     with pytest.raises(ValueError):  # non-contiguous rows
         gp.scatmxu(idx, torch.zeros((32, 512), device=dev).T, 256)
     with pytest.raises(ValueError):  # the rows are whole float4s

@@ -119,6 +119,46 @@ def test_scatters_match_pallas(pallas_probe, name):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
+INDEX_DISTS = ["uniform", "sorted", "one_index", "own_kstep", "outside"]
+
+
+def dist_idx(kind: str, shape, page: int, seed: int = 12) -> np.ndarray:
+    """The index distributions K8's and K9's speed depends on: the uniform
+    draw, the same draw sorted, every row on one index, consecutive rows on
+    distinct k-steps (16 table rows each, cycling over all of them), and
+    every index outside the table (outside [-PAGE, PAGE), so K9 wraps none)."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    r = np.arange(n)
+    v = {"uniform": lambda: rng.integers(0, page, n),
+         "sorted": lambda: np.sort(rng.integers(0, page, n)),
+         "one_index": lambda: np.full(n, page // 3),
+         "own_kstep": lambda: 16 * (r % (page // 16)) + (r // (page // 16) + 5 * r) % 16,
+         "outside": lambda: rng.choice([I32_MIN, I32_MAX, -page - 1, -2 * page, page, page + 7],
+                                       n)}[kind]()
+    return v.astype(np.int32).reshape(shape)
+
+
+@pytest.mark.parametrize("dist", INDEX_DISTS)
+@pytest.mark.parametrize("name", ["onehot_gather", "scat"])
+def test_index_distributions_match_pallas(pallas_probe, name, dist):
+    """K8 bit-equal, K9 within rtol 1e-5 / atol 1e-5 x max |JAX| of the
+    Pallas kernels on each distribution the new designs' speed depends on."""
+    c = SMALL_PALLAS
+    table, rows = pallas_tables()
+    idx = dist_idx(dist, (c["NCHUNK"], 1, c["CHUNK"]), c["PAGE"])
+    if name == "onehot_gather":
+        want = np.asarray(pallas_probe[name](jnp.asarray(idx), jnp.asarray(table)))
+        got = gp.onehot_gather(torch.from_numpy(idx), torch.from_numpy(table), page_b=c["PAGE_B"])
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        want = np.asarray(pallas_probe[name](jnp.asarray(idx), jnp.asarray(rows)))
+        got = gp.scat(torch.from_numpy(idx), torch.from_numpy(rows), page=c["PAGE"])
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    assert tuple(got.shape) == want.shape
+    assert bool(got.any()) == (dist != "outside")
+
+
 def test_scatter_edge_semantics_differ():
     """scat wraps negative indices (`.at[].add`); scatmxu drops them (the
     one-hot product matches no row)."""
@@ -377,3 +417,25 @@ def test_paged_gather_pages_outside_the_table_give_zero_rows():
     got = gp.paged_gather(pages, idx, big, wg=wg).reshape(4, 32, c8)
     assert not got[[0, 1, 3]].any()
     assert torch.equal(got[2], big[2 * wg:2 * wg + 32].to(torch.int32))
+
+
+def test_probe_steps_variants_apply_to_the_shipped_source():
+    """Each design probe_steps.py times beside the shipped K8 and K9 is
+    gather_probes.cu with the changes it names (a kernel added, a named host
+    function's body or a constant replaced); each change must match the
+    shipped source exactly once, so a rename there shows here, not on the
+    card."""
+    import sys
+
+    sys.path.insert(0, str(REPO))
+    import blend_steps
+    import probe_steps
+    from gof_tpu_torch.ops import cuda_lib
+
+    src = (cuda_lib.CSRC / "gather_probes.cu").read_text()
+    for name, (changes, _) in probe_steps.variants().items():
+        text = src
+        for fname, old, new in changes:
+            assert fname == "gather_probes.cu", name
+            text = blend_steps.apply(text, old, new)
+        assert (text != src) == bool(changes), name
