@@ -51,7 +51,11 @@ paths and its gather/scatter probes once on one CUDA GPU.
    chunk on one page, on fewer chunks than the product's persistent blocks
    and on pages outside the table; K8 and K9 also on sorted indices, every
    row on one index, consecutive rows on distinct k-steps, indices outside
-   the table and (K8) 64 k-steps per sorted tile, each case timed;
+   the table and (K8) 64 k-steps per sorted tile, each case timed; K6 and
+   K7 (one kernel) also at W = 30, on a table view one float past its
+   buffer, with every index on one row, on the edge indices and at 2^31 +
+   65,536 output elements; K12 also with every offset 0, a dense chunk, k
+   across 2^30 and across the int32 wrap, uncovered rows and WG = 65,536;
 9. the bench design point: bench.py's model, look-at camera and seeded
    random ground truth, through the port's build_train_step in bench's two
    phases (statistics on, regularizers off, step 5000; statistics off,
@@ -1012,6 +1016,8 @@ def probe_phase() -> list:
     check_scatmxu_cases()
     check_int8_cases()
     check_onehot_cases()
+    check_gather_cases()
+    check_rld_cases()
     out = []
     for name, r in res.items():
         src = "reduce.cu" if name == "scatmxu" else "gather_probes.cu"
@@ -1154,6 +1160,85 @@ def check_onehot_cases() -> None:
           f"{results}")
     if not ok:
         raise RuntimeError("K8/K9 disagree with their plain versions on skewed indices")
+
+
+def check_gather_cases() -> None:
+    """K6 and K7 (one kernel) at the script's shapes (PAGE 16384, W 32,
+    524,288 rows; its table and indices) where the probe does not take them:
+    W = 30 (4-byte pieces), a table view one float past an aligned buffer
+    (4-byte pieces), every index on one row, every index on -PAGE-1, -PAGE,
+    -1, PAGE, INT32_MIN and INT32_MAX in turn, and 2^31 + 65,536 output
+    elements (8 GiB: offsets past 2^31). Each bit-equal to its plain version
+    on the card; prints each case's K6 and K7 times (CUDA events)."""
+    from gof_tpu_torch.ops import gather_probes as gp
+    from gof_tpu_torch.scripts import pallas_gather_probe as pgp
+    from gof_tpu_torch.utils.timing import time_ms
+
+    page, chunk, nchunk = 16384, 2048, 256
+    table_np, idx_np, _ = pgp.inputs(page, chunk, nchunk)
+    table, idx = torch.from_numpy(table_np).cuda(), torch.from_numpy(idx_np).cuda()
+    view = torch.zeros(table.numel() + 1, device="cuda")[1:].view(table.shape)
+    view.copy_(table)
+    edges = torch.tensor([-page - 1, -page, -1, page, -2**31, 2**31 - 1], dtype=torch.int32)
+    big_n = (2**31 + 2**16) // table.shape[1]
+    cases = {
+        "W = 30": (idx, table[:, :30].contiguous()),
+        "table one float past an aligned buffer": (idx, view),
+        "every index on one row": (torch.full_like(idx, page // 3), table),
+        "edge indices": (edges.repeat(idx.numel() // 6 + 1)[:idx.numel()].view(idx.shape).cuda(),
+                         table),
+        "2^31 + 65,536 output elements": (
+            torch.from_numpy(np.random.default_rng(SEED).integers(-page - 8, page + 8, big_n)
+                             .astype(np.int32)).cuda().view(-1, 1, chunk), table)}
+    dev = torch.device("cuda")
+    results, ok = [], True
+    for label, (i, t) in cases.items():
+        row = [label]
+        for fn, plain in ((gp.take_gather, gp.take_gather_reference),
+                          (gp.vidx_gather, gp.vidx_gather_reference)):
+            got = fn(i, t)
+            same = torch.equal(got, plain(i, t))
+            del got
+            big = label.startswith("2^31")
+            row += [same, round(time_ms(lambda: fn(i, t), [()], dev, 3 if big else 10), 4)]
+            ok = ok and same
+            torch.cuda.empty_cache()
+        results.append(tuple(row))
+    print("row gathers (K6: exact, ms; K7: exact, ms) at other widths, views and indices: "
+          f"{results}")
+    if not ok:
+        raise RuntimeError("K6/K7 disagree with their plain versions on the extra cases")
+
+
+def check_rld_cases() -> None:
+    """K12 at the script's shapes (512 chunks of 1024 rows, WG 2048, CV 8)
+    on mxu_gather_probe.rld_edge_offsets' cases, where the script's draws
+    do not reach: every offset 0 (every k on the last run), one chunk with
+    all 2048 offsets inside its 1024 k (dense, with repeats: each row
+    searches ~1000 offsets), bases that put k across 2^30 and, on offsets
+    over the whole int32 range, across the int32 wrap, a chunk whose first
+    offset lies past its first rows, and WG = 65,536 (more than a block's
+    shared memory holds); values over the whole int32 range. Each
+    bit-equal to its plain version on the card; prints each case's ms."""
+    from gof_tpu_torch.ops import gather_probes as gp
+    from gof_tpu_torch.scripts import mxu_gather_probe as mgp
+    from gof_tpu_torch.utils.timing import time_ms
+
+    a = mgp.parse([])
+    rng = np.random.default_rng(SEED)
+    i32 = np.iinfo(np.int32)
+    dev = torch.device("cuda")
+    results, ok = [], True
+    for kind in mgp.RLD_EDGE_CASES:
+        off, base = mgp.rld_edge_offsets(kind, a.nch, a.ch, a.wg, rng)
+        val = rng.integers(i32.min, i32.max, (off.shape[-1], mgp.CV), endpoint=True)
+        args = [torch.from_numpy(x.astype(np.int32)).cuda() for x in (off, val, base)]
+        same = torch.equal(gp.rld(*args, a.ch), gp.rld_reference(*args, a.ch))
+        results.append((kind, same, round(time_ms(lambda: gp.rld(*args, a.ch), [()], dev, 10), 4)))
+        ok = ok and same
+    print(f"run-length decode (K12: exact, ms) on edge offsets and bases: {results}")
+    if not ok:
+        raise RuntimeError("K12 disagrees with its plain version on the edge cases")
 
 
 def bench_state():

@@ -35,52 +35,103 @@ long long stride_blocks(long long work) {
 }
 
 // ---------------------------------------------------------------------------
-// K6: out[r] = table[idx[r]] with jnp.take's fill mode: an index in
-// [-page, 0) wraps, any other index outside [0, page) gives a zero row.
+// K6 and K7 share one body: out[r] = table[idx[r]], each with its TPU
+// kernel's edge rule. K6 (CLAMP false), jnp.take's fill mode: an index in
+// [-page, 0) wraps, any other index outside [0, page) gives a zero row. K7
+// (CLAMP true), the TPU ref indexer's: a negative index wraps once, then the
+// row is clamped to [0, page - 1].
 //
-// Replaces scripts/pallas_gather_probe.py:38 take_kernel (call :44).
+// Replaces scripts/pallas_gather_probe.py:38 take_kernel (call :44), K6,
+// and :63 vidx_kernel (call :69), K7.
 // What bounds it: bytes. The output (n * w * 4 bytes, 64 MiB at the script's
-// shapes) is written once; the table (2 MiB) stays in L2. Design: one thread
-// per output element with 4-byte loads, so a warp writes one 128-byte row;
-// K7 is the same function with 16-byte accesses, and the pair measures what
-// the access width costs here.
+// shapes) is written once; the index is read once; the table (2 MiB) stays
+// in L2. A thread per 4-byte element spends the time on instructions
+// instead: a 64-bit division by w per element, the row's index read again
+// by each of its w threads, and one load in flight per thread.
+// Design:
+// - a warp takes 32 rows: each lane reads one row's index once (one
+//   coalesced 128-byte load) and turns it into a table row (or -1, a zero
+//   row); the pieces of the 32 rows then get it by shuffle;
+// - a piece is 16 bytes (P = float4) where w % 4 == 0 and the table and the
+//   output are 16-byte aligned, else 4 bytes (P = float): any width and any
+//   alignment, picked per call by launch_gather;
+// - lane l's pieces are l, l + 32, ... of the tile's 32 * wp, contiguous
+//   in the output: each step adds 32 to its output offset, and (32 / wp
+//   rows, 32 % wp pieces) with a carry to its (row, piece); each row's
+//   first piece in the table is worked out once, by the lane that read its
+//   index (the shuffle hands that out): the loop neither divides nor
+//   multiplies;
+// - GATHER_UNROLL pieces' loads are issued before any of their stores;
+// - stores stream (st.global.cs): the 64 MiB written never evict the table
+//   from L2.
+// Measured one at a time (probe_steps.py), 4-byte pieces cost 13%, plain
+// stores 12% and one piece in flight 3% (6% with 4-byte pieces); offsets
+// in 32 bits measured no faster once the loop neither divides nor
+// multiplies. At the script's shapes it runs within 5% of a fill_ of its
+// output.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-take_kernel(const int32_t* __restrict__ idx, int64_t n, const float* __restrict__ table,
-            int64_t page, int64_t w, float* __restrict__ out) {
-  const int64_t total = n * w;
-  for (int64_t t = (int64_t)blockIdx.x * THREADS + threadIdx.x; t < total;
-       t += (int64_t)gridDim.x * THREADS) {
-    const int64_t r = t / w;
-    const int64_t c = t - r * w;
-    int64_t j = idx[r];
-    if (j < 0) j += page;
-    out[t] = (j >= 0 && j < page) ? __ldg(table + j * w + c) : 0.0f;
-  }
+constexpr int GATHER_UNROLL = 4;  // pieces a lane loads before it stores them
+
+template <bool CLAMP>
+__device__ __forceinline__ int64_t gather_row(int32_t ix, int64_t page) {
+  int64_t j = ix;
+  if (j < 0) j += page;
+  if (CLAMP) return j < 0 ? 0 : (j >= page ? page - 1 : j);
+  return (j >= 0 && j < page) ? j : -1;
 }
 
-// ---------------------------------------------------------------------------
-// K7: out[r] = table[idx[r]] with the TPU ref indexer's semantics: a
-// negative index wraps once, then the row is clamped to [0, page - 1].
-//
-// Replaces scripts/pallas_gather_probe.py:63 vidx_kernel (call :69).
-// What bounds it: bytes, as K6. Design: one thread per 16 bytes of a row
-// (float4 loads and stores), so a warp moves four 128-byte rows per
-// instruction; needs w % 4 == 0 and 16-byte aligned tensors (the wrapper
-// checks both).
-// ---------------------------------------------------------------------------
+template <typename P>
+__device__ __forceinline__ P zero_piece();
+template <>
+__device__ __forceinline__ float zero_piece<float>() {
+  return 0.0f;
+}
+template <>
+__device__ __forceinline__ float4 zero_piece<float4>() {
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+template <typename P>
+__device__ __forceinline__ void store_stream(P* p, P v) {
+  __stcs(p, v);
+}
+
+template <bool CLAMP, typename P>
 __global__ void __launch_bounds__(THREADS)
-vidx_kernel(const int32_t* __restrict__ idx, int64_t n, const float4* __restrict__ table,
-            int64_t page, int64_t w4, float4* __restrict__ out) {
-  const int64_t total = n * w4;
-  for (int64_t t = (int64_t)blockIdx.x * THREADS + threadIdx.x; t < total;
-       t += (int64_t)gridDim.x * THREADS) {
-    const int64_t r = t / w4;
-    const int64_t q = t - r * w4;
-    int64_t j = idx[r];
-    if (j < 0) j += page;
-    j = j < 0 ? 0 : (j >= page ? page - 1 : j);
-    out[t] = __ldg(table + j * w4 + q);
+gather_kernel(const int32_t* __restrict__ idx, int64_t n, const P* __restrict__ table,
+              int64_t page, int64_t wp, P* __restrict__ out) {
+  const int lane = threadIdx.x % 32;
+  const int64_t dr = 32 / wp, dq = 32 % wp;              // a step of 32 pieces: rows, pieces
+  const int64_t row0 = lane / wp, q0 = lane - row0 * wp;  // this lane's first piece of a tile
+  const int64_t tiles = (n + 31) / 32;
+  for (int64_t tile = (int64_t)blockIdx.x * NWARPS + threadIdx.x / 32; tile < tiles;
+       tile += (int64_t)gridDim.x * NWARPS) {
+    const int64_t r0 = tile * 32;
+    const int64_t pieces = (n - r0 < 32 ? n - r0 : 32) * wp;  // the tile's output pieces
+    long long src = -1;  // lane l's row r0 + l: its first piece in the table, -1 a zero row
+    if (lane < n - r0) {
+      const int64_t j = gather_row<CLAMP>(idx[r0 + lane], page);
+      src = j >= 0 ? j * wp : -1;
+    }
+    P* dst = out + r0 * wp;
+    int64_t row = row0, q = q0;
+    for (int64_t p = lane; p < 32 * wp; p += 32 * GATHER_UNROLL) {  // the same count per lane
+      P v[GATHER_UNROLL];
+#pragma unroll
+      for (int u = 0; u < GATHER_UNROLL; ++u) {
+        const long long s = __shfl_sync(~0u, src, (int)(row & 31));
+        v[u] = (p + 32 * u < pieces && s >= 0) ? __ldg(table + s + q) : zero_piece<P>();
+        row += dr;
+        q += dq;
+        if (q >= wp) {
+          q -= wp;
+          ++row;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < GATHER_UNROLL; ++u)
+        if (p + 32 * u < pieces) store_stream(dst + p + 32 * u, v[u]);
+    }
   }
 }
 
@@ -774,41 +825,128 @@ s8_onehot_kernel(const int32_t* __restrict__ pages, const int32_t* __restrict__ 
 
 // ---------------------------------------------------------------------------
 // K12: run-length decode. Chunk i covers k = base[i, 0, 0] + r for r in
-// [0, ch); out[k] = val[w] for the run w with off[i, w] <= k < off[i, w + 1]
-// (the last run open up to 2^30), 0 where no run covers k. Offsets are
-// non-decreasing along each chunk (a run-length table), so the run is the
-// last w with off[w] <= k: a binary search. Exact for every int32 value; the
-// TPU's f32 indicator product is exact only below 2^24.
+// [0, ch), in int32 arithmetic (wrapping, as the TPU's); out[k] = val[w]
+// for the run w with off[i, w] <= k < off[i, w + 1] (the last run open up to
+// 2^30), 0 where no run covers k. Offsets are non-decreasing along each
+// chunk (a run-length table), so the run is the last w with off[w] <= k, and
+// a run whose offset repeats the next one's is empty. Exact for every int32
+// value; the TPU's f32 indicator product is exact only below 2^24.
 //
 // Replaces scripts/mxu_gather_probe.py:69 rld_kernel (call :81).
-// What bounds it: bytes (20.1 MiB at the script's shapes: the offsets once,
-// the output once). Design: one block per chunk stages its wg offsets in
-// shared memory (8 KB at wg = 2048); each thread binary-searches its k
-// there, then copies the run's cv values with 16-byte loads and stores
-// (cv % 4 == 0). val (64 KB) stays in L1/L2.
+// What bounds it: bytes, and of the inputs only what the chunks' rows need:
+// the output (16 MiB at the script's shapes) written once, each chunk's
+// base, the val rows used and the few offsets inside each chunk's k range.
+// Staging all wg offsets of a chunk (8 KB; 4 MiB in all) before a block can
+// write, then binary-searching all of them per row, reads and searches far
+// more than that: about 4 of a chunk's 2048 offsets fall inside its 1024 k
+// at the script's draws.
+// Design: a block per RLD_ROWS rows of a chunk (1,024 blocks at the
+// script's shapes: one wave), whose k lie in [kmin, kmax] (the whole int32
+// range where they wrap):
+// - warp 0 finds wlo = the last w with off[w] <= kmin and whi = the last
+//   with off[w] <= kmax by a 64-ary search of the chunk's offsets in global
+//   memory, both keys in lockstep: each round two loads per lane and two
+//   ballots, so 2048 offsets take two rounds (one strided, one of 256
+//   contiguous bytes, which usually leaves the block's offsets in L1);
+// - for every k of the block, w = wlo + #{p in (wlo, whi] : off[p] <= k}:
+//   the m = whi - wlo offsets in between are all a row needs, and each
+//   row binary-searches those through L1 (2-3 steps at the script's draws;
+//   a dense range, up to all wg offsets inside the block's k, takes more
+//   steps and is never refused);
+// - each thread decodes one 16-byte piece of a row at a time (a warp's
+//   pieces contiguous) and writes it by a streaming store; val (64 KB) is
+//   read through L1. 4 pieces' loads in flight before their stores
+//   measured slower (40 registers a thread leave room for 6 blocks an SM,
+//   not 8: two waves), as did 256 rows a block (two waves) and 1024 (half
+//   the threads).
+// Needs cv % 4 == 0 and a 16-byte aligned val (the wrapper checks).
 // ---------------------------------------------------------------------------
+constexpr int RLD_ROWS = 512;  // output rows per block
+
+// pos[k] = the first p in off[0, n) with off[p] > key[k] (n if none), for
+// both keys, by one warp (every lane gets both). Each round samples 64
+// positions of each key's bracket [lo, hi), lo + (s + 1) * step - 1 for s in
+// [0, 64), and counts those <= the key (they are a prefix: the offsets are
+// sorted); the answer then lies in a bracket of step - 1, or is found where
+// step is 1.
+__device__ __forceinline__ void warp_upper_bounds(const int32_t* __restrict__ off, int64_t n,
+                                                  const int32_t (&key)[2], int64_t (&pos)[2],
+                                                  int lane) {
+  int64_t lo[2] = {0, 0}, hi[2] = {n, n};
+  while (hi[0] > lo[0] || hi[1] > lo[1]) {
+    int64_t step[2], p[2][2];
+    int32_t v[2][2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int64_t len = hi[k] - lo[k];
+      step[k] = len > 64 ? (len + 63) >> 6 : 1;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        p[k][h] = lo[k] + (lane + 32 * h + 1) * step[k] - 1;
+        v[k][h] = p[k][h] < hi[k] ? __ldg(off + p[k][h]) : 0;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      int c = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        c += __popc(__ballot_sync(~0u, p[k][h] < hi[k] && v[k][h] <= key[k]));
+      const int64_t nhi = lo[k] + (c + 1) * step[k] - 1;
+      lo[k] += c * step[k];
+      hi[k] = nhi < hi[k] ? nhi : hi[k];
+    }
+  }
+  pos[0] = lo[0];
+  pos[1] = lo[1];
+}
+
 __global__ void __launch_bounds__(THREADS)
-rld_kernel(const int32_t* __restrict__ off, int64_t wg, const int32_t* __restrict__ val,
-           int64_t cv, const int32_t* __restrict__ base, int64_t bstride, int64_t ch,
-           int32_t* __restrict__ out) {
-  extern __shared__ int32_t soff[];
-  const int64_t i = blockIdx.x;
-  for (int64_t t = threadIdx.x; t < wg; t += THREADS) soff[t] = off[i * wg + t];
+rld_kernel(const int32_t* __restrict__ off, int64_t wg, const int4* __restrict__ val, int cv4,
+           const int32_t* __restrict__ base, int64_t bstride, int64_t ch, int64_t segs,
+           int4* __restrict__ out) {
+  __shared__ int64_t sw[2];
+  const int64_t chunk = blockIdx.x / segs;
+  const int64_t r0 = (blockIdx.x - chunk * segs) * RLD_ROWS;
+  const int rows = (int)(ch - r0 < RLD_ROWS ? ch - r0 : RLD_ROWS);
+  const int32_t* o = off + chunk * wg;
+  const uint32_t klo = (uint32_t)base[chunk * bstride] + (uint32_t)r0;
+  if (threadIdx.x < 32) {
+    const uint32_t khi = klo + (uint32_t)(rows - 1);
+    const bool wraps = (int32_t)khi < (int32_t)klo;
+    const int32_t key[2] = {wraps ? INT32_MIN : (int32_t)klo, wraps ? INT32_MAX : (int32_t)khi};
+    int64_t pos[2];
+    warp_upper_bounds(o, wg, key, pos, threadIdx.x);
+    if (threadIdx.x == 0) {
+      sw[0] = pos[0] - 1;
+      sw[1] = pos[1] - 1;
+    }
+  }
   __syncthreads();
-  const uint32_t kbase = (uint32_t)base[i * bstride];
-  for (int64_t r = threadIdx.x; r < ch; r += THREADS) {
-    const int32_t k = (int32_t)(kbase + (uint32_t)r);  // int32 arithmetic, as the TPU's
-    int64_t lo = 0, hi = wg;                           // first w with off[w] > k
+  const int64_t wlo = sw[0], m = sw[1] - sw[0];
+  const int32_t* b = o + wlo + 1;  // off[wlo + 1 .. whi]: all that decides this block's rows
+  // this thread's pieces: threadIdx.x, + THREADS, ... of the block's rows * cv4
+  int row = threadIdx.x / cv4, q = threadIdx.x - row * cv4;
+  const int dr = THREADS / cv4, dq = THREADS - dr * cv4;
+  int4* dst = out + (chunk * ch + r0) * cv4;
+  while (row < rows) {
+    const int32_t k = (int32_t)(klo + (uint32_t)row);
+    int64_t lo = 0, hi = m;  // the first of b[0, m) above k
     while (lo < hi) {
       const int64_t mid = (lo + hi) >> 1;
-      if (soff[mid] <= k) lo = mid + 1;
+      if (__ldg(b + mid) <= k) lo = mid + 1;
       else hi = mid;
     }
-    const int64_t w = lo - 1;
+    const int64_t w = wlo + lo;
     const bool covered = w >= 0 && (w < wg - 1 || k < (1 << 30));
-    const int4* v = reinterpret_cast<const int4*>(val + (covered ? w : 0) * cv);
-    int4* o = reinterpret_cast<int4*>(out + (i * ch + r) * cv);
-    for (int64_t q = 0; q < cv / 4; ++q) o[q] = covered ? __ldg(v + q) : make_int4(0, 0, 0, 0);
+    store_stream(dst + (int64_t)row * cv4 + q,
+                 covered ? __ldg(val + w * cv4 + q) : make_int4(0, 0, 0, 0));
+    row += dr;
+    q += dq;
+    if (q >= cv4) {
+      q -= cv4;
+      ++row;
+    }
   }
 }
 
@@ -818,24 +956,35 @@ rld_kernel(const int32_t* __restrict__ off, int64_t wg, const int32_t* __restric
 // CUDA runtime), launches on the caller's stream and returns
 // cudaGetLastError().
 
-extern "C" int gof_take_gather(int device, const void* idx, long long n, const void* table,
-                               long long page, long long w, void* out, void* stream) {
+// K6 (CLAMP false) and K7 (CLAMP true): 16-byte pieces where the width and
+// both pointers allow them, else 4-byte.
+template <bool CLAMP>
+static int launch_gather(int device, const void* idx, long long n, const void* table,
+                         long long page, long long w, void* out, void* stream) {
   if (n <= 0 || w <= 0) return 0;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  take_kernel<<<(unsigned)stride_blocks(n * w), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)idx, n, (const float*)table, page, w, (float*)out);
+  const bool vec = w % 4 == 0 && (uintptr_t)table % 16 == 0 && (uintptr_t)out % 16 == 0;
+  const unsigned grid = (unsigned)stride_blocks((n + 31) / 32 * 32);  // a warp per 32 rows
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int32_t* ix = (const int32_t*)idx;
+  if (vec)
+    gather_kernel<CLAMP, float4><<<grid, THREADS, 0, s>>>(ix, n, (const float4*)table, page,
+                                                          w / 4, (float4*)out);
+  else
+    gather_kernel<CLAMP, float><<<grid, THREADS, 0, s>>>(ix, n, (const float*)table, page, w,
+                                                         (float*)out);
   return (int)cudaGetLastError();
+}
+
+extern "C" int gof_take_gather(int device, const void* idx, long long n, const void* table,
+                               long long page, long long w, void* out, void* stream) {
+  return launch_gather<false>(device, idx, n, table, page, w, out, stream);
 }
 
 extern "C" int gof_vidx_gather(int device, const void* idx, long long n, const void* table,
                                long long page, long long w, void* out, void* stream) {
-  if (n <= 0 || w <= 0) return 0;
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  vidx_kernel<<<(unsigned)stride_blocks(n * (w / 4)), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)idx, n, (const float4*)table, page, w / 4, (float4*)out);
-  return (int)cudaGetLastError();
+  return launch_gather<true>(device, idx, n, table, page, w, out, stream);
 }
 
 // K8's four passes (prep, count + scan, fill, product) on stream s.
@@ -891,22 +1040,19 @@ extern "C" int gof_scat(int device, const void* idx, long long n, const void* ro
   return (int)cudaGetLastError();
 }
 
+// cv % 4 == 0; val 16-byte aligned.
 extern "C" int gof_rld(int device, const void* off, long long nch, long long wg, const void* val,
                        long long cv, const void* base, long long bstride, long long ch, void* out,
                        void* stream) {
-  if (nch <= 0 || ch <= 0) return 0;
+  if (nch <= 0 || ch <= 0 || cv <= 0) return 0;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int smem = (int)(wg * 4);
-  const cudaError_t e2 =
-      cudaFuncSetAttribute(rld_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e2 != cudaSuccess) return (int)e2;
-  rld_kernel<<<(unsigned)nch, THREADS, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)off, wg, (const int32_t*)val, cv, (const int32_t*)base, bstride, ch,
-      (int32_t*)out);
+  const long long segs = (ch + RLD_ROWS - 1) / RLD_ROWS;
+  rld_kernel<<<(unsigned)(nch * segs), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)off, wg, (const int4*)val, (int)(cv / 4), (const int32_t*)base, bstride, ch,
+      segs, (int4*)out);
   return (int)cudaGetLastError();
 }
-
 
 static int sm_count(int device) {
   int n = 0;

@@ -13,7 +13,7 @@ Edge behaviour, as the Pallas kernels give it (run in interpret mode):
 - take_gather (K6): jnp.take's fill mode: an index in [-PAGE, 0) wraps, any
   other index outside [0, PAGE) gives a zero row;
 - vidx_gather (K7): a negative index wraps once, then the row is clamped to
-  [0, PAGE - 1];
+  [0, PAGE - 1]; on the card K6's kernel with the clamp, any W;
 - onehot_gather (K8): bf16(table)[idx] as f32; an index outside [0, PAGE)
   gives a zero row; defined on finite tables; on the card a one-hot product
   over only the k-steps the rows hit, after a counting sort of the rows;
@@ -26,8 +26,10 @@ Edge behaviour, as the Pallas kernels give it (run in interpret mode):
   reduce, csrc/reduce.cu);
 - int8_gather (K11): int32(table[idx]); an index outside [0, WG) gives zero;
 - rld (K12): run-length decode, out[k] = val[w] for off[w] <= k < off[w+1]
-  (the last run open up to 2^30), 0 where no run covers k; the offsets of
-  each chunk are non-decreasing (a run-length table);
+  (the last run open up to 2^30), 0 where no run covers k, k = base + row
+  in int32 arithmetic (wrapping); the offsets of each chunk are
+  non-decreasing (a run-length table); on the card each block reads only
+  the offsets inside its rows' k range, any WG;
 - paged_gather (K13): int32(table[idx]) when idx lies in the chunk's page
   pages[i] (rows [pages[i] * WG, (pages[i] + 1) * WG)), else 0; a page
   outside the table gives zero rows.
@@ -99,7 +101,9 @@ def take_gather_reference(idx: torch.Tensor, table: torch.Tensor) -> torch.Tenso
 
 
 def take_gather(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """K6: idx [nchunk, 1, chunk] int32, table [PAGE, W] f32 -> [n, W] f32."""
+    """K6: idx [nchunk, 1, chunk] int32, table [PAGE, W] f32 -> [n, W] f32.
+    On CUDA a warp per 32 rows, 16-byte pieces where W % 4 == 0 and the
+    table is 16-byte aligned, 4-byte pieces otherwise (any W, any view)."""
     _check_idx("take_gather", idx)
     _check("take_gather", ("table", table, torch.float32, 2))
     cuda_lib.require(table.shape[0] > 0, "take_gather: empty table")
@@ -120,7 +124,7 @@ def vidx_gather_reference(idx: torch.Tensor, table: torch.Tensor) -> torch.Tenso
 
 def vidx_gather(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """K7: the same shapes as take_gather, with the ref indexer's wrap-then-
-    clamp semantics. The kernel moves 16 bytes per thread: W % 4 == 0."""
+    clamp semantics; on CUDA take_gather's kernel with the clamp."""
     _check_idx("vidx_gather", idx)
     _check("vidx_gather", ("table", table, torch.float32, 2))
     cuda_lib.require(table.shape[0] > 0, "vidx_gather: empty table")
@@ -128,8 +132,6 @@ def vidx_gather(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         return vidx_gather_reference(idx, table)
     _require_cuda("vidx_gather", idx, table)
     page, w = table.shape
-    cuda_lib.require(w % 4 == 0 and table.data_ptr() % 16 == 0,
-                     f"vidx_gather: W = {w} (need a multiple of 4, 16-byte aligned)")
     out = torch.empty((idx.numel(), w), dtype=torch.float32, device=table.device)
     _launch(VIDX, table, idx.data_ptr(), idx.numel(), table.data_ptr(), page, w, out.data_ptr())
     return out
@@ -417,7 +419,8 @@ def rld_reference(off: torch.Tensor, val: torch.Tensor, base: torch.Tensor,
 def rld(off: torch.Tensor, val: torch.Tensor, base: torch.Tensor, ch: int = 1024) -> torch.Tensor:
     """K12: off [NCH, 1, WG] int32 (non-decreasing along WG), val [WG, CV]
     int32, base [NCH, 1, B] int32 (chunk i covers k = base[i, 0, 0] + row)
-    -> [NCH * ch, CV] int32. The kernel needs CV % 4 == 0."""
+    -> [NCH * ch, CV] int32. The kernel needs CV % 4 == 0 and a 16-byte
+    aligned val; it takes any WG."""
     _check("rld", ("off", off, torch.int32, 3), ("val", val, torch.int32, 2),
            ("base", base, torch.int32, 3))
     nch, one, wg = off.shape
@@ -430,8 +433,8 @@ def rld(off: torch.Tensor, val: torch.Tensor, base: torch.Tensor, ch: int = 1024
         return rld_reference(off, val, base, ch)
     _require_cuda("rld", off, val, base)
     cv = val.shape[1]
-    cuda_lib.require(cv % 4 == 0 and wg * 4 <= SMEM_MAX,
-                     f"rld: CV {cv}, WG {wg} (need CV a multiple of 4, WG up to 58112)")
+    cuda_lib.require(cv % 4 == 0 and val.data_ptr() % 16 == 0,
+                     f"rld: CV {cv} (need a multiple of 4, val 16-byte aligned)")
     out = torch.empty((nch * ch, cv), dtype=torch.int32, device=off.device)
     _launch(RLD, off, off.data_ptr(), nch, wg, val.data_ptr(), cv, base.data_ptr(),
             base.shape[2], ch, out.data_ptr())

@@ -4,9 +4,10 @@ of scripts/mxu_gather_probe.py (K11-K13 and its sort timings):
     python -m gof_tpu_torch.scripts.mxu_gather_probe [--cpu]
 
 (1) int8_gather, a one-hot int8 product as a widened row gather (K11); (2)
-rld, a run-length decode (K12); (3) paged_gather, each chunk gathering from
-its own page of a larger table (K13); (4) the sorts of the port's binning
-and reduce: the script's two keys (tile, depth) with one and with two
+rld, a run-length decode (K12; its bound counts only the offsets and val
+rows the chunks' rows need, `rld_bytes`); (3) paged_gather, each chunk
+gathering from its own page of a larger table (K13); (4) the sorts of the
+port's binning and reduce: the script's two keys (tile, depth) with one and with two
 carries at 4,194,304 keys, ordered by ops/binning.py's slot_order (with the
 carried gaussian id as its third key: a stable sort by id, then a stable
 sort of the int64 key), the carries gathered after; and one key with one
@@ -20,6 +21,7 @@ distinct input buffers. `main` returns the numbers as a dict.
 from __future__ import annotations
 
 import argparse
+import math
 
 import numpy as np
 import torch
@@ -74,6 +76,57 @@ def inputs(a):
     return d
 
 
+RLD_EDGE_CASES = ("all_zero", "dense", "run_end", "wrap", "uncovered", "wide_wg")
+
+
+def rld_edge_offsets(case: str, nch: int, ch: int, wg: int, rng):
+    """K12's edge cases, as offsets [nch, 1, WG] and bases [nch, 1, 8]
+    (int64) on the script's kind of draw (sorted offsets over nch * ch
+    positions, chunk i's rows from k = i * ch): "all_zero", every offset 0
+    (every k on the last run); "dense", chunk nch // 2's offsets all inside
+    its own ch k, with repeats; "run_end", bases that put each chunk's k
+    across 2^30, where the last run ends; "wrap", offsets over the whole
+    int32 range and bases that put k across the int32 wrap; "uncovered",
+    chunk 0's first offset at its row ch // 2; "wide_wg", WG =
+    65,536."""
+    if case == "wide_wg":
+        wg = 65536
+    off = np.sort(rng.integers(0, nch * ch, (nch, 1, wg)), axis=-1)
+    base = np.zeros((nch, 1, 8), np.int64)
+    base[:, 0, 0] = np.arange(nch) * ch
+    c = nch // 2
+    if case == "all_zero":
+        off[:] = 0
+    elif case == "dense":
+        off[c, 0] = np.sort(rng.integers(c * ch, (c + 1) * ch, wg))
+    elif case == "run_end":
+        base[:, 0, 0] = 2**30 - ch // 2 + 3 * np.arange(nch)
+    elif case == "wrap":
+        off = rng.integers(-2**31, 2**31, (nch, 1, wg))
+        off[:, 0, 0] = -2**31
+        off[-1, 0, -40:] = rng.integers(2**31 - ch, 2**31, 40)  # runs just below the wrap
+        off = np.sort(off, axis=-1)
+        base[:, 0, 0] = 2**31 - 1 - ch // 2 - 5 * np.arange(nch)
+    elif case == "uncovered":
+        off[0, 0] = np.sort(rng.integers(ch // 2, nch * ch, wg))
+        off[0, 0, 0] = ch // 2
+    return off, base
+
+
+def rld_bytes(off, val, base, ch: int) -> int:
+    """The bytes K12 must move on these inputs: the output, each chunk's
+    base, the val rows some row uses, and per chunk its offsets from the
+    first row's run to one past the last row's (those decide every row),
+    plus one binary search's reads to find them."""
+    nch, _, wg = off.shape
+    k = base[:, 0, :1] + torch.arange(ch, dtype=torch.int32, device=off.device)
+    w = torch.searchsorted(off[:, 0, :].contiguous(), k, right=True) - 1  # [nch, ch]
+    used = w[(w >= 0) & ((w < wg - 1) | (k < gp.RUN_END))].unique().numel()
+    lo, hi = w.min(1).values.clamp(min=0), (w.max(1).values + 1).clamp(max=wg - 1)
+    offsets = int((hi - lo + 1).sum()) + nch * math.ceil(math.log2(wg + 1))
+    return nch * ch * val.shape[1] * 4 + nch * 4 + used * val.shape[1] * 4 + offsets * 4
+
+
 def main(argv=None) -> dict:
     a = parse(argv)
     dev = pick_device(a.cpu)
@@ -107,8 +160,10 @@ def main(argv=None) -> dict:
     rolls = [(torch.roll(off, s, 0), val, torch.roll(base, s, 0)) for s in range(4)]
     r = res["rld"] = probe(lambda *x: gp.rld(*x, ch=a.ch),
                            lambda *x: gp.rld_reference(*x, ch=a.ch), None, rolls, dev, REPS,
-                           nbytes(off, val, base) + n * CV * 4, exact)
+                           rld_bytes(off, val, base, a.ch), exact)
     r["library"] = None
+    # every input read whole, offsets included
+    r["bound_all_inputs_ms"] = bound_ms(nbytes(off, val, base) + n * CV * 4)[0]
     # the script's spot check, numpy's searchsorted on its four chunks
     out = gp.rld(off, val, base, ch=a.ch)
     spots = []
@@ -121,8 +176,9 @@ def main(argv=None) -> dict:
         spots.append(bool(np.array_equal(out[ch * a.ch:(ch + 1) * a.ch].cpu().numpy(), exp)))
         print(f"RLD chunk {ch} exact: {spots[-1]}")
     r["spot_exact"] = all(spots)
-    report(f"RLD binary search [{n}] win={a.wg} C={CV}", r)
-    print(f"   exact vs plain: {r['exact']}")
+    report(f"RLD range search [{n}] win={a.wg} C={CV}", r)
+    print(f"   exact vs plain: {r['exact']}; bound with every input read whole "
+          f"{r['bound_all_inputs_ms']:.4f} ms")
 
     # ------------------------------------------------------- 3. paged gather
     big = T(d["big_tbl8"])

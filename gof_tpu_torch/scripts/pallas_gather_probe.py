@@ -3,8 +3,8 @@ one? The port of scripts/pallas_gather_probe.py (K6-K10):
 
     python -m gof_tpu_torch.scripts.pallas_gather_probe [--cpu]
 
-(1) take_gather, jnp.take's semantics, 4-byte accesses (K6); (1b)
-vidx_gather, the ref indexer's, 16-byte accesses (K7); (2) the one-hot bf16
+(1) take_gather, jnp.take's semantics (K6); (1b) vidx_gather, the ref
+indexer's (K7; K6's kernel with a clamp); (2) the one-hot bf16
 product over pages of PAGE_B rows (K8); (3) scat, the segment sum by atomic
 adds (K9); (4) scatmxu, the deterministic segment sum (K10, on K4's
 counting-sort reduce). The inputs are the script's: np.random.default_rng(0)
@@ -85,7 +85,7 @@ def main(argv=None) -> dict:
             ("take_gather", gp.take_gather, gp.take_gather_reference,
              f"take_gather (jnp.take) from table [{a.page},{W}]"),
             ("vidx_gather", gp.vidx_gather, gp.vidx_gather_reference,
-             "vidx_gather (tbl[idx_vec, :]), 16-byte accesses")):
+             "vidx_gather (tbl[idx_vec, :])")):
         r = res[name] = probe(fn, plain, index_select, targs, dev, REPS, gather_bytes, exact)
         r["library"] = "torch.index_select(table, 0, idx)"
         report(label, r)

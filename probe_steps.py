@@ -1,9 +1,16 @@
 #!/usr/bin/env python3
-"""Time the shipped designs of K8 (onehot_gather) and K9 (scat) beside the
-designs measured and not shipped, on one CUDA GPU, from the repository root:
+"""Time the shipped designs of K6 (take_gather), K8 (onehot_gather), K9
+(scat) and K12 (rld) beside the design steps measured and not shipped, on
+one CUDA GPU, from the repository root:
 
-    python3 probe_steps.py [--rounds 3] [--out build/probe_steps/steps.json]
+    python3 probe_steps.py [--rounds 3] [--kernels K6 K8 K9 K12]
+                           [--out build/probe_steps/steps.json]
 
+- K6 as built: a warp per 32 rows, one index read per row handed out by
+  shuffle, 16-byte pieces, no division or multiply in the loop, 4 pieces'
+  loads before their stores, streaming stores. Each step left out alone:
+  4-byte pieces, 1 piece in flight (also with 4-byte pieces), plain
+  stores.
 - K8 as built: a counting sort of the rows by k-step, then per 64 sorted
   rows one wgmma per k-step they hit. "no sort": each warp walks the
   distinct k-steps of its own 16 rows (at most 16, found by ballot) on
@@ -11,13 +18,22 @@ designs measured and not shipped, on one CUDA GPU, from the repository root:
 - K9 as built: one 16-byte vector reduction per 16 bytes of a row. "bulk":
   rows staged in shared memory, then one cp.reduce.async.bulk of W * 4
   bytes per row.
+- K12 as built: a block per 512 rows of a chunk, a warp's search for the
+  offsets inside the rows' k range, a search of those per row. Left out:
+  full staging (a block per chunk stages all WG offsets in shared memory
+  and searches them all), 256 or 1024 rows per block, plain stores.
+- The floor of a kernel that writes as much: a device-to-device `copy_`
+  (which also reads as much) and a `fill_` (which only writes) of K6's
+  output (64 MiB) and of K12's (16 MiB).
 
-Each variant is csrc/gather_probes.cu with kernels added and the body of a
-named host function (`onehot_passes`, `gof_scat`) replaced, built as
+Each variant is csrc/gather_probes.cu with kernels added, or with a line
+of `launch_gather`, a named constant or the body of a named function
+(`store_stream`, `onehot_passes`, `gof_scat`, `gof_rld`) replaced, built as
 blend_steps.py builds its variants (one nvcc each, in parallel). All run
-through the same C entry point on pallas_gather_probe's inputs (its shapes
-and draws, with buffers allocated once): K8 must equal its plain version bit
-for bit, K9 lie within rtol 1e-5 / atol 1e-5 x max |plain| of it. They are
+through the same C entry point on the probes' inputs (pallas_gather_probe's
+for K6-K9, mxu_gather_probe's for K12: their shapes and draws, with buffers
+allocated once): K6, K8 and K12 must equal their plain versions bit for
+bit, K9 lie within rtol 1e-5 / atol 1e-5 x max |plain| of it. They are
 timed in turns, `rounds` times over the list (CUDA events, median of 20
 calls each; K9's calls include zeroing the output, as its wrapper's do).
 """
@@ -177,10 +193,63 @@ BULK_SCAT = """  if (n <= 0 || w <= 0) return 0;
   return (int)cudaGetLastError();"""
 
 
+def line(old: str, new: str):
+    """A change that replaces the one line of gather_probes.cu holding `old`."""
+    return ("gather_probes.cu", re.compile(re.escape(old)), new)
+
+
+# K12 by full staging: a block per chunk stages all WG offsets and searches them all
+STAGED_RLD_KERNEL = r"""
+__global__ void __launch_bounds__(THREADS)
+rld_staged_kernel(const int32_t* __restrict__ off, int64_t wg, const int32_t* __restrict__ val,
+                  int64_t cv, const int32_t* __restrict__ base, int64_t bstride, int64_t ch,
+                  int32_t* __restrict__ out) {
+  extern __shared__ int32_t soff[];
+  const int64_t i = blockIdx.x;
+  for (int64_t t = threadIdx.x; t < wg; t += THREADS) soff[t] = off[i * wg + t];
+  __syncthreads();
+  const uint32_t kbase = (uint32_t)base[i * bstride];
+  for (int64_t r = threadIdx.x; r < ch; r += THREADS) {
+    const int32_t k = (int32_t)(kbase + (uint32_t)r);
+    int64_t lo = 0, hi = wg;
+    while (lo < hi) {
+      const int64_t mid = (lo + hi) >> 1;
+      if (soff[mid] <= k) lo = mid + 1;
+      else hi = mid;
+    }
+    const int64_t w = lo - 1;
+    const bool covered = w >= 0 && (w < wg - 1 || k < (1 << 30));
+    const int4* v = reinterpret_cast<const int4*>(val + (covered ? w : 0) * cv);
+    int4* o = reinterpret_cast<int4*>(out + (i * ch + r) * cv);
+    for (int64_t q = 0; q < cv / 4; ++q) o[q] = covered ? __ldg(v + q) : make_int4(0, 0, 0, 0);
+  }
+}
+"""
+
+STAGED_RLD = """  if (nch <= 0 || ch <= 0 || cv <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = (int)(wg * 4);
+  err = cudaFuncSetAttribute(rld_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  rld_staged_kernel<<<(unsigned)nch, THREADS, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)off, wg, (const int32_t*)val, cv, (const int32_t*)base, bstride, ch,
+      (int32_t*)out);
+  return (int)cudaGetLastError();"""
+
+
 def variants():
     from blend_steps import body, const
 
     return {
+        "K6 as built (16-byte pieces, 4 in flight, streaming stores)": ((), None),
+        "K6 4-byte pieces": ((line("const bool vec = w % 4", "const bool vec = false && w % 4"),),
+                             None),
+        "K6 1 piece in flight": ((const("gather_probes.cu", "GATHER_UNROLL", 1),), None),
+        "K6 4-byte pieces, 1 in flight": (
+            (line("const bool vec = w % 4", "const bool vec = false && w % 4"),
+             const("gather_probes.cu", "GATHER_UNROLL", 1)), None),
+        "K6 plain stores": ((body("gather_probes.cu", "store_stream", "  *p = v;"),), None),
         "K8 as built (sort, wgmma per hit k-step)": ((), None),
         "K8 no sort (mma.sync per warp's own k-steps)": (
             (insert(NO_SORT_KERNEL), body("gather_probes.cu", "onehot_passes", NO_SORT_PASSES)),
@@ -192,12 +261,20 @@ def variants():
         "K9 as built (16-byte vector reductions)": ((), None),
         "K9 bulk (cp.reduce.async.bulk per row)": (
             (insert(BULK_KERNEL), body("gather_probes.cu", "gof_scat", BULK_SCAT)), None),
+        "K12 as built (range search, 512 rows a block)": ((), None),
+        "K12 full staging (a block per chunk, all WG offsets)": (
+            (insert(STAGED_RLD_KERNEL), body("gather_probes.cu", "gof_rld", STAGED_RLD)), None),
+        "K12 256 rows a block": ((const("gather_probes.cu", "RLD_ROWS", 256),), None),
+        "K12 1024 rows a block": ((const("gather_probes.cu", "RLD_ROWS", 1024),), None),
+        "K12 plain stores": ((body("gather_probes.cu", "store_stream", "  *p = v;"),), None),
     }
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--kernels", nargs="+", default=["K6", "K8", "K9", "K12"],
+                    help="the kernels whose variants to build and time")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "probe_steps", "steps.json"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -206,21 +283,24 @@ def main(argv=None) -> dict:
     from blend_steps import build_variants
     from gof_tpu_torch.ops import cuda_lib
     from gof_tpu_torch.ops import gather_probes as gp
+    from gof_tpu_torch.scripts import mxu_gather_probe as mgp
     from gof_tpu_torch.scripts import pallas_gather_probe as pgp
     from gof_tpu_torch.utils.timing import time_ms
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"device: {smi}")
-    libs = build_variants("gather_probes.cu", variants())
+    chosen = {name: v for name, v in variants().items() if name.split()[0] in args.kernels}
+    libs = build_variants("gather_probes.cu", chosen)
+    family = {"K6": "gather", "K8": "onehot", "K9": "scat", "K12": "rld"}
     for name, (_, log) in libs.items():
         fn = None
-        for line in log.splitlines():
-            m = re.search(r"Compiling entry function '\w*?\d+((onehot|scat)\w*?_kernel)", line)
-            if m or "Compiling entry" in line:
-                fn = m.group(1) if m else None
-            elif fn and "registers" in line:
-                print(f"  ptxas {name}: {fn}: {line.split('info    :')[-1].strip()}")
+        for line_ in log.splitlines():
+            m = re.search(r"Compiling entry function '\w*?_cu_\d+(\w+?_kernel\w*)'", line_)
+            if "Compiling entry" in line_:
+                fn = m.group(1) if m and m.group(1).startswith(family[name.split()[0]]) else None
+            elif fn and "registers" in line_:
+                print(f"  ptxas {name}: {fn}: {line_.split('info    :')[-1].strip()}")
 
     page, chunk, nchunk, page_b = 16384, 2048, 256, 2048
     table_np, idx_np, rows_np = pgp.inputs(page, chunk, nchunk)
@@ -231,11 +311,13 @@ def main(argv=None) -> dict:
     tB = torch.empty(page * w, dtype=torch.bfloat16, device=dev)
     ws = torch.empty(2 * nb + 1, dtype=torch.int32, device=dev)
     srt = torch.empty((n, 2), dtype=torch.int32, device=dev)
-    out8 = torch.empty((n, w), device=dev)
+    out6 = torch.empty((n, w), device=dev)
     out9 = torch.empty((page, w), device=dev)
+    a = mgp.parse([])
+    d = mgp.inputs(a)
+    off, val, base = (torch.from_numpy(d[k]).to(dev) for k in ("off", "val", "base"))
+    out12 = torch.empty((a.nch * a.ch, mgp.CV), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    want8 = gp.onehot_gather_reference(idx, table, page_b)
-    want9 = gp.scat_reference(idx, rows, page)
     sig = cuda_lib._SIGNATURES
 
     def entry(path, name):
@@ -243,32 +325,55 @@ def main(argv=None) -> dict:
         fn.argtypes = list(sig[name])
         fn.restype = ctypes.c_int
 
-        def call(*a):
-            rc = fn(dev.index, *a, stream)
+        def call(*a_):
+            rc = fn(dev.index, *a_, stream)
             if rc:
                 raise RuntimeError(f"{name}: CUDA error {rc}")
         return call
 
+    # per kernel: its entry point, the call's arguments, its output, the plain version's
+    # output and whether the two must be bit-equal
+    setups = {
+        "K6": ("gof_take_gather", lambda: (idx.data_ptr(), n, table.data_ptr(), page, w,
+                                           out6.data_ptr()), out6,
+               lambda: gp.take_gather_reference(idx, table), True),
+        "K8": ("gof_onehot_gather", lambda: (idx.data_ptr(), n, table.data_ptr(), page, w,
+                                             tB.data_ptr(), ws.data_ptr(), srt.data_ptr(),
+                                             out6.data_ptr()), out6,
+               lambda: gp.onehot_gather_reference(idx, table, page_b), True),
+        "K9": ("gof_scat", lambda: (idx.data_ptr(), n, rows.data_ptr(), w, page,
+                                    out9.data_ptr()), out9,
+               lambda: gp.scat_reference(idx, rows, page), False),
+        "K12": ("gof_rld", lambda: (off.data_ptr(), a.nch, a.wg, val.data_ptr(), mgp.CV,
+                                    base.data_ptr(), base.shape[2], a.ch, out12.data_ptr()), out12,
+                lambda: gp.rld_reference(off, val, base, a.ch), True),
+    }
     calls = {}
     for name, (path, _) in libs.items():
-        if name.startswith("K8"):
-            f = entry(path, "gof_onehot_gather")
-            call = (lambda f=f: f(idx.data_ptr(), n, table.data_ptr(), page, w, tB.data_ptr(),
-                                  ws.data_ptr(), srt.data_ptr(), out8.data_ptr()))
-            call()
-            ok = bool(torch.equal(out8, want8))
+        kern = name.split()[0]
+        ename, cargs, out, plain, bit = setups[kern]
+        f = entry(path, ename)
+        if kern == "K9":
+            call = (lambda f=f, c=cargs: (out9.zero_(), f(*c())))
         else:
-            f = entry(path, "gof_scat")
-            call = (lambda f=f: (out9.zero_(), f(idx.data_ptr(), n, rows.data_ptr(), w, page,
-                                                 out9.data_ptr())))
-            call()
-            ok = pgp.within(out9, want9)
+            call = (lambda f=f, c=cargs: f(*c()))
+        call()
         torch.cuda.synchronize()
-        print(f"{name}: {'bit-equal to' if name.startswith('K8') else 'within tolerance of'} "
-              f"its plain version: {ok}")
+        want = plain()
+        ok = bool(torch.equal(out, want)) if bit else pgp.within(out, want)
+        print(f"{name}: {'bit-equal to' if bit else 'within tolerance of'} its plain version: {ok}")
         if not ok:
             raise RuntimeError(f"{name} disagrees with its plain version")
         calls[name] = call
+    floors = {}
+    for kern, out in (("K6", out6), ("K12", out12)):
+        if kern in args.kernels:
+            src = torch.empty_like(out)
+            mib = out.numel() * out.element_size() / 2**20
+            floors[f"{kern} floor: copy_ of its {mib:.0f} MiB output"] = (
+                lambda o=out, s_=src: o.copy_(s_))
+            floors[f"{kern} floor: fill_ of its {mib:.0f} MiB output"] = (lambda o=out: o.fill_(1))
+    calls.update(floors)
 
     times = {name: [] for name in calls}
     for _ in range(args.rounds):  # in turns
@@ -276,7 +381,7 @@ def main(argv=None) -> dict:
             times[name].append(time_ms(fn, [()], dev, 20, 2))
     res = {"device": smi, "rounds": args.rounds, "ms": times}
     for name, ts in times.items():
-        print(f"{name:48s} {statistics.median(ts):8.4f} ms  rounds {[round(t, 4) for t in ts]}")
+        print(f"{name:78s} {statistics.median(ts):8.4f} ms  rounds {[round(t, 4) for t in ts]}")
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(res, f, indent=1)

@@ -18,6 +18,7 @@ import torch
 from gof_tpu_torch import cameras
 from gof_tpu_torch.ops import class_gather, render
 from gof_tpu_torch.ops import rasterize as rz
+from gof_tpu_torch.scripts.mxu_gather_probe import RLD_EDGE_CASES
 
 pytestmark = pytest.mark.cuda
 
@@ -732,20 +733,35 @@ def probe_idx(rng, shape, lo, hi, edges=()):
     return torch.from_numpy(idx)
 
 
+@pytest.mark.parametrize("view", ["as_drawn", "w30", "w1", "w129", "unaligned", "one_row"])
 @pytest.mark.parametrize("shapes", list(PROBE_SHAPES))
-def test_probe_gathers_match_plain(dev, shapes):
+def test_probe_gathers_match_plain(dev, shapes, view):
+    """K6, K7 and K8 bit-equal to their plain versions on the edge indices.
+    K6 and K7 share one kernel: 16-byte pieces where W % 4 == 0 and the
+    table is 16-byte aligned, 4-byte pieces at any other width ("w30",
+    "w1", "w129") or view ("unaligned": a table one float past an aligned
+    buffer); "one_row" puts every index on one row. K8 takes the drawn
+    table alone."""
     from gof_tpu_torch.ops import gather_probes as gp
 
     s, _ = PROBE_SHAPES[shapes]
     rng = np.random.default_rng(11)
     page = s["page"]
-    table = torch.from_numpy(rng.normal(size=(page, s["w"])).astype(np.float32)).to(dev)
+    w = {"w30": 30, "w1": 1, "w129": 129}.get(view, s["w"])
+    table = torch.from_numpy(rng.normal(size=(page, w)).astype(np.float32)).to(dev)
+    if view == "unaligned":
+        table = torch.zeros(page * w + 1, device=dev)[1:].view(page, w).copy_(table)
+        assert table.data_ptr() % 16 == 4
     edges = (-2**31, 2**31 - 1, -page - 1, -page, -1, 0, page - 1, page)
     idx = probe_idx(rng, (s["nchunk"], 1, s["chunk"]), -page - 8, page + 8, edges).to(dev)
-    for fn, plain, kw, counter in (
-            (gp.take_gather, gp.take_gather_reference, {}, gp.TAKE),
-            (gp.vidx_gather, gp.vidx_gather_reference, {}, gp.VIDX),
-            (gp.onehot_gather, gp.onehot_gather_reference, {"page_b": s["page_b"]}, gp.ONEHOT)):
+    if view == "one_row":
+        idx = torch.full_like(idx, page // 3)
+    gathers = [(gp.take_gather, gp.take_gather_reference, {}, gp.TAKE),
+               (gp.vidx_gather, gp.vidx_gather_reference, {}, gp.VIDX)]
+    if view == "as_drawn":
+        gathers.append((gp.onehot_gather, gp.onehot_gather_reference, {"page_b": s["page_b"]},
+                        gp.ONEHOT))
+    for fn, plain, kw, counter in gathers:
         before = counter.launches
         got = fn(idx, table, **kw)
         assert counter.launches == before + 1
@@ -755,8 +771,9 @@ def test_probe_gathers_match_plain(dev, shapes):
     flat = ok.reshape(-1)
     assert torch.equal(gp.take_gather(ok, table), torch.index_select(table, 0, flat))
     assert torch.equal(gp.vidx_gather(ok, table), torch.index_select(table, 0, flat))
-    assert torch.equal(gp.onehot_gather(ok, table, s["page_b"]),
-                       torch.index_select(table.bfloat16().float(), 0, flat))
+    if view == "as_drawn":
+        assert torch.equal(gp.onehot_gather(ok, table, s["page_b"]),
+                           torch.index_select(table.bfloat16().float(), 0, flat))
 
 
 @pytest.mark.parametrize("shapes", list(PROBE_SHAPES))
@@ -958,22 +975,36 @@ def test_probe_int8_helpers_match_plain(dev, shapes):
     assert torch.equal(got.cpu(), gp.s8_operand_layout_reference(big, s["wg"]))
 
 
+@pytest.mark.parametrize("case", ["as_drawn", *RLD_EDGE_CASES])
 @pytest.mark.parametrize("shapes", list(PROBE_SHAPES))
-def test_probe_rld_matches_plain(dev, shapes):
+def test_probe_rld_matches_plain(dev, shapes, case):
+    """K12 bit-equal to its plain version, values over the whole int32
+    range: on sorted draws with a chunk whose rows start uncovered, and on
+    mxu_gather_probe.rld_edge_offsets' cases (every offset 0, a dense chunk,
+    k across 2^30 and across the int32 wrap, uncovered rows, WG = 65,536)."""
     from gof_tpu_torch.ops import gather_probes as gp
+    from gof_tpu_torch.scripts.mxu_gather_probe import rld_edge_offsets
 
     _, s = PROBE_SHAPES[shapes]
     rng = np.random.default_rng(14)
     nch, ch, wg = s["nch"], s["ch"], s["wg"]
-    off = np.sort(rng.integers(0, nch * ch, (nch, 1, wg)), axis=-1).astype(np.int32)
-    off[0, 0] = np.sort(rng.integers(ch + 7, nch * ch + ch, wg))  # uncovered rows in chunk 0
-    val = rng.integers(-2**31, 2**31 - 1, (wg, s["cv"])).astype(np.int32)  # exact past 2^24
-    base = np.zeros((nch, 1, 8), np.int32)
-    base[:, 0, 0] = np.arange(nch) * ch
-    args = [torch.from_numpy(x).to(dev) for x in (off, val, base)]
+    if case == "as_drawn":
+        off = np.sort(rng.integers(0, nch * ch, (nch, 1, wg)), axis=-1)
+        off[0, 0] = np.sort(rng.integers(ch + 7, nch * ch + ch, wg))  # uncovered rows in chunk 0
+        base = np.zeros((nch, 1, 8), np.int64)
+        base[:, 0, 0] = np.arange(nch) * ch
+    else:
+        off, base = rld_edge_offsets(case, nch, ch, wg, rng)
+    val = rng.integers(-2**31, 2**31 - 1, (off.shape[-1], s["cv"]))  # exact past 2^24
+    args = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in (off, val, base)]
+    before = gp.RLD.launches
     got = gp.rld(*args, ch)
-    assert torch.equal(got, gp.rld_reference(*args, ch))
-    assert not got[:7].any() and bool(got[ch:].any())
+    assert gp.RLD.launches == before + 1
+    assert torch.equal(got, gp.rld_reference(*args, ch)), case
+    if case == "as_drawn":
+        assert not got[:7].any() and bool(got[ch:].any())
+    elif case == "uncovered":
+        assert not got[:ch // 2].any() and bool(got[ch // 2:ch].any())
 
 
 def test_probe_wrappers_refuse_bad_inputs(dev):
@@ -1003,6 +1034,9 @@ def test_probe_wrappers_refuse_bad_inputs(dev):
         gp.int8_gather(idx, torch.zeros((256, 32), dtype=torch.int8, device=dev))
     with pytest.raises(ValueError):  # CV a multiple of 4
         gp.rld(idx, torch.zeros((128, 6), dtype=torch.int32, device=dev),
+               torch.zeros((4, 1, 8), dtype=torch.int32, device=dev), 64)
+    with pytest.raises(ValueError):  # val rows read as 16-byte pieces
+        gp.rld(idx, torch.zeros(128 * 8 + 1, dtype=torch.int32, device=dev)[1:].view(128, 8),
                torch.zeros((4, 1, 8), dtype=torch.int32, device=dev), 64)
 
 

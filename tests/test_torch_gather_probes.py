@@ -108,6 +108,33 @@ def test_gather_edge_rows():
         assert torch.equal(got, want)
 
 
+@pytest.fixture(scope="module")
+def pallas_probe_w30():
+    return load_probe("pallas_gather_probe.py", **dict(SMALL_PALLAS, W=30))
+
+
+@pytest.mark.parametrize("case", ["w30", "unaligned"])
+@pytest.mark.parametrize("name", ["take_gather", "vidx_gather"])
+def test_row_gathers_any_width_and_view_match_pallas(pallas_probe, pallas_probe_w30, name, case):
+    """K6 and K7 at a width the 16-byte pieces do not take (W = 30) and on a
+    table view one float past its buffer's start (on the card, the 4-byte
+    body takes both)."""
+    c = SMALL_PALLAS
+    page = c["PAGE"]
+    w = 30 if case == "w30" else c["W"]
+    vals = np.random.default_rng(17).normal(size=(page, w)).astype(np.float32)
+    table = torch.from_numpy(vals)
+    if case == "unaligned":
+        table = torch.zeros(page * w + 1)[1:].view(page, w)
+        table.copy_(torch.from_numpy(vals))
+    idx = edge_idx(18, (c["NCHUNK"], 1, c["CHUNK"]), page)
+    probe = pallas_probe_w30 if case == "w30" else pallas_probe
+    want = np.asarray(probe[name](jnp.asarray(idx), jnp.asarray(vals)))
+    got = getattr(gp, name)(torch.from_numpy(idx), table)
+    assert tuple(got.shape) == want.shape == (idx.size, w)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("name", ["scat", "scatmxu"])
 def test_scatters_match_pallas(pallas_probe, name):
     c = SMALL_PALLAS
@@ -241,6 +268,46 @@ def test_rld_matches_pallas(mxu_probe):
     np.testing.assert_array_equal(got.numpy(), want)
     uncovered = got[c["CH"]:c["CH"] + 40]
     assert not uncovered.any() and got[2 * c["CH"]:3 * c["CH"]].all()
+
+
+@pytest.mark.parametrize("case", ["all_zero", "dense", "run_end"])
+def test_rld_edge_offsets_match_pallas(mxu_probe, case):
+    """mxu_gather_probe.rld_edge_offsets' cases whose offsets the TPU
+    kernel decodes exactly (values below 2^24, where its f32 product is
+    exact): every offset 0 (every k on the last run), one chunk with all WG
+    offsets inside its CH rows (dense, with repeats), and bases that put each
+    chunk's k across 2^30 (the last run's end)."""
+    from gof_tpu_torch.scripts.mxu_gather_probe import rld_edge_offsets
+
+    c = SMALL_MXU
+    rng = np.random.default_rng(19)
+    off, base = (x.astype(np.int32) for x in rld_edge_offsets(case, c["NCH"], c["CH"], c["WG"],
+                                                                rng))
+    val = rng.integers(0, 2**24, (c["WG"], c["CV"])).astype(np.int32)
+    want = np.asarray(mxu_probe["rld"](jnp.asarray(off), jnp.asarray(val), jnp.asarray(base)))
+    got = gp.rld(torch.from_numpy(off), torch.from_numpy(val), torch.from_numpy(base), ch=c["CH"])
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case == "run_end":  # rows below 2^30 on the last run, the rest uncovered
+        half = c["CH"] // 2
+        assert got.reshape(c["NCH"], c["CH"], -1)[0, :half].eq(torch.from_numpy(val[-1])).all()
+        assert not got.reshape(c["NCH"], c["CH"], -1)[0, half:].any()
+
+
+def test_rld_bytes_counts_what_the_rows_need():
+    """K12's bound: the output, each chunk's base, the val rows used, and
+    per chunk its offsets from the first row's run to one past the last
+    row's plus one binary search's reads."""
+    from gof_tpu_torch.scripts.mxu_gather_probe import rld_bytes
+
+    off = torch.tensor([[[0, 5, 5, 9, 100, 200, 300, 400]],
+                        [[50, 60, 70, 80, 90, 95, 99, 120]]], dtype=torch.int32)
+    val = torch.zeros((8, 4), dtype=torch.int32)
+    base = torch.tensor([[[4]], [[0]]], dtype=torch.int32)
+    # chunk 0, k 4..13: runs 0, 2 (run 1 is empty) and 3, offsets 0..4;
+    # chunk 1, k 0..9: no run, offset 0 alone; 3 val rows; 4 reads per
+    # search (WG 8)
+    want = 2 * 10 * 16 + 2 * 4 + 3 * 16 + (5 + 1 + 2 * 4) * 4
+    assert rld_bytes(off, val, base, 10) == want
 
 
 def test_paged_gather_matches_pallas(mxu_probe):
