@@ -28,7 +28,21 @@ paths and its gather/scatter probes once on one CUDA GPU.
    12 steps (statistics on throughout, the regularizers from step 7), evals
    and saves the PLY; the four kernels' launch counts over that run, the
    losses, the log and the PLY are checked, and render_cli serves the PLY;
-7. mesh: gof_tpu_torch.extract_mesh.main(["-m", trained, "--texture_mesh"])
+7. densify: the same scene through gof_tpu_torch.train.main for 40 steps,
+   densifying at 10, 20 and 30 (opacity reset at 35, checkpoints at 20 and
+   40): each step's host ms and K1-K4 launches (each at least once a step),
+   each densify call's report, active count, capacity and host ms, any pool
+   growth and the checkpoint writes; render_cli serves the final PLY;
+   load_checkpoint(chkpnt20) equals the state the loop saved bit for bit
+   (its read timed) and train.main --start_checkpoint runs steps 21-40; the
+   loop's densify inputs of step 30 go through densify_and_prune with the
+   world-size prune on, on the card and on CPU copies with the same noise
+   (report, masks and values equal, xyz and scaling within 1e-6 of their
+   largest magnitude); then every gaussian is split until the pool
+   overflows, grow_capacity doubles it and one train step runs on it
+   through build_train_step (K1-K4 each launched); K2, K1, K3 and K4 are
+   held against their plain versions at that grown pool's shapes, as in 10;
+8. mesh: gof_tpu_torch.extract_mesh.main(["-m", trained, "--texture_mesh"])
    extracts the level-set mesh of that PLY over its 8 training views (the
    serving model instead if the trained field crosses 0.5 nowhere): counts,
    stage seconds and the launch counts of K5, K2 and K1 over that run; the
@@ -38,7 +52,7 @@ paths and its gather/scatter probes once on one CUDA GPU.
    bit-identical across launches, unprojected points exactly 1) and timed;
    the mesh of a small known scene on the card is held against the plain
    CPU path, and the field at all its vertices to gof_tpu's bound;
-8. probes: gof_tpu_torch.scripts.pallas_gather_probe.main and
+9. probes: gof_tpu_torch.scripts.pallas_gather_probe.main and
    mxu_gather_probe.main at the scripts' shapes run K6-K13 (row gathers,
    one-hot bf16 and int8 products on the tensor cores, segment sums,
    run-length decode, paged gather) and the binning's sorts: each kernel
@@ -56,7 +70,7 @@ paths and its gather/scatter probes once on one CUDA GPU.
    buffer, with every index on one row, on the edge indices and at 2^31 +
    65,536 output elements; K12 also with every offset 0, a dense chunk, k
    across 2^30 and across the int32 wrap, uncovered rows and WG = 65,536;
-9. the bench design point: bench.py's model, look-at camera and seeded
+10. the bench design point: bench.py's model, look-at camera and seeded
    random ground truth, through the port's build_train_step in bench's two
    phases (statistics on, regularizers off, step 5000; statistics off,
    regularizers on, step 20000): the median step time, the time of each
@@ -74,10 +88,11 @@ paths and its gather/scatter probes once on one CUDA GPU.
    timed beside its column-major entry, whose result must equal it; each
    timed beside its plain version and its library call, with
    its bound (K3's counted per instance from this view's active pairs);
-10. profile single calls of K1, K3, K4 (both entries), K8, K9, K10, K11 and
+11. profile single calls of K1, K3, K4 (both entries), K8, K9, K10, K11 and
    K13 (device time of each kernel they launch) in each phase;
-11. print the kernels' JSON line (the four of the first bench phase, K1, K3
-   and K4 of the second, K1 at the serving view, K5 and K6-K13, each with
+12. print the kernels' JSON line (the four of the first bench phase, K1, K3
+   and K4 of the second, the four on the grown pool of 7, K1 at the serving
+   view, K5 and K6-K13, each with
    its bound and library time),
    the card's name and power limit, and as the last line
    {"ok": true, "device": {...}}.
@@ -114,6 +129,22 @@ GRAD_BOUND = 1e-4
 TRAIN_VIEWS = 8
 TRAIN_ITERS = 12
 REG_FROM = 7  # the regularizers join at step 7 of the 12
+# the densifying run: densify at 10, 20 and 30, checkpoints at 20 and 40.
+# The opacity reset waits until 35: a reset at 25 leaves every gaussian of
+# this scene (its 3D filter small beside its scales) near opacity 0.01 at
+# step 30, under densify's 0.05 prune, which would prune the model. The
+# random ground truth gives mean gradients far under the default threshold
+# 2e-4 (at most 7.5e-5), where each densification selects one gaussian;
+# 1e-9 selects every gaussian with a gradient, about half of them.
+DENSIFY_ITERS = 40
+DENSIFY_GRAD = 1e-9
+DENSIFY_ARGS = ["--iterations", str(DENSIFY_ITERS), "--densify_from_iter", "9",
+                "--densification_interval", "10", "--densify_until_iter", "40",
+                "--densify_grad_threshold", str(DENSIFY_GRAD),
+                "--opacity_reset_interval", "35", "--distortion_from_iter", "15",
+                "--depth_normal_from_iter", "15", "--checkpoint_iterations", "20", "40",
+                "--test_iterations", "40", "--save_iterations", "40"]
+DENSIFY_AT = (10, 20, 30)
 BENCH_REPS = 10
 
 
@@ -672,6 +703,41 @@ def write_train_scene(root: str, n: int, width: int, height: int):
     return src, xyz
 
 
+def train_counters():
+    """The launch counters of the train step's kernels: K2, K1, K3, K4."""
+    from gof_tpu_torch.ops import class_gather, rasterize, reduce
+
+    return class_gather.EXPAND, rasterize.FWD, rasterize.BWD, reduce.REDUCE
+
+
+def timed_build(build, steps: list):
+    """Wraps train.build_train_step: each step it builds is timed on the host
+    clock between synchronisations and appended to `steps` with its
+    iteration, loss, active count, capacity and K2/K1/K3/K4 launches."""
+    counters = train_counters()
+
+    def build_timed(*a, **k):
+        step = build(*a, **k)
+
+        def timed(*args):
+            before = [c.launches for c in counters]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step(*args)
+            loss = float(res[3]["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            gs = res[2]
+            steps.append({"iter": int(args[4]), "ms": ms, "loss": loss,
+                          "active": int(gs.active.sum()), "cap": int(gs.active.shape[0]),
+                          "launches": [c.launches - b for c, b in zip(counters, before)]})
+            return res
+
+        return timed
+
+    return build_timed
+
+
 def train_entry(src: str, out: str, xyz0: np.ndarray):
     """The training path through its entry point, train.main, with the four
     kernels' launch counts taken over exactly that run and each step timed
@@ -679,26 +745,9 @@ def train_entry(src: str, out: str, xyz0: np.ndarray):
     from unittest import mock
 
     from gof_tpu_torch import train
-    from gof_tpu_torch.ops import class_gather, rasterize, reduce
 
     steps = []
-    build = train.build_train_step
-
-    def timed_build(*a, **k):
-        step = build(*a, **k)
-
-        def timed(*args):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = step(*args)
-            loss = float(res[3]["loss"])
-            torch.cuda.synchronize()
-            steps.append(((time.perf_counter() - t0) * 1e3, loss))
-            return res
-
-        return timed
-
-    counters = (class_gather.EXPAND, rasterize.FWD, rasterize.BWD, reduce.REDUCE)
+    counters = train_counters()
     for k in counters:
         k.launches = 0
     argv = ["-s", src, "-m", out, "--iterations", str(TRAIN_ITERS), "--sh_degree", "3",
@@ -706,21 +755,21 @@ def train_entry(src: str, out: str, xyz0: np.ndarray):
             "--depth_normal_from_iter", str(REG_FROM), "--test_iterations", str(TRAIN_ITERS),
             "--save_iterations", str(TRAIN_ITERS), "--quiet"]
     t0 = time.perf_counter()
-    with mock.patch.object(train, "build_train_step", timed_build):
+    with mock.patch.object(train, "build_train_step", timed_build(train.build_train_step, steps)):
         tp, gstate = train.main(argv)
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in counters}
     print(f"train: {TRAIN_ITERS} steps through gof_tpu_torch.train.main in {wall:.2f} s "
           f"(scene read, init, 3D filter, steps, eval, PLY); launches {launches}")
-    print(f"  step ms (host clock, synchronised): {[round(ms, 3) for ms, _ in steps]}")
-    print(f"  loss first {steps[0][1]:.6f}, last {steps[-1][1]:.6f}")
+    print(f"  step ms (host clock, synchronised): {[round(r['ms'], 3) for r in steps]}")
+    print(f"  loss first {steps[0]['loss']:.6f}, last {steps[-1]['loss']:.6f}")
 
     recs = [json.loads(line) for line in open(os.path.join(out, "train_log.jsonl"))]
     evals = [r["eval"] for r in recs if "eval" in r]
     logged = [r for r in recs if "loss" in r]
     print(f"  train_log: {len(logged)} step records {[r['iter'] for r in logged]}, eval {evals}")
-    if len(steps) != TRAIN_ITERS or not all(np.isfinite(l) for _, l in steps):
-        raise RuntimeError(f"train losses: {steps}")
+    if len(steps) != TRAIN_ITERS or not all(np.isfinite(r["loss"]) for r in steps):
+        raise RuntimeError(f"train losses: {[r['loss'] for r in steps]}")
     if [r["iter"] for r in logged] != [1, 10] or not all(np.isfinite(r["loss"]) for r in logged):
         raise RuntimeError(f"train_log records: {logged}")
     if len(evals) != 1 or not np.isfinite(evals[0]["psnr"]):
@@ -741,18 +790,316 @@ def train_entry(src: str, out: str, xyz0: np.ndarray):
     return launches, steps, evals[0]
 
 
-def serve_trained(out: str) -> None:
+def serve_trained(out: str, iteration: int = TRAIN_ITERS) -> None:
     from PIL import Image
 
     from gof_tpu_torch import render_cli
 
     stats = render_cli.main(["-m", out, "--skip_train"])["test"]
-    rdir = os.path.join(out, "test", f"ours_{TRAIN_ITERS}", "renders")
+    rdir = os.path.join(out, "test", f"ours_{iteration}", "renders")
     pngs = sorted(os.listdir(rdir))
     if len(pngs) != N_VIEWS or any(np.asarray(Image.open(os.path.join(rdir, p))).std() == 0
                                    for p in pngs):
         raise RuntimeError(f"serving the trained PLY: {pngs}")
     print(f"served the trained PLY: {len(pngs)} views, ms {[round(s['ms'], 2) for s in stats]}")
+
+
+# ---------------------------------------------------------------------------
+# Densification, pool growth, checkpoints and resume
+# ---------------------------------------------------------------------------
+
+
+def state_copy(tp, opt_state, gstate, device="cpu"):
+    """A copy of the loop's (TrainParams, AdamState, GaussianState) on
+    `device`."""
+    from gof_tpu_torch import train
+    from gof_tpu_torch.model import gaussians as gm
+
+    def cp(g):
+        return gm.GaussianParams(*[getattr(g, f).detach().to(device, copy=True)
+                                   for f in train.GAUSS_FIELDS])
+
+    return (train.TrainParams(gauss=cp(tp.gauss)),
+            train.AdamState(count=opt_state.count, mu=cp(opt_state.mu), nu=cp(opt_state.nu)),
+            gm.GaussianState(*[getattr(gstate, f).to(device, copy=True)
+                               for f in train.STATE_FIELDS]))
+
+
+def state_diff(a, b, rel_fields=()) -> dict:
+    """Per field of two (TrainParams, AdamState, GaussianState) triples, on
+    the CPU: max |a - b| / max |b| for rel_fields, else the count of
+    differing elements (NaNs equal)."""
+    from gof_tpu_torch import train
+
+    out = {}
+    pairs = [(f"gauss.{f}", getattr(a[0].gauss, f), getattr(b[0].gauss, f))
+             for f in train.GAUSS_FIELDS]
+    pairs += [(f"{m}.{f}", getattr(getattr(a[1], m), f), getattr(getattr(b[1], m), f))
+              for m in ("mu", "nu") for f in train.GAUSS_FIELDS]
+    pairs += [(f"gstate.{f}", getattr(a[2], f), getattr(b[2], f)) for f in train.STATE_FIELDS]
+    for name, x, y in pairs:
+        x, y = x.detach().cpu(), y.detach().cpu()
+        if name.split(".")[1] in rel_fields and name.startswith("gauss."):
+            fin = torch.isfinite(y)
+            scale = float(y[fin].abs().max()) if fin.any() else 1.0
+            same_nan = torch.equal(torch.isfinite(x), fin)
+            err = float((x[fin] - y[fin]).abs().max()) / max(scale, 1e-30) if fin.any() else 0.0
+            out[name] = err if same_nan else float("inf")
+        else:
+            out[name] = int((~((x == y) | (torch.isnan(x) & torch.isnan(y)))).sum())
+    if a[1].count != b[1].count:
+        out["count"] = f"{a[1].count} != {b[1].count}"
+    return out
+
+
+def densify_entry(src: str, out: str, smi: str):
+    """The densifying run through train.main, at full width: each step and
+    each densify_and_prune / grow_capacity / save_checkpoint call timed on
+    the host clock between synchronisations, K1-K4's launches counted per
+    step. Returns CPU copies of the state the loop saved at step 20 and of
+    the densify call's inputs at step 30."""
+    from unittest import mock
+
+    from gof_tpu_torch import train
+    from gof_tpu_torch.model import gaussians as gm
+
+    counters = train_counters()
+    steps, densify, grows, saves, held = [], [], [], [], {}
+    densify_fn, grow_fn, save_fn = gm.densify_and_prune, train.grow_capacity, train.save_checkpoint
+
+    def timed_call(fn, record):
+        def wrapped(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args)
+            torch.cuda.synchronize()
+            record(args, res, (time.perf_counter() - t0) * 1e3)
+            return res
+
+        return wrapped
+
+    def on_densify(args, res, ms):
+        if steps[-1]["iter"] == DENSIFY_AT[-1]:
+            held["densify"] = state_copy(train.TrainParams(gauss=args[0]), args[2], args[1])
+        rep = [int(x) for x in res[3]]
+        densify.append({"iter": steps[-1]["iter"], "ms": ms, "report": rep,
+                        "active": [int(args[1].active.sum()), int(res[1].active.sum())],
+                        "cap": int(res[1].active.shape[0])})
+        print(f"  densify at step {steps[-1]['iter']}: {ms:.3f} ms (host clock, synchronised); "
+              f"cloned {rep[0]}, split {rep[1]}, pruned {rep[2]}, overflow {bool(rep[3])}; "
+              f"active {densify[-1]['active'][0]} -> {densify[-1]['active'][1]} of "
+              f"{densify[-1]['cap']}")
+
+    def on_grow(args, res, ms):
+        grows.append((args[3], args[4], ms))
+        print(f"  grow_capacity {args[3]} -> {args[4]}: {ms:.3f} ms")
+
+    def on_save(args, res, ms):
+        saves.append((args[1], ms, os.path.getsize(res)))
+        if args[1] == 20:
+            held["state"] = state_copy(*args[2:5])
+
+    for k in counters:
+        k.launches = 0
+    argv = ["-s", src, "-m", out, "--sh_degree", "3", "--kernel_size", "0.1", "--quiet",
+            *DENSIFY_ARGS]
+    t0 = time.perf_counter()
+    with mock.patch.object(train, "build_train_step", timed_build(train.build_train_step, steps)), \
+            mock.patch.object(gm, "densify_and_prune", timed_call(densify_fn, on_densify)), \
+            mock.patch.object(train, "grow_capacity", timed_call(grow_fn, on_grow)), \
+            mock.patch.object(train, "save_checkpoint", timed_call(save_fn, on_save)):
+        tp, gstate = train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in counters}
+    print(f"densify run: {DENSIFY_ITERS} steps through gof_tpu_torch.train.main in {wall:.2f} s; "
+          f"launches {launches}; card {smi}")
+    for r in steps:
+        print(f"  step {r['iter']}: {r['ms']:.3f} ms, loss {r['loss']:.6f}, active {r['active']} "
+              f"of {r['cap']}, launches K2/K1/K3/K4 {r['launches']}")
+    for it, ms, size in saves:
+        print(f"  save_checkpoint at step {it}: {ms / 1e3:.3f} s, {size / 2**20:.1f} MiB")
+
+    if [d["iter"] for d in densify] != list(DENSIFY_AT):
+        raise RuntimeError(f"densify ran at {[d['iter'] for d in densify]}, not {DENSIFY_AT}")
+    if len(steps) != DENSIFY_ITERS or not all(np.isfinite(r["loss"]) for r in steps):
+        raise RuntimeError(f"densify run losses: {[r['loss'] for r in steps]}")
+    low = [r["iter"] for r in steps if min(r["launches"]) < 1]
+    if low:
+        raise RuntimeError(f"steps without a launch of each of K1-K4: {low}")
+    if int(gstate.active.sum()) == N_GAUSSIANS:
+        raise RuntimeError("densification left the active count unchanged")
+    for it in (20, 40):
+        if not os.path.exists(os.path.join(out, f"chkpnt{it}.pkl")):
+            raise RuntimeError(f"no chkpnt{it}.pkl")
+    if "state" not in held:
+        raise RuntimeError("no checkpoint was saved at step 20")
+    serve_trained(out, DENSIFY_ITERS)
+    return held["state"], held["densify"]
+
+
+def resume_entry(src: str, out: str, held) -> None:
+    """load_checkpoint(chkpnt20) equals the state the loop saved at step 20
+    bit for bit; train.main --start_checkpoint runs steps 21-40."""
+    from gof_tpu_torch import train
+
+    ckpt = os.path.join(out, "chkpnt20.pkl")
+    t0 = time.perf_counter()
+    tp, st, gs, it = train.load_checkpoint(ckpt, "cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    diff = state_diff(state_copy(tp, st, gs), held)
+    bad = {k: v for k, v in diff.items() if v}
+    print(f"resume: load_checkpoint(chkpnt20.pkl) to the card in {secs:.3f} s, iteration {it}; "
+          f"fields differing from the state saved: {bad or 'none'}")
+    if bad or it != 20:
+        raise RuntimeError(f"checkpoint round trip: iteration {it}, {bad}")
+    resumed = os.path.join(os.path.dirname(out), "resumed")
+    t0 = time.perf_counter()
+    train.main(["-s", src, "-m", resumed, "--sh_degree", "3", "--kernel_size", "0.1", "--quiet",
+                *DENSIFY_ARGS, "--start_checkpoint", ckpt])
+    wall = time.perf_counter() - t0
+    recs = [json.loads(line) for line in open(os.path.join(resumed, "train_log.jsonl"))]
+    logged = [r for r in recs if "loss" in r]
+    print(f"  resumed run: steps 21-{DENSIFY_ITERS} in {wall:.2f} s, records "
+          f"{[(r['iter'], r['loss'], r['points']) for r in logged]}")
+    if not logged or logged[0]["iter"] != 21 or not all(np.isfinite(r["loss"]) for r in logged):
+        raise RuntimeError(f"resumed run records: {logged}")
+    if not os.path.exists(os.path.join(resumed, f"chkpnt{DENSIFY_ITERS}.pkl")):
+        raise RuntimeError("the resumed run wrote no final checkpoint")
+
+
+def densify_both(label: str, card, cpu, noise, consts, smi: str):
+    """densify_and_prune on the card state (timed, 3 calls) and on its CPU
+    copy with the same noise; the report, masks and every value equal,
+    xyz and scaling within 1e-6 of their largest magnitude. Returns the
+    card's result."""
+    from gof_tpu_torch import train
+    from gof_tpu_torch.model import gaussians as gm
+
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g2, s2, m2, rep = gm.densify_and_prune(card[0].gauss, card[2], card[1],
+                                               [n.cuda() for n in noise], *consts)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    cg, cs, cm, crep = gm.densify_and_prune(cpu[0].gauss, cpu[2], cpu[1], noise, *consts)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    reps = [int(x) for x in rep], [int(x) for x in crep]
+    diff = state_diff((train.TrainParams(gauss=g2), m2, s2), (train.TrainParams(gauss=cg), cm, cs),
+                      rel_fields=("xyz", "scaling"))
+    bad = {k: v for k, v in diff.items()
+           if (v > 1e-6 if k in ("gauss.xyz", "gauss.scaling") else v)}
+    print(f"  densify_and_prune, {label}, at {card[2].active.shape[0]} slots: card "
+          f"{[round(x, 3) for x in ms]} ms (host clock, synchronised), CPU {cpu_ms:.1f} ms; "
+          f"report (cloned, split, pruned, overflow) card {reps[0]}, CPU {reps[1]}; active "
+          f"{int(card[2].active.sum())} -> {int(s2.active.sum())}; xyz / scaling max |card - "
+          f"CPU| / max |CPU| {diff['gauss.xyz']:.3e} / {diff['gauss.scaling']:.3e}; other "
+          f"fields differing: {bad or 'none'}; card {smi}")
+    if reps[0] != reps[1] or bad:
+        raise RuntimeError(f"densify on the card against the CPU ({label}): {reps} {bad}")
+    return train.TrainParams(gauss=g2), m2, s2, rep
+
+
+def densify_card_vs_cpu(src: str, inputs, smi: str) -> list:
+    """densify_and_prune at full width on the trained model (the loop's
+    inputs at step 30: statistics of steps 21-30, moments), with the
+    world-size prune on, on the card and on CPU copies with the same noise;
+    then every gaussian of those inputs split, on both, which overflows the
+    pool; the pool doubled, one train step on it through build_train_step,
+    and K2, K1, K3 and K4 held against their plain versions at that grown
+    pool's shapes. Returns those four kernels-line entries."""
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch import train
+    from gof_tpu_torch.data import scene as scene_lib
+    from gof_tpu_torch.model import gaussians as gm
+
+    sc = scene_lib.Scene(src, "", shuffle=False)
+    opt = config_lib.OptimizationParams()
+    card, cpu = state_copy(*inputs, device="cuda"), state_copy(*inputs)
+    gs = cpu[2]
+    cap = gs.active.shape[0]
+    d = torch.clamp_min(gs.denom, 1e-12)
+    q = torch.tensor([0.5, 0.9, 0.99, 1.0])
+    grads = (gs.grad_accum / d)[gs.active & (gs.denom > 0)]
+    gabs = (gs.grad_abs_accum / d)[gs.active & (gs.denom > 0)]
+    print(f"card against CPU: the densify inputs of step {DENSIFY_AT[-1]}, active "
+          f"{int(gs.active.sum())} of {cap}, statistics on {int((gs.denom > 0).sum())}; "
+          f"mean |grad| quantiles 0.5/0.9/0.99/1 {torch.quantile(grads, q).tolist()}, abs "
+          f"{torch.quantile(gabs, q).tolist()} (max_grad {DENSIFY_GRAD})")
+    gen = torch.Generator().manual_seed(SEED)
+    noise = [torch.randn((cap, 3), generator=gen) for _ in range(3)]
+    densify_both("the world-size prune on", card, cpu, noise,
+                 (DENSIFY_GRAD, 0.05, sc.cameras_extent, opt.percent_dense, True), smi)
+
+    # every active gaussian selected (statistics 1, max_grad 0) and split
+    # (percent_dense 0): each split takes two slots, so repeated splitting
+    # runs out of slots
+    def forced(state):
+        tp, st, gs = state
+        ones = torch.ones_like(gs.denom)
+        return tp, st, gm.GaussianState(gs.active, gs.filter_3d, gs.max_radii2d, ones, ones, ones)
+
+    consts = (0.0, 0.05, sc.cameras_extent, 0.0, False)
+    noise = [torch.randn((cap, 3), generator=gen) for _ in range(3)]
+    tp, st, gs, rep = densify_both("every gaussian split", forced(card), forced(cpu), noise,
+                                   consts, smi)
+    for _ in range(5):
+        if bool(rep.pool_overflow):
+            break
+        noise = [torch.randn((cap, 3), device="cuda") for _ in range(3)]
+        g2, gs, st, rep = gm.densify_and_prune(tp.gauss, forced((tp, st, gs))[2], st, noise,
+                                               *consts)
+        tp = train.TrainParams(gauss=g2)
+        print(f"  split every gaussian again: active {int(gs.active.sum())} of {cap}, report "
+              f"{[int(x) for x in rep]}")
+    if not bool(rep.pool_overflow):
+        raise RuntimeError("splitting every gaussian never overflowed the pool")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tp, gs, st = train.grow_capacity(tp, gs, st, cap, 2 * cap)
+    torch.cuda.synchronize()
+    grow_ms = (time.perf_counter() - t0) * 1e3
+    cam_meta = sc.all_cameras_meta(sc.train_cameras, device="cuda")
+    gs.filter_3d = gm.compute_3d_filter(tp.gauss.xyz, gs.active, *cam_meta)
+    if tp.gauss.xyz.shape[0] != 2 * cap or st.mu.xyz.shape[0] != 2 * cap:
+        raise RuntimeError("grow_capacity did not double the pool")
+    camera, gt = sc.camera(sc.train_cameras[0], device="cuda")
+    gt = torch.as_tensor(gt, device="cuda")
+    model_cfg = config_lib.ModelParams(sh_degree=3, kernel_size=0.1)
+    tx = train.make_optimizer(opt, sc.cameras_extent)
+    step = train.build_train_step(opt, model_cfg, config_lib.PipelineParams(), tx)
+    counters = train_counters()
+    for k in counters:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tp, st, gs, m = step(tp, st, gs, gt, DENSIFY_ITERS + 1, camera, torch.zeros(3, device="cuda"))
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.name: k.launches for k in counters}
+    print(f"  grew the pool {cap} -> {2 * cap} in {grow_ms:.3f} ms; one step on it: "
+          f"{step_ms:.3f} ms (host clock, first at this capacity), loss {loss:.6f}, active "
+          f"{int(gs.active.sum())}, launches {launches}; card {smi}")
+    if not np.isfinite(loss) or min(launches.values()) < 1:
+        raise RuntimeError(f"the step on the grown pool: loss {loss}, launches {launches}")
+    bg = torch.zeros(3, device="cuda")
+    print(f"  at the grown pool, {int(gs.active.sum())} active of {2 * cap}:")
+    _, (tp, st, gs) = profile_steps(step, (tp, st, gs, gt, DENSIFY_ITERS + 1, camera, bg))
+    busy = state_copy(*inputs, device="cuda")
+    print(f"  at step {DENSIFY_AT[-1]}'s state, {int(busy[2].active.sum())} active of {cap}:")
+    profile_steps(step, (*busy, gt, DENSIFY_AT[-1], camera, bg))
+    # the step's instance: statistics and regularizers on (build_train_step's
+    # defaults); the kernels' inputs are one more step's, cut at its layers
+    _, ins, _, _ = step_layers(tp.gauss, gs, st, tx, gt, camera, opt, model_cfg, True, True,
+                               DENSIFY_ITERS + 2, reps=1)
+    if ins["P"] != 2 * cap:
+        raise RuntimeError(f"the grown pool's kernel inputs hold {ins['P']} slots")
+    print(f"  kernels against their plain versions on the grown pool ({2 * cap} slots):")
+    return train_kernels(ins, "grown pool", True, True, launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1635,6 +1982,10 @@ def main() -> None:
         trained = os.path.join(root, "trained")
         launches, _, _ = train_entry(src, trained, xyz0)
         serve_trained(trained)
+        densified = os.path.join(root, "densified")
+        saved, densify_inputs = densify_entry(src, densified, smi)
+        resume_entry(src, densified, saved)
+        grown_kernels = densify_card_vs_cpu(src, densify_inputs, smi)
         mesh_model = trained
         _, mesh_launches = mesh_entry(trained)
         if mesh_launches is None:
@@ -1658,7 +2009,8 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"render ms per view: {[s['ms'] for s in stats]}")
-    print(json.dumps({"kernels": kernels + [serve_fwd, integrate_kernel] + probe_kernels}))
+    print(json.dumps({"kernels": kernels + grown_kernels + [serve_fwd, integrate_kernel]
+                      + probe_kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

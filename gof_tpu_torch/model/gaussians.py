@@ -3,19 +3,21 @@
 Parameters live in padded arrays with an `active` mask, as in gof_tpu, so a
 model carried across with `from_numpy` keeps its slot layout, and
 `init_from_points` pads the pool to gof_tpu's capacity with the same values.
-Ported for training: init, the Mip 3D filter, the densification statistics
-and the opacity reset. densify_and_prune waits (ROADMAP A.8).
+Ported for training: init, the Mip 3D filter, the densification statistics,
+densify_and_prune and the opacity reset.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import sh as sh_lib
 from ..ops import knn
+from ..transforms import quat_to_rot
 
 FRUSTUM_NEAR = 0.2
 FILTER_SCALE = 0.2**0.5
@@ -170,7 +172,7 @@ def compute_3d_filter(xyz: torch.Tensor, active: torch.Tensor, world_views: torc
 
 
 # ---------------------------------------------------------------------------
-# Densification statistics, opacity reset
+# Densification statistics, densify and prune, opacity reset
 # ---------------------------------------------------------------------------
 
 
@@ -189,6 +191,161 @@ def add_densification_stats(state: GaussianState, carrier_grad: torch.Tensor,
         grad_abs_accum=state.grad_abs_accum + torch.where(vis, gabs, zero),
         denom=state.denom + vis.to(torch.float32),
     )
+
+
+def _masked_quantile(x: torch.Tensor, mask: torch.Tensor, q) -> torch.Tensor:
+    """torch.quantile-compatible linear-interpolation quantile over mask
+    (gof_tpu gaussians.py:206-217), in f32 and in gof_tpu's order: a shifted
+    quantile changes which gaussians densify selects."""
+    f32 = torch.float32
+    xs = torch.sort(torch.where(mask, x, torch.tensor(3.4e38, dtype=f32, device=x.device))).values
+    n = torch.sum(mask)
+    q = torch.as_tensor(q, dtype=f32, device=x.device)
+    pos = torch.clamp(q, 0.0, 1.0) * torch.clamp_min(n - 1, 0).to(f32)
+    lo = torch.floor(pos).to(torch.int64)
+    hi = torch.ceil(pos).to(torch.int64)
+    frac = pos - lo.to(f32)
+    lo = torch.clamp(lo, 0, x.shape[0] - 1)
+    hi = torch.clamp(hi, 0, x.shape[0] - 1)
+    return xs[lo] * (1 - frac) + xs[hi] * frac
+
+
+class DensifyReport(NamedTuple):
+    n_cloned: torch.Tensor
+    n_split: torch.Tensor
+    n_pruned: torch.Tensor
+    pool_overflow: torch.Tensor  # bool: ran out of capacity, the host should grow
+
+
+def _assign_free_slots(active: torch.Tensor, want: torch.Tensor):
+    """For each source i with want[i], a distinct inactive slot: the k-th
+    wanting source gets the k-th free slot. Returns (target [C] int64,
+    ok [C] bool); ok is False where the free slots ran out. Reads nothing to
+    the host."""
+    C = active.shape[0]
+    dev = active.device
+    free = ~active
+    # free_idx[k] = the k-th free slot, C - 1 past the last (jnp.nonzero's fill)
+    free_idx = torch.full((C + 1,), C - 1, dtype=torch.int64, device=dev)
+    free_idx.scatter_(0, torch.where(free, torch.cumsum(free, 0) - 1, C),
+                      torch.arange(C, device=dev))
+    rank = torch.cumsum(want, 0) - 1
+    ok = want & (rank < torch.sum(free))
+    return free_idx[:C][torch.clamp(rank, 0, C - 1)], ok
+
+
+def _placed_rows(targets: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Per slot, the source row that dst[targets[i]] = src[i] where ok[i]
+    writes there (unique targets by construction), -1 where none does."""
+    C = targets.shape[0]
+    row = torch.full((C + 1,), -1, dtype=torch.int64, device=targets.device)
+    row.scatter_(0, torch.where(ok, targets, C), torch.arange(C, device=targets.device))
+    return row[:C]
+
+
+def _scatter_rows(dst: torch.Tensor, src: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """gof_tpu's _scatter_rows (gaussians.py:243) with the slots' source rows
+    from _placed_rows, as a new tensor."""
+    hit = (row >= 0).view((-1,) + (1,) * (dst.dim() - 1))
+    return torch.where(hit, src[torch.clamp_min(row, 0)], dst)
+
+
+@torch.no_grad()
+def densify_and_prune(params: GaussianParams, state: GaussianState, opt_moments, noise,
+                      max_grad: float, min_opacity: float, extent, percent_dense: float,
+                      use_size_prune):
+    """Functional densify_and_prune (gaussian_model.py:683-707), as gof_tpu
+    (gaussians.py:249-389). Returns (params, state, moments, DensifyReport),
+    all new tensors; reads nothing to the host.
+
+    noise: three [C, 3] f32 standard-normal tensors, the position offsets of
+    the clones, the first and the second split children (gof_tpu draws them
+    from its key; torch cannot reproduce that stream, ROADMAP C13).
+    opt_moments: the train loop's AdamState or None. Every field of its mu
+    and nu is zeroed at exactly the rows a placement wrote; count and every
+    other row (pruned slots, removed split originals) are kept.
+
+    Clones, then first children, then second children take free slots in
+    that order, each seeing the slots the one before took; a full pool drops
+    the excess and sets pool_overflow (ROADMAP C12). Split originals are
+    removed after all placements; the prune then covers the new slots too:
+    opacity below min_opacity, world size above 0.1 * extent when
+    use_size_prune, and any non-finite gaussian. There is no screen-size
+    prune (ROADMAP C11). The statistics reset to 0; filter_3d is left for
+    the caller to recompute.
+    """
+    f32 = torch.float32
+    active = state.active
+    zero = torch.zeros_like(state.denom)
+    denom = torch.clamp_min(state.denom, 1e-12)
+    grads = torch.where(state.denom > 0, state.grad_accum / denom, zero)
+    grads_abs = torch.where(state.denom > 0, state.grad_abs_accum / denom, zero)
+
+    n_act = torch.clamp_min(torch.sum(active), 1)
+    classic = (grads >= max_grad) & active
+    ratio = torch.sum(classic) / n_act.to(f32)
+    Q = _masked_quantile(grads_abs, active, 1.0 - ratio)
+    selected = classic | ((grads_abs >= Q) & active)
+
+    scaling = torch.exp(params.scaling)
+    maxscale = torch.amax(scaling, dim=-1)
+    clone_mask = selected & (maxscale <= percent_dense * extent)
+    split_mask = selected & (maxscale > percent_dense * extent)
+    R = quat_to_rot(params.rotation)
+
+    def sampled(eps, new_scaling):
+        """Sources at xyz + R (eps * s), otherwise copies (new_scaling aside)."""
+        return GaussianParams(
+            xyz=params.xyz + torch.einsum("pij,pj->pi", R, eps * scaling),
+            features_dc=params.features_dc, features_rest=params.features_rest,
+            scaling=new_scaling, rotation=params.rotation, opacity=params.opacity)
+
+    def place(new_params, new_active, moments, src, mask):
+        targets, ok = _assign_free_slots(new_active, mask)
+        row = _placed_rows(targets, ok)
+        p2 = GaussianParams(*[_scatter_rows(getattr(new_params, f.name), getattr(src, f.name), row)
+                              for f in fields(GaussianParams)])
+        hit = row >= 0
+        if moments is not None:
+            def zeroed(m):
+                return GaussianParams(*[
+                    x.masked_fill(hit.view((-1,) + (1,) * (x.dim() - 1)), 0)
+                    for x in (getattr(m, f.name) for f in fields(GaussianParams))])
+
+            moments = replace(moments, mu=zeroed(moments.mu), nu=zeroed(moments.nu))
+        return p2, new_active | hit, moments, torch.sum(mask) - torch.sum(ok)
+
+    # clones (gaussian_model.py:659-681), then N=2 split children at
+    # scale / (0.8 * N) (gaussian_model.py:631-657)
+    new_params, new_active, moments, drop1 = place(
+        params, active, opt_moments, sampled(noise[0], params.scaling), clone_mask)
+    split_scaling = torch.log(scaling / 1.6)
+    new_params, new_active, moments, drop2 = place(
+        new_params, new_active, moments, sampled(noise[1], split_scaling), split_mask)
+    new_params, new_active, moments, drop3 = place(
+        new_params, new_active, moments, sampled(noise[2], split_scaling), split_mask)
+    new_active = new_active & ~split_mask
+
+    prune = torch.sigmoid(new_params.opacity) < min_opacity
+    ws = torch.amax(torch.exp(new_params.scaling), dim=-1) > 0.1 * extent
+    prune = torch.where(torch.as_tensor(use_size_prune, device=prune.device), prune | ws, prune)
+    # NaN compares False against every threshold, so a non-finite gaussian
+    # would otherwise hold its slot forever
+    finite = (torch.isfinite(new_params.xyz).all(dim=-1)
+              & torch.isfinite(new_params.scaling).all(dim=-1)
+              & torch.isfinite(new_params.rotation).all(dim=-1)
+              & torch.isfinite(new_params.opacity))
+    prune = prune | ~finite
+    n_before_prune = torch.sum(new_active)
+    new_active = new_active & ~prune
+
+    new_state = GaussianState(active=new_active, filter_3d=state.filter_3d,
+                              max_radii2d=zero.clone(), grad_accum=zero.clone(),
+                              grad_abs_accum=zero.clone(), denom=zero.clone())
+    report = DensifyReport(n_cloned=torch.sum(clone_mask) - drop1, n_split=torch.sum(split_mask),
+                           n_pruned=n_before_prune - torch.sum(new_active),
+                           pool_overflow=(drop1 + drop2 + drop3) > 0)
+    return new_params, new_state, moments, report
 
 
 def reset_opacity(params: GaussianParams, filter_3d: torch.Tensor) -> GaussianParams:

@@ -17,21 +17,31 @@ Loss (gof_tpu train.py:355-383):
   normal:     mean of 1 - dot(rendered normal in world, normal from depth),
               weight lambda_depth_normal from depth_normal_from_iter
 
+Densification (gof_tpu train.py:921-936): every densification_interval
+steps past densify_from_iter and before densify_until_iter, densify_and_prune with
+three noise draws from one torch.Generator seeded 0 (gof_tpu's PRNGKey(0),
+also re-seeded on resume), one host read of pool_overflow, which doubles the
+pool (grow_capacity), then the 3D filter is recomputed. Checkpoints
+(chkpnt{iter}.pkl, plain dicts of numpy arrays; load_checkpoint also reads
+gof_tpu's), --start_checkpoint, --debug's fail-time npz dump,
+--debug_image_interval grids (utils/vis.py), --profile_dir (a torch.profiler
+trace) and the TensorBoard scalars follow gof_tpu.
+
 Not ported yet; each raises NotImplementedError naming its ROADMAP item
-rather than being skipped: densify_and_prune (at the first iteration where
-gof_tpu would densify), checkpoints (--start_checkpoint, reaching a
---checkpoint_iterations entry), the decoupled appearance network, --dp > 1,
---debug_image_interval, --debug's fail-time dump and --profile_dir.
-Tensorboard scalars are not written. There are no capacity re-jits or
-overflow gates: the port sizes its buffers from each view's demand.
+rather than being skipped: the decoupled appearance network (A.10) and
+--dp > 1 (A.18). There are no capacity re-jits or overflow gates: the port
+sizes its render buffers from each view's demand.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import pickle
 import random
 import time
+from collections import namedtuple
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -47,6 +57,13 @@ from .ops.blend import pixel_rays
 from .utils import losses, schedules
 
 GAUSS_FIELDS = tuple(f.name for f in fields(gm.GaussianParams))
+STATE_FIELDS = tuple(f.name for f in fields(gm.GaussianState))
+
+# gof_tpu's optimizer state on the host: count and the [NCOL, CAP] moment
+# buffers whose row blocks follow GaussianParams' field order (each leaf
+# flattened per slot); mu_app / nu_app hold the appearance network's moments
+FusedAdamState = namedtuple("FusedAdamState", "count mu_flat nu_flat mu_app nu_app",
+                            defaults=(None, None))
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -145,6 +162,41 @@ def from_numpy(opt_state, like: gm.GaussianParams, device: torch.device | str = 
 
     return AdamState(count=int(np.asarray(opt_state.count)), mu=split(opt_state.mu_flat),
                      nu=split(opt_state.nu_flat))
+
+
+def adam_to_numpy(state: AdamState) -> FusedAdamState:
+    """The inverse of from_numpy: count and the moments in gof_tpu's
+    [NCOL, CAP] layout, as numpy arrays."""
+    def flat(g: gm.GaussianParams) -> np.ndarray:
+        cap = g.xyz.shape[0]
+        return np.concatenate([getattr(g, f).detach().cpu().numpy().reshape(cap, -1).T
+                               for f in GAUSS_FIELDS], axis=0)
+
+    return FusedAdamState(count=int(state.count), mu_flat=flat(state.mu), nu_flat=flat(state.nu))
+
+
+@torch.no_grad()
+def grow_capacity(tp: TrainParams, gstate: gm.GaussianState, opt_state: AdamState,
+                  old_cap: int, new_cap: int):
+    """Pool growth after an overflowing densify step (gof_tpu
+    train.py:569-596): every per-slot tensor (params, GaussianState and the
+    moments) padded from old_cap to new_cap slots with zeros, except
+    rotation[:, 0] = 1 in the new slots, as gof_tpu pads (init_from_points
+    pads scaling with -10 instead). Adam's count is unchanged. Returns new
+    (tp, gstate, opt_state)."""
+    def pad(x: torch.Tensor) -> torch.Tensor:
+        out = x.new_zeros((new_cap,) + tuple(x.shape[1:]))
+        out[:old_cap] = x.detach()
+        return out
+
+    def pad_all(g: gm.GaussianParams) -> gm.GaussianParams:
+        return gm.GaussianParams(*[pad(getattr(g, f)) for f in GAUSS_FIELDS])
+
+    gauss = pad_all(tp.gauss)
+    gauss.rotation[old_cap:, 0] = 1.0
+    gstate = gm.GaussianState(*[pad(getattr(gstate, f)) for f in STATE_FIELDS])
+    opt_state = AdamState(count=opt_state.count, mu=pad_all(opt_state.mu), nu=pad_all(opt_state.nu))
+    return TrainParams(gauss=gauss), gstate, opt_state
 
 
 def pool_capacity(n_points: int) -> int:
@@ -286,14 +338,6 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
              debug_image_interval: int = 0, dp: int = 1):
     """gof_tpu's host loop (train.py:599-1104) with one step per iteration.
     Returns (TrainParams, GaussianState)."""
-    if start_checkpoint:
-        raise _not_ported("--start_checkpoint (checkpoint load and resume)", "A.11")
-    if debug_image_interval:
-        raise _not_ported("--debug_image_interval", "A.11")
-    if profile_dir:
-        raise _not_ported("--profile_dir", "A.11")
-    if pipe.debug:
-        raise _not_ported("--debug (the fail-time snapshot dump)", "A.11")
     random.seed(0)
     np.random.seed(0)
     device = torch.device(device)
@@ -304,12 +348,18 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
                          load_allres=model_cfg.load_allres)
     config_lib.save_cfg(model_cfg.model_path, model_cfg, pipe, opt)
 
-    cap = pool_capacity(sc.info.point_cloud_xyz.shape[0])
-    gauss, gstate = gm.init_from_points(sc.info.point_cloud_xyz, sc.info.point_cloud_rgb,
-                                        model_cfg.sh_degree, cap, device=device)
-    tp = TrainParams(gauss=gauss)
     tx = make_optimizer(opt, sc.cameras_extent)
-    opt_state = tx.init(tp)
+    first_iter = 0
+    if start_checkpoint:
+        tp, opt_state, gstate, first_iter = load_checkpoint(start_checkpoint, device)
+        if not quiet:
+            print(f"resumed from {start_checkpoint} at iteration {first_iter}")
+    else:
+        cap = pool_capacity(sc.info.point_cloud_xyz.shape[0])
+        gauss, gstate = gm.init_from_points(sc.info.point_cloud_xyz, sc.info.point_cloud_rgb,
+                                            model_cfg.sh_degree, cap, device=device)
+        tp = TrainParams(gauss=gauss)
+        opt_state = tx.init(tp)
 
     cam_meta = sc.all_cameras_meta(sc.train_cameras, device=device)
     gstate.filter_3d = gm.compute_3d_filter(tp.gauss.xyz, gstate.active, *cam_meta)
@@ -317,7 +367,6 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
     bg = torch.tensor([1.0, 1.0, 1.0] if model_cfg.white_background else [0.0, 0.0, 0.0],
                       device=device)
     reg_start = min(opt.distortion_from_iter, opt.depth_normal_from_iter)
-    first_iter = 0
     with_stats = first_iter + 1 <= opt.densify_until_iter
     with_reg = first_iter + 1 >= reg_start
 
@@ -350,12 +399,22 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
             j = highres_ids[random.randint(0, len(highres_ids) - 1)]
         return j
 
+    # the densify offsets' stream (gof_tpu's PRNGKey(0), train.py:789)
+    noise_gen = torch.Generator(device=device)
+    noise_gen.manual_seed(0)
     log_path = os.path.join(model_cfg.model_path, "train_log.jsonl")
+    tb = _make_tb_writer(model_cfg.model_path)
     ema_loss = None
     pending = []  # unread packed metrics, read every 10 iterations
+    prof = contextlib.nullcontext()
+    if profile_dir:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
     t_start = time.time()
     iteration = first_iter
-    with open(log_path, "a") as logf:
+    with open(log_path, "a") as logf, prof, tb or contextlib.nullcontext():
         while iteration < opt.iterations:
             iteration += 1
             # the statistics leave the backward after densification; the
@@ -368,37 +427,72 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
                 train_step = rebuild_step()
 
             camera, gt = get_cam(sc.train_cameras[next_id()])
-            tp, opt_state, gstate, metrics = train_step(tp, opt_state, gstate, gt, iteration,
-                                                        camera, bg)
+            tp, opt_state, gstate, metrics = train_step(tp, opt_state, gstate, gt,
+                                                        iteration, camera, bg)
 
             # --- host control flow (train.py:921-943) ---
             if iteration < opt.densify_until_iter:
                 if (iteration > opt.densify_from_iter
                         and iteration % opt.densification_interval == 0):
-                    raise _not_ported(f"densify_and_prune (due at iteration {iteration})",
-                                      "A.8")
+                    cap = tp.gauss.xyz.shape[0]
+                    noise = tuple(torch.randn((cap, 3), generator=noise_gen, device=device)
+                                  for _ in range(3))
+                    gauss, gstate, opt_state, rep = gm.densify_and_prune(
+                        tp.gauss, gstate, opt_state, noise, opt.densify_grad_threshold,
+                        0.05, sc.cameras_extent, opt.percent_dense,
+                        iteration > opt.opacity_reset_interval)
+                    tp = TrainParams(gauss=gauss)
+                    if bool(rep.pool_overflow):  # the densify step's one host read
+                        tp, gstate, opt_state = grow_capacity(tp, gstate, opt_state, cap,
+                                                              2 * cap)
+                        if not quiet:
+                            print(f"[{iteration}] grew capacity to {2 * cap}")
+                    gstate.filter_3d = gm.compute_3d_filter(tp.gauss.xyz, gstate.active,
+                                                            *cam_meta)
                 if iteration % opt.opacity_reset_interval == 0 or (
                         model_cfg.white_background and iteration == opt.densify_from_iter):
                     with torch.no_grad():
                         new = gm.reset_opacity(tp.gauss, gstate.filter_3d)
                         tp.gauss.opacity.copy_(new.opacity)
             elif iteration % 100 == 0:
-                gstate.filter_3d = gm.compute_3d_filter(tp.gauss.xyz.detach(), gstate.active,
-                                                        *cam_meta)
+                gstate.filter_3d = gm.compute_3d_filter(tp.gauss.xyz.detach(),
+                                                        gstate.active, *cam_meta)
 
             pending.append(metrics["packed"])
             if iteration % 10 == 0 or iteration == first_iter + 1:
                 mp = torch.stack(pending).cpu().numpy()  # one host read
                 pending.clear()
+                if pipe.debug and not np.all(np.isfinite(mp[:, 0])):
+                    fn = _debug_dump(model_cfg.model_path, iteration, tp, gstate, opt_state,
+                                     {"packed_metrics": mp})
+                    raise FloatingPointError(
+                        f"non-finite loss in the steps ending at iteration {iteration}; "
+                        f"render inputs dumped to {fn}")
                 loss = float(mp[-1, 0])
                 ema_loss = loss if ema_loss is None else 0.6 * loss + 0.4 * ema_loss
-                rec = {"iter": iteration, "loss": round(loss, 5), "ema": round(ema_loss, 5),
-                       "psnr": round(float(mp[-1, 1]), 3), "points": int(mp[-1, 6]),
-                       "keys": int(mp[:, 2].max()), "elapsed": round(time.time() - t_start, 1)}
+                rec = {"iter": iteration, "loss": round(loss, 5),
+                       "ema": round(ema_loss, 5), "psnr": round(float(mp[-1, 1]), 3),
+                       "points": int(mp[-1, 6]), "keys": int(mp[:, 2].max()),
+                       "elapsed": round(time.time() - t_start, 1)}
                 logf.write(json.dumps(rec) + "\n")
                 logf.flush()
+                if tb is not None:
+                    tb.add_scalar("train_loss_patches/total_loss", loss, iteration)
+                    tb.add_scalar("train/psnr", rec["psnr"], iteration)
+                    tb.add_scalar("total_points", rec["points"], iteration)
+                    tb.add_scalar("iter_time", (time.time() - t_start) / iteration,
+                                  iteration)
                 if not quiet and iteration % 100 == 0:
                     print(rec)
+
+            if debug_image_interval and iteration % debug_image_interval == 0:
+                from .render_cli import render_eval
+                from .utils import vis
+
+                img = render_eval(tp.gauss, gstate, camera, model_cfg, bg).image
+                vis.save_debug_grid(os.path.join(model_cfg.model_path, "debug",
+                                                 f"iter_{iteration:06d}.png"),
+                                    img.cpu().numpy(), gt.cpu().numpy())
 
             if iteration in test_iterations:
                 report = evaluate(sc, tp, gstate, model_cfg, bg, device)
@@ -413,8 +507,118 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
                 scene_lib.save_gaussians_ply(path, tp.gauss, gstate, model_cfg.sh_degree)
 
             if iteration in checkpoint_iterations:
-                raise _not_ported(f"checkpoint save (due at iteration {iteration})", "A.11")
+                save_checkpoint(model_cfg.model_path, iteration, tp, opt_state, gstate)
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
     return tp, gstate
+
+
+def _make_tb_writer(model_path: str):
+    """gof_tpu's TensorBoard writer (train.py:1107-1113), or None where
+    torch.utils.tensorboard does not import."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter(model_path)
+    except Exception:
+        return None
+
+
+def _debug_dump(model_path: str, iteration: int, tp: TrainParams, gstate: gm.GaussianState,
+                opt_state: AdamState, extra: dict) -> str:
+    """--debug's fail-time snapshot (gof_tpu train.py:1116-1140):
+    debug/snapshot_iter{iteration:06d}.npz with the gaussians (gauss_*), the
+    GaussianState (gstate_*), Adam's count and moments in gof_tpu's [NCOL, CAP]
+    layout (adam_count, adam_mu_flat, adam_nu_flat) and `extra`
+    (packed_metrics). gof_tpu's key_capacity, compact_capacity and n_inner
+    are TPU capacities the port does not have, so they are left out.
+    Returns the file's path."""
+    path = os.path.join(model_path, "debug")
+    os.makedirs(path, exist_ok=True)
+    fn = os.path.join(path, f"snapshot_iter{int(iteration):06d}.npz")
+    arrs = {f"gauss_{f}": getattr(tp.gauss, f).detach().cpu().numpy() for f in GAUSS_FIELDS}
+    arrs.update({f"gstate_{f}": getattr(gstate, f).cpu().numpy() for f in STATE_FIELDS})
+    adam = adam_to_numpy(opt_state)
+    arrs.update(adam_count=np.asarray(adam.count, np.int32), adam_mu_flat=adam.mu_flat,
+                adam_nu_flat=adam.nu_flat, **extra)
+    np.savez_compressed(fn, **arrs)
+    return fn
+
+
+def save_checkpoint(model_path: str, iteration: int, tp: TrainParams, opt_state: AdamState,
+                    gstate: gm.GaussianState) -> str:
+    """Write chkpnt{iteration}.pkl into model_path (gof_tpu
+    train.py:1203-1213): a pickle of plain dicts of numpy arrays and ints,
+    {"gauss": {field: array}, "gstate": {field: array}, "adam": {"count",
+    "mu_flat", "nu_flat"} in adam_to_numpy's layout, "iter": iteration}.
+    Returns the path."""
+    adam = adam_to_numpy(opt_state)
+    blob = {"gauss": {f: getattr(tp.gauss, f).detach().cpu().numpy() for f in GAUSS_FIELDS},
+            "gstate": {f: getattr(gstate, f).cpu().numpy() for f in STATE_FIELDS},
+            "adam": {"count": adam.count, "mu_flat": adam.mu_flat, "nu_flat": adam.nu_flat},
+            "iter": int(iteration)}
+    path = os.path.join(model_path, f"chkpnt{iteration}.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(blob, f, protocol=pickle.HIGHEST_PROTOCOL)
+    return path
+
+
+# stand-ins, with the same positional fields, for the classes a checkpoint
+# written by gof_tpu.train.save_checkpoint names
+_GOF_CLASSES = {
+    ("gof_tpu.train", "TrainParams"): namedtuple("TrainParams", "gauss app_net app_emb"),
+    ("gof_tpu.train", "FusedAdamState"): FusedAdamState,
+    ("gof_tpu.model.gaussians", "GaussianParams"): namedtuple("GaussianParams", GAUSS_FIELDS),
+    ("gof_tpu.model.gaussians", "GaussianState"): namedtuple("GaussianState", STATE_FIELDS),
+}
+_GOF_MAIN = {name: cls for (_, name), cls in _GOF_CLASSES.items()}
+_BUILTINS = {"tuple", "list", "dict", "set", "frozenset", "int", "float", "complex", "bool",
+             "str", "bytes", "bytearray", "slice", "range"}
+# what a pickle of numpy arrays and scalars names (protocols 3-5, numpy 1
+# and 2); numpy's other functions stay out, numpy.load among them
+_NUMPY = {("numpy", "ndarray"), ("numpy", "dtype")} | {
+    (f"numpy.{core}.{mod}", name) for core in ("core", "_core")
+    for mod, name in (("multiarray", "_reconstruct"), ("multiarray", "scalar"),
+                      ("numeric", "_frombuffer"))}
+
+
+class _CheckpointUnpickler(pickle.Unpickler):
+    """Loads the port's checkpoints and gof_tpu's without importing gof_tpu:
+    gof_tpu's four state classes (also as pickled by `python -m
+    gof_tpu.train`, under __main__) map to stand-ins; numpy arrays and
+    scalars and builtin types load; any other global is refused."""
+
+    def find_class(self, module, name):
+        cls = _GOF_MAIN.get(name) if module == "__main__" else _GOF_CLASSES.get((module, name))
+        if cls is not None:
+            return cls
+        if (module, name) in _NUMPY or (module == "builtins" and name in _BUILTINS):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"a checkpoint may not name {module}.{name}")
+
+
+def load_checkpoint(path: str, device: torch.device | str = "cpu"):
+    """Read a checkpoint written by save_checkpoint or by gof_tpu's
+    (train.py:1216-1245). Returns (TrainParams, AdamState, GaussianState,
+    iteration) on `device`. A gof_tpu checkpoint always holds the
+    appearance network and its moments (app_net, app_emb, mu_app, nu_app);
+    they are dropped while the network is unported (ROADMAP A.10). gof_tpu's
+    legacy migration is not ported."""
+    with open(path, "rb") as f:
+        blob = _CheckpointUnpickler(f).load()
+    if "tp" in blob:  # gof_tpu's {"tp", "opt_state", "gstate", "iter"}
+        gauss, gstate, adam = blob["tp"].gauss, blob["gstate"], blob["opt_state"]
+        if not isinstance(adam.mu_flat, np.ndarray):
+            raise ValueError(f"{path}: a legacy gof_tpu checkpoint (moments stored as "
+                             "TrainParams trees); gof_tpu.train.load_checkpoint migrates it, "
+                             "gof_tpu_torch does not")
+    else:
+        gauss = _GOF_CLASSES[("gof_tpu.model.gaussians", "GaussianParams")](**blob["gauss"])
+        gstate = _GOF_CLASSES[("gof_tpu.model.gaussians", "GaussianState")](**blob["gstate"])
+        adam = FusedAdamState(**blob["adam"])
+    g, s = gm.from_numpy(gauss, gstate, device)
+    return TrainParams(gauss=g), from_numpy(adam, g, device), s, int(blob["iter"])
 
 
 def main(argv=None):

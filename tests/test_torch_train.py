@@ -376,25 +376,361 @@ def test_train_main_cpu_writes_log_and_ply(synth_scene, tmp_path):
     assert os.path.exists(os.path.join(out, "test", "ours_5", "renders", "00001.png"))
 
 
-def test_train_densify_cadence_raises(synth_scene, tmp_path):
-    """The densify-and-prune cadence is not ported: it raises at the first
-    iteration where gof_tpu would densify (iteration 3 here), not later."""
-    with pytest.raises(NotImplementedError, match=r"densify_and_prune.*iteration 3.*A\.8"):
-        ttrain.main(["-s", synth_scene, "-m", str(tmp_path / "d"), "--cpu", "--iterations",
-                     "50", "--sh_degree", "0", "--densify_from_iter", "1",
-                     "--densification_interval", "3", "--quiet"])
-    recs = [json.loads(line) for line in open(tmp_path / "d" / "train_log.jsonl")]
-    assert [r["iter"] for r in recs] == [1]
-
-
-@pytest.mark.parametrize("extra", [
-    ["--start_checkpoint", "chkpnt10.pkl"], ["--use_decoupled_appearance"], ["--dp", "2"],
-    ["--debug_image_interval", "5"], ["--checkpoint_iterations", "2"],
-], ids=["start_checkpoint", "appearance", "dp", "debug_image", "checkpoint"])
+@pytest.mark.parametrize("extra", [["--use_decoupled_appearance"], ["--dp", "2"]],
+                         ids=["appearance", "dp"])
 def test_train_unported_options_raise(synth_scene, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.main(["-s", synth_scene, "-m", str(tmp_path / "x"), "--cpu", "--iterations",
                      "3", "--sh_degree", "0", "--quiet", *extra])
+
+
+# ---------------------------------------------------------------------------
+# The loop: densification, pool growth, checkpoints, --debug, debug images,
+# the profiler and TensorBoard
+# ---------------------------------------------------------------------------
+
+
+def spy_on(monkeypatch, module, name, calls, record):
+    """Wrap module.name so every call appends record(args, result)."""
+    orig = getattr(module, name)
+
+    def spy(*args, **kw):
+        res = orig(*args, **kw)
+        calls.append(record(args, res))
+        return res
+
+    monkeypatch.setattr(module, name, spy)
+
+
+def log_records(out):
+    return [json.loads(line) for line in open(os.path.join(out, "train_log.jsonl"))]
+
+
+@pytest.fixture(scope="module")
+def loop_run(synth_scene, tmp_path_factory):
+    """One CPU run with densification every 4 steps in (3, 17), debug
+    images every 6 steps, the profiler, checkpoints at 8 and 18 and the
+    TensorBoard writer; densify_and_prune is spied on."""
+    out = str(tmp_path_factory.mktemp("loop") / "out")
+    prof = os.path.join(out, "prof")
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        spy_on(mp, tgm, "densify_and_prune", calls,
+               lambda a, r: (int(a[1].active.sum()), [int(x) for x in r[3]]))
+        tp, gs = ttrain.main(["-s", synth_scene, "-m", out, "--cpu", "--iterations", "18",
+                              "--sh_degree", "1", "--kernel_size", "0.1",
+                              "--densify_from_iter", "3", "--densification_interval", "4",
+                              "--densify_until_iter", "17", "--opacity_reset_interval", "100",
+                              "--checkpoint_iterations", "8", "18", "--test_iterations", "18",
+                              "--debug_image_interval", "6", "--profile_dir", prof, "--quiet"])
+    return out, prof, calls, tp, gs
+
+
+def test_train_densifies_at_gof_tpu_iterations(loop_run):
+    """densify_and_prune runs at gof_tpu's iterations (train.py:921-923:
+    from < it < until, it % interval == 0), and the run reaches its end."""
+    out, _, calls, tp, gs = loop_run
+    want = [i for i in range(1, 19) if 3 < i < 17 and i % 4 == 0]
+    recs = log_records(out)
+    assert len(calls) == len(want) == 4
+    # each densification starts from the count the one before left
+    assert calls[0][0] == 64
+    for (n, (cloned, split, pruned, overflow)), (n_next, _) in zip(calls, calls[1:]):
+        assert n_next == n + cloned + split - pruned and not overflow
+    assert all(rep[1] > 0 for _, rep in calls)  # splits every time
+    assert recs[-1]["iter"] == 18 and "eval" in recs[-1]
+    assert all(np.isfinite(r["loss"]) for r in recs if "loss" in r)
+    assert int(gs.active.sum()) != 64
+    assert tp.gauss.xyz.shape[0] == (2048 if calls[-1][1][3] else 1024)
+    ply = os.path.join(out, "point_cloud", "iteration_18", "point_cloud.ply")
+    assert int(np.asarray(jscene.load_gaussians_ply(ply, 1)[1].active).sum()) == int(
+        gs.active.sum())
+
+
+def test_train_debug_images_match_gof_tpu_grid(loop_run):
+    from PIL import Image
+
+    from gof_tpu.utils import vis as jvis
+    from gof_tpu_torch.utils import vis as tvis
+
+    out = loop_run[0]
+    pngs = sorted(os.listdir(os.path.join(out, "debug")))
+    assert pngs == ["iter_000006.png", "iter_000012.png", "iter_000018.png"]
+    assert np.asarray(Image.open(os.path.join(out, "debug", pngs[0]))).shape == (128, 192, 3)
+    rng = np.random.default_rng(11)
+    img9 = rng.normal(0.5, 0.6, (9, 20, 30)).astype(np.float32)
+    gt = rng.uniform(0, 1, (3, 20, 30)).astype(np.float32)
+    np.testing.assert_array_equal(tvis.debug_grid(img9, gt), jvis.debug_grid(img9, gt))
+
+
+def test_train_profile_dir_writes_a_trace(loop_run):
+    trace = json.load(open(os.path.join(loop_run[1], "trace.json")))
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("aten::" in n for n in names)
+
+
+def test_train_writes_tensorboard_scalars(loop_run):
+    import glob
+
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    files = glob.glob(os.path.join(loop_run[0], "events.out.tfevents.*"))
+    assert len(files) == 1
+    acc = EventAccumulator(files[0])
+    acc.Reload()
+    tags = acc.Tags()["scalars"]
+    assert set(tags) == {"train_loss_patches/total_loss", "train/psnr", "total_points",
+                         "iter_time"}
+    assert [e.step for e in acc.Scalars("total_points")] == [1, 10]
+
+
+def test_train_e2e_with_densify(synth_scene, tmp_path):
+    """tests/test_train_e2e.py::test_pallas_interpret_with_densify on the
+    plain CPU path: densify at 10 and 20, opacity reset at 25, a finite
+    loss, and a checkpoint that loads."""
+    out = str(tmp_path / "out2")
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        spy_on(mp, tgm, "densify_and_prune", calls, lambda a, r: "densify")
+        spy_on(mp, tgm, "reset_opacity", calls, lambda a, r: "reset")
+        ttrain.main(["-s", synth_scene, "-m", out, "--cpu", "--iterations", "30",
+                     "--sh_degree", "1", "--kernel_size", "0.1", "--densify_from_iter", "9",
+                     "--densify_until_iter", "30", "--densification_interval", "10",
+                     "--opacity_reset_interval", "25", "--distortion_from_iter", "5",
+                     "--depth_normal_from_iter", "5", "--checkpoint_iterations", "30",
+                     "--test_iterations", "99", "--quiet"])
+    assert calls == ["densify", "densify", "reset"]
+    final = [r for r in log_records(out) if "loss" in r][-1]
+    assert final["iter"] == 30 and np.isfinite(final["loss"])
+    tp, st, gs, it = ttrain.load_checkpoint(os.path.join(out, "chkpnt30.pkl"))
+    assert it == 30 and st.count == 30 and int(gs.active.sum()) == final["points"]
+    # the reset at 25 left every filtered opacity at 0.01; 5 steps move it little
+    op = tgm.filtered_opacity(tp.gauss, gs.filter_3d)[gs.active]
+    assert float(op.max()) < 0.05
+
+
+def test_train_grows_the_pool_on_overflow(synth_scene, tmp_path, monkeypatch):
+    """A pool too small for one densification: the step drops the excess
+    (C12), reports pool_overflow, and the loop doubles the pool and trains
+    on."""
+    out = str(tmp_path / "grow")
+    reports, grows = [], []
+    monkeypatch.setattr(ttrain, "pool_capacity", lambda n: 80)
+    spy_on(monkeypatch, tgm, "densify_and_prune", reports, lambda a, r: r[3])
+    spy_on(monkeypatch, ttrain, "grow_capacity", grows, lambda a, r: a[3:])
+    # densify at 3 only
+    tp, gs = ttrain.main(["-s", synth_scene, "-m", out, "--cpu", "--iterations", "10",
+                          "--sh_degree", "1", "--densify_from_iter", "1",
+                          "--densification_interval", "3", "--densify_until_iter", "4",
+                          "--densify_grad_threshold", "1e-12", "--quiet"])
+    assert len(reports) == 1 and bool(reports[0].pool_overflow)
+    assert grows == [(80, 160)]
+    assert tp.gauss.xyz.shape[0] == 160 and gs.active.shape[0] == 160
+    assert int(reports[0].n_split) + int(reports[0].n_cloned) > 16
+    recs = [r for r in log_records(out) if "loss" in r]
+    assert recs[-1]["iter"] == 10 and np.isfinite(recs[-1]["loss"])
+    assert recs[-1]["points"] <= 80  # nothing was placed past the old pool
+
+
+def random_train_state(seed, cap=64, n_active=50):
+    rng = np.random.default_rng(seed)
+    params, state = model(rng, cap, n_active)
+    state = state._replace(grad_accum=rng.uniform(0, 1, cap).astype(np.float32),
+                           denom=rng.integers(0, 4, cap).astype(np.float32))
+    g, s = tgm.from_numpy(params, state)
+    ncol = sum(jtrain._gauss_cols(params))
+    adam = jtrain.FusedAdamState(count=np.int32(23),
+                                 mu_flat=rng.normal(0, 1e-3, (ncol, cap)).astype(np.float32),
+                                 nu_flat=rng.uniform(0, 1e-6, (ncol, cap)).astype(np.float32))
+    return params, state, adam, ttrain.TrainParams(gauss=g), ttrain.from_numpy(adam, g), s
+
+
+def assert_same_state(a, b):
+    """(TrainParams, AdamState, GaussianState) pairs equal bit for bit."""
+    (tp1, st1, gs1), (tp2, st2, gs2) = a, b
+    for f in ttrain.GAUSS_FIELDS:
+        assert torch.equal(getattr(tp1.gauss, f).detach(), getattr(tp2.gauss, f).detach()), f
+        for m in ("mu", "nu"):
+            assert torch.equal(getattr(getattr(st1, m), f), getattr(getattr(st2, m), f)), (m, f)
+    for f in ttrain.STATE_FIELDS:
+        assert torch.equal(getattr(gs1, f), getattr(gs2, f)), f
+    assert st1.count == st2.count
+
+
+def test_checkpoint_save_load_round_trip(tmp_path):
+    import pickle
+
+    *_, tp, st, gs = random_train_state(12)
+    path = ttrain.save_checkpoint(str(tmp_path), 7, tp, st, gs)
+    assert path == str(tmp_path / "chkpnt7.pkl")
+    tp2, st2, gs2, it = ttrain.load_checkpoint(path)
+    assert it == 7
+    assert_same_state((tp, st, gs), (tp2, st2, gs2))
+    blob = pickle.load(open(path, "rb"))  # plain dicts of numpy arrays and ints
+    assert sorted(blob) == ["adam", "gauss", "gstate", "iter"]
+    assert all(type(v) is np.ndarray for k in ("gauss", "gstate") for v in blob[k].values())
+    assert blob["adam"]["mu_flat"].shape == (23, 64) and type(blob["adam"]["count"]) is int
+
+
+def test_load_gof_tpu_checkpoint(tmp_path):
+    """A checkpoint written by gof_tpu.train.save_checkpoint (appearance
+    network included) loads into the port bit for bit."""
+    from gof_tpu.model import appearance as japp
+
+    params, state, adam, *_ = random_train_state(13)
+    net, emb = japp.init_appearance(jax.random.PRNGKey(0))
+    jtp = jtrain.TrainParams(gauss=jax.tree.map(jnp.asarray, params), app_net=net, app_emb=emb)
+    moments = jax.tree.map(jnp.zeros_like, (net, emb))
+    jst = adam._replace(mu_app=moments, nu_app=moments)
+    jtrain.save_checkpoint(str(tmp_path), 40, jtp, jst, jax.tree.map(jnp.asarray, state))
+    path = str(tmp_path / "chkpnt40.pkl")
+    tp, st, gs, it = ttrain.load_checkpoint(path)
+    wtp, wst, wgs, wit = jtrain.load_checkpoint(path)
+    assert it == wit == 40
+    for f in ttrain.GAUSS_FIELDS:
+        np.testing.assert_array_equal(getattr(tp.gauss, f).numpy(),
+                                      np.asarray(getattr(wtp.gauss, f)))
+    for f in ttrain.STATE_FIELDS:
+        np.testing.assert_array_equal(getattr(gs, f).numpy(), np.asarray(getattr(wgs, f)))
+    back = ttrain.adam_to_numpy(st)
+    assert back.count == int(wst.count) == 23
+    np.testing.assert_array_equal(back.mu_flat, np.asarray(wst.mu_flat))
+    np.testing.assert_array_equal(back.nu_flat, np.asarray(wst.nu_flat))
+
+
+def test_checkpoint_unpickler_maps_main_and_refuses_other_modules(tmp_path, monkeypatch):
+    """gof_tpu's classes pickled under __main__ (by `python -m
+    gof_tpu.train`) load; a checkpoint naming any other module is refused
+    with that module's name."""
+    import collections
+    import pickle
+    import sys
+
+    params, state, adam, *_ = random_train_state(14)
+    main = sys.modules["__main__"]
+    for cls in (jtrain.TrainParams, jtrain.FusedAdamState):
+        monkeypatch.setattr(cls, "__module__", "__main__")
+        monkeypatch.setattr(main, cls.__name__, cls, raising=False)
+    blob = {"tp": jtrain.TrainParams(gauss=params, app_net=None, app_emb=None),
+            "opt_state": adam, "gstate": state, "iter": 5}
+    with open(tmp_path / "main.pkl", "wb") as f:
+        pickle.dump(blob, f)
+    assert b"__main__" in open(tmp_path / "main.pkl", "rb").read()
+    tp, st, gs, it = ttrain.load_checkpoint(str(tmp_path / "main.pkl"))
+    assert it == 5 and st.count == 23
+    np.testing.assert_array_equal(tp.gauss.xyz.numpy(), params.xyz)
+    with open(tmp_path / "bad.pkl", "wb") as f:
+        pickle.dump({"iter": collections.OrderedDict()}, f)
+    with pytest.raises(pickle.UnpicklingError, match="collections.OrderedDict"):
+        ttrain.load_checkpoint(str(tmp_path / "bad.pkl"))
+
+
+class _LoadsAFile:
+    """Pickles as a call of numpy.load(path, None, True): allow_pickle on."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __reduce__(self):
+        return np.load, (self.path, None, True)
+
+
+def test_checkpoint_unpickler_refuses_numpy_functions(tmp_path):
+    """Of numpy, only what arrays and scalars need loads: a checkpoint that
+    calls numpy.load (which could unpickle any file) is refused."""
+    import pickle
+
+    np.save(tmp_path / "x.npy", np.arange(3))
+    with open(tmp_path / "bad.pkl", "wb") as f:
+        pickle.dump({"iter": _LoadsAFile(str(tmp_path / "x.npy"))}, f)
+    with pytest.raises(pickle.UnpicklingError, match="numpy.load"):
+        ttrain.load_checkpoint(str(tmp_path / "bad.pkl"))
+
+
+def test_load_legacy_gof_tpu_checkpoint_refused(tmp_path):
+    """A legacy gof_tpu checkpoint (moments stored as TrainParams trees in a
+    3-field FusedAdamState) fails with a clear error, not inside
+    from_numpy."""
+    import pickle
+
+    params, state, *_ = random_train_state(15)
+    trees = jtrain.TrainParams(gauss=params, app_net=None, app_emb=None)
+    blob = {"tp": trees, "opt_state": jtrain.FusedAdamState(np.int32(3), trees, trees),
+            "gstate": state, "iter": 9}
+    with open(tmp_path / "legacy.pkl", "wb") as f:
+        pickle.dump(blob, f)
+    with pytest.raises(ValueError, match="legacy gof_tpu checkpoint"):
+        ttrain.load_checkpoint(str(tmp_path / "legacy.pkl"))
+
+
+def test_start_checkpoint_resumes_bit_exact(synth_scene, tmp_path, monkeypatch):
+    """--start_checkpoint k: the loaded state equals, bit for bit, what the
+    loop handed to save_checkpoint at k; one step from each gives the same
+    state bit for bit; the resumed run logs k + 1 first."""
+    out = str(tmp_path / "res")
+    held = []
+
+    def copy_state(args, _):
+        tp, st, gs = args[2:5]
+        grow = ttrain.grow_capacity  # a copy at the same capacity
+        cap = gs.active.shape[0]
+        return grow(tp, gs, st, cap, cap)
+
+    spy_on(monkeypatch, ttrain, "save_checkpoint", held, copy_state)
+    argv = ["-s", synth_scene, "-m", out, "--cpu", "--sh_degree", "1", "--kernel_size", "0.1",
+            "--densify_from_iter", "1", "--densification_interval", "2",
+            "--densify_until_iter", "6", "--quiet"]
+    ttrain.main(argv + ["--iterations", "4", "--checkpoint_iterations", "4"])
+    ckpt = os.path.join(out, "chkpnt4.pkl")
+    tp, st, gs, it = ttrain.load_checkpoint(ckpt)
+    htp, hgs, hst = held[0]
+    assert it == 4 and len(held) == 1
+    assert_same_state((htp, hst, hgs), (tp, st, gs))
+
+    sc = tscene.Scene(synth_scene, "", shuffle=False)
+    camera, gt = sc.camera(sc.train_cameras[2])
+    opt = tconfig.OptimizationParams(densify_until_iter=6)
+    mcfg = tconfig.ModelParams(sh_degree=1, kernel_size=0.1)
+    tx = ttrain.make_optimizer(opt, sc.cameras_extent)
+    step = ttrain.build_train_step(opt, mcfg, tconfig.PipelineParams(), tx, with_reg=False)
+    a = step(htp, hst, hgs, t(gt), 5, camera, torch.zeros(3))
+    b = step(tp, st, gs, t(gt), 5, camera, torch.zeros(3))
+    assert_same_state(a[:3], b[:3])
+    assert torch.equal(a[3]["loss"], b[3]["loss"])
+
+    n_before = len(log_records(out))
+    ttrain.main(argv + ["--iterations", "6", "--start_checkpoint", ckpt])
+    recs = log_records(out)[n_before:]
+    assert [r["iter"] for r in recs] == [5] and np.isfinite(recs[0]["loss"])
+
+
+def test_train_debug_dumps_on_nonfinite_loss(synth_scene, tmp_path):
+    """tests/test_train_e2e.py::test_debug_dumps_on_nonfinite_loss: a
+    poisoned checkpoint resumed under --debug aborts with FloatingPointError
+    after writing a snapshot npz of every render input."""
+    import glob
+
+    out = str(tmp_path / "dbg")
+    argv = ["-s", synth_scene, "-m", out, "--cpu", "--sh_degree", "1", "--kernel_size", "0.1",
+            "--densify_from_iter", "10000", "--densify_until_iter", "0",
+            "--opacity_reset_interval", "100000", "--distortion_from_iter", "5",
+            "--depth_normal_from_iter", "5", "--debug", "--quiet"]
+    ttrain.main(argv + ["--iterations", "10", "--checkpoint_iterations", "10"])
+    ckpt = os.path.join(out, "chkpnt10.pkl")
+    tp, st, gs, _ = ttrain.load_checkpoint(ckpt)
+    tp.gauss.features_dc[0] = float("nan")  # rgb -> NaN -> image -> loss
+    ttrain.save_checkpoint(out, 10, tp, st, gs)
+    with pytest.raises(FloatingPointError, match="snapshot_iter"):
+        ttrain.main(argv + ["--iterations", "30", "--start_checkpoint", ckpt])
+    dumps = glob.glob(os.path.join(out, "debug", "snapshot_iter*.npz"))
+    assert [os.path.basename(d) for d in dumps] == ["snapshot_iter000011.npz"]
+    blob = np.load(dumps[0])
+    assert {"gauss_xyz", "gstate_active", "adam_count", "adam_mu_flat", "adam_nu_flat",
+            "packed_metrics"} <= set(blob.files)
+    assert not {"key_capacity", "compact_capacity", "n_inner"} & set(blob.files)
+    assert not np.isfinite(blob["packed_metrics"][:, 0]).all()
+    assert np.isnan(blob["gauss_features_dc"][0]).any()
+    assert blob["adam_mu_flat"].shape == (23, 1024) and int(blob["adam_count"]) == 11
 
 
 def test_train_requires_cuda_without_cpu_flag(tmp_path, monkeypatch):
@@ -425,6 +761,11 @@ def test_flags_match_gof_tpu():
 
 
 def test_train_step_never_imports_jax(tmp_path):
+    """A train step, and loading a checkpoint that gof_tpu wrote, import
+    neither jax nor gof_tpu."""
+    params, state, adam, *_ = random_train_state(15)
+    jtrain.save_checkpoint(str(tmp_path), 3, jtrain.TrainParams(
+        gauss=params, app_net=None, app_emb=None), adam, state)
     code = (
         "import sys, numpy as np, torch\n"
         "from gof_tpu_torch import cameras, config, train\n"
@@ -440,6 +781,8 @@ def test_train_step_never_imports_jax(tmp_path):
         "cam = cameras.look_at_camera(eye=(0, 0, 0), target=(0, 0, 4.), width=40, height=32)\n"
         "tp, st, s, m = step(tp, tx.init(tp), s, torch.rand(3, 32, 40), 5, cam, torch.zeros(3))\n"
         "assert bool(torch.isfinite(m['loss'])) and st.count == 1\n"
+        f"tp, st, s, it = train.load_checkpoint({str(tmp_path / 'chkpnt3.pkl')!r})\n"
+        "assert it == 3 and st.count == 23 and tp.gauss.xyz.shape == (64, 3)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',"
         " 'gof_tpu')]\n"
         "print('BAD', bad)\n"
