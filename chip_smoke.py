@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Build and drive gof_tpu_torch's serving, training and mesh-extraction
-paths and its gather/scatter probes once on one CUDA GPU.
+paths, its DTU/TNT chain and its gather/scatter probes once on one CUDA
+GPU.
 
     python3 chip_smoke.py
 
@@ -42,17 +43,41 @@ paths and its gather/scatter probes once on one CUDA GPU.
    overflows, grow_capacity doubles it and one train step runs on it
    through build_train_step (K1-K4 each launched); K2, K1, K3 and K4 are
    held against their plain versions at that grown pool's shapes, as in 10;
-8. mesh: gof_tpu_torch.extract_mesh.main(["-m", trained, "--texture_mesh"])
-   extracts the level-set mesh of that PLY over its 8 training views (the
-   serving model instead if the trained field crosses 0.5 nowhere): counts,
+8. the DTU/TNT chain, each stage through its CLI's main on the card with
+   its launches counted: gof_tpu_torch.scripts.make_procedural_scene writes
+   its default scene (1237x822, 36 train and 6 test views, 40k points,
+   gt_mesh.ply; timed); train.main with the DTU job's flags
+   (--use_decoupled_appearance --lambda_distortion 1000) and --eval for
+   1000 steps, densifying at the default threshold from 600, the
+   regularizers from 800 (each step timed, K1-K4 launched every step, the
+   loss finite, the trained embedding rows moved and every other row
+   bit-equal to its init, every network weight moved, the checkpoint's
+   appearance state and moments bit for bit); render_cli --skip_train and
+   metrics (a finite PSNR and SSIM, LPIPS null with its reason);
+   extract_mesh_tsdf --dense (max_dim 512) and sparse (voxel 0.02, trunc
+   0.08), depth 1-12 (non-empty, finite meshes; stage seconds, block and
+   voxel counts);
+9. mesh: gof_tpu_torch.extract_mesh.main(["-m", chain model,
+   "--texture_mesh"]) extracts the level-set mesh of the chain's PLY over
+   its 36 training views (the serving model instead if its field crosses
+   0.5 nowhere): counts,
    stage seconds and the launch counts of K5, K2 and K1 over that run; the
    mesh is non-empty and finite and the field at its vertices inside every
    view lies near 0.5 (gof_tpu's e2e bound). K5 is held against its plain
    version at one view with all the tetra points (max |err| <= 1e-6,
    bit-identical across launches, unprojected points exactly 1) and timed;
    the mesh of a small known scene on the card is held against the plain
-   CPU path, and the field at all its vertices to gof_tpu's bound;
-9. probes: gof_tpu_torch.scripts.pallas_gather_probe.main and
+   CPU path, and the field at all its vertices to gof_tpu's bound; then
+   scripts.eval_procedural_geometry scores the marching-tets mesh and both
+   TSDF meshes against gt_mesh.ply (F@0.02, precision, recall, chamfer;
+   each TSDF mesh's cropped mean_d2s under 0.05), and the card is held
+   against the port's CPU path: the appearance network at full width
+   (multiplier within 1e-5, appearance_l1 within rtol 1e-5, gradients
+   within 1e-4 x max |CPU|) and discover_blocks / fuse_blocks /
+   fuse_depth_maps on three of the chain's depth maps (blocks equal, tsdf
+   within 1e-5 where the weights agree, at most 1e-4 of the samples with
+   another weight);
+10. probes: gof_tpu_torch.scripts.pallas_gather_probe.main and
    mxu_gather_probe.main at the scripts' shapes run K6-K13 (row gathers,
    one-hot bf16 and int8 products on the tensor cores, segment sums,
    run-length decode, paged gather) and the binning's sorts: each kernel
@@ -70,7 +95,7 @@ paths and its gather/scatter probes once on one CUDA GPU.
    buffer, with every index on one row, on the edge indices and at 2^31 +
    65,536 output elements; K12 also with every offset 0, a dense chunk, k
    across 2^30 and across the int32 wrap, uncovered rows and WG = 65,536;
-10. the bench design point: bench.py's model, look-at camera and seeded
+11. the bench design point: bench.py's model, look-at camera and seeded
    random ground truth, through the port's build_train_step in bench's two
    phases (statistics on, regularizers off, step 5000; statistics off,
    regularizers on, step 20000): the median step time, the time of each
@@ -88,11 +113,11 @@ paths and its gather/scatter probes once on one CUDA GPU.
    timed beside its column-major entry, whose result must equal it; each
    timed beside its plain version and its library call, with
    its bound (K3's counted per instance from this view's active pairs);
-11. profile single calls of K1, K3, K4 (both entries), K8, K9, K10, K11 and
+12. profile single calls of K1, K3, K4 (both entries), K8, K9, K10, K11 and
    K13 (device time of each kernel they launch) in each phase;
-12. print the kernels' JSON line (the four of the first bench phase, K1, K3
+13. print the kernels' JSON line (the four of the first bench phase, K1, K3
    and K4 of the second, the four on the grown pool of 7, K1 at the serving
-   view, K5 and K6-K13, each with
+   view, K5 at the chain model's first view and K6-K13, each with
    its bound and library time),
    the card's name and power limit, and as the last line
    {"ok": true, "device": {...}}.
@@ -146,6 +171,28 @@ DENSIFY_ARGS = ["--iterations", str(DENSIFY_ITERS), "--densify_from_iter", "9",
                 "--test_iterations", "40", "--save_iterations", "40"]
 DENSIFY_AT = (10, 20, 30)
 BENCH_REPS = 10
+# the DTU/TNT chain on the procedural scene: the DTU job's training flags
+# (scripts/run_benchmarks.py:147-160) for 1000 steps, densifying at
+# gof_tpu's defaults (threshold 2e-4, every 100 steps from 500: at 600-1000
+# on the scene's real gradients), the regularizers from step 800
+DTU_ITERS = 1000
+DTU_REG_FROM = 800
+DTU_DENSIFY_FROM, DTU_DENSIFY_EVERY = 500, 100
+# TSDF for a scene about 9 units across whose camera ring (radius 4.2-5.4)
+# sees the ground plane out to about 12 units: the dense layout at max_dim
+# 512 (voxel ~0.027 over the gaussians' bounds) with a 0.1 truncation; the
+# sparse one at voxel 0.02 (16^3 blocks of 0.32) with a 4-voxel truncation
+DEPTH_MIN, DEPTH_MAX = 1.0, 12.0
+DENSE_TRUNC = 0.1
+SPARSE_VOXEL, SPARSE_TRUNC = 0.02, 0.08
+TSDF_DEPTH = ["--depth_min", str(DEPTH_MIN), "--depth_max", str(DEPTH_MAX)]
+TSDF_DENSE = ["--dense", "--max_dim", "512", "--sdf_trunc", str(DENSE_TRUNC)] + TSDF_DEPTH
+TSDF_SPARSE = ["--voxel_size", str(SPARSE_VOXEL), "--sdf_trunc", str(SPARSE_TRUNC)] + TSDF_DEPTH
+# the cropped TSDF mesh's mean distance to the gt surface, in scene units
+D2S_GATE = 0.05
+# fuse_depth_maps on the card against the CPU on a grid of at most this
+# many samples per axis (the CPU fuses it in seconds)
+DENSE_CHECK_DIM = 256
 
 
 def preflight() -> str:
@@ -1103,6 +1150,362 @@ def densify_card_vs_cpu(src: str, inputs, smi: str) -> list:
 
 
 # ---------------------------------------------------------------------------
+# The DTU/TNT chain on the procedural scene
+# ---------------------------------------------------------------------------
+
+
+def dtu_scene(root: str, smi: str) -> tuple:
+    """The procedural scene at its defaults (1237x822, 36 train and 6 test
+    views, 40k points, gt_mesh.ply) through make_procedural_scene.main.
+    Returns (scene dir, the writer's result)."""
+    from gof_tpu_torch.scripts import make_procedural_scene as mps
+
+    scene = os.path.join(root, "procedural")
+    res = mps.main(["--out", scene])
+    print(f"dtu chain: scene {res['train_views']} train + {res['test_views']} test views at "
+          f"{res['width']}x{res['height']}, {res['points']} points, gt mesh {res['gt_verts']} vertices, written in "
+          f"{res['seconds']:.1f} s (host, {os.cpu_count()} threads); card {smi}")
+    return scene, res
+
+
+def dtu_train_args() -> list:
+    return ["--eval", "--use_decoupled_appearance", "--lambda_distortion", "1000",
+            "--iterations", str(DTU_ITERS), "--densify_from_iter", str(DTU_DENSIFY_FROM),
+            "--densification_interval", str(DTU_DENSIFY_EVERY),
+            "--distortion_from_iter", str(DTU_REG_FROM),
+            "--depth_normal_from_iter", str(DTU_REG_FROM), "--test_iterations", str(DTU_ITERS),
+            "--save_iterations", str(DTU_ITERS), "--checkpoint_iterations", str(DTU_ITERS),
+            "--quiet"]
+
+
+def dtu_train(scene: str, model: str, smi: str):
+    """train.main with the DTU job's flags (--use_decoupled_appearance
+    --lambda_distortion 1000) and --eval for DTU_ITERS steps, densifying at
+    the default threshold: each step timed and its K2/K1/K3/K4 launches
+    counted; the loss, the appearance state and its checkpoint checked.
+    Returns (TrainParams, GaussianState, steps)."""
+    from unittest import mock
+
+    from gof_tpu_torch import train
+    from gof_tpu_torch.data import scene as scene_lib
+    from gof_tpu_torch.model import appearance as app_lib
+    from gof_tpu_torch.model import gaussians as gm
+
+    counters = train_counters()
+    steps, densify = [], []
+    densify_fn = gm.densify_and_prune
+
+    def timed_densify(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = densify_fn(*args)
+        torch.cuda.synchronize()
+        densify.append((steps[-1]["iter"], (time.perf_counter() - t0) * 1e3,
+                        [int(x) for x in res[3]], int(args[1].active.sum()),
+                        int(res[1].active.sum()), int(res[1].active.shape[0])))
+        return res
+
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(train, "build_train_step", timed_build(train.build_train_step, steps)), \
+            mock.patch.object(gm, "densify_and_prune", timed_densify):
+        tp, gstate = train.main(["-s", scene, "-m", model, *dtu_train_args()])
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in counters}
+    ms = np.array([r["ms"] for r in steps])
+    print(f"dtu chain: train.main {len(steps)} steps in {wall:.2f} s ({len(steps) / wall:.2f} "
+          f"it/s, scene read, eval and PLY included); launches {launches}; card {smi}")
+    for lo, hi in ((1, DTU_DENSIFY_FROM), (DTU_DENSIFY_FROM + 1, DTU_REG_FROM - 1),
+                   (DTU_REG_FROM, DTU_ITERS)):
+        sel = ms[lo - 1:hi]
+        print(f"  steps {lo}-{hi}: median {np.median(sel):.3f} ms (host clock, synchronised; "
+              f"{np.min(sel):.3f}-{np.max(sel):.3f}), active {steps[hi - 1]['active']} of "
+              f"{steps[hi - 1]['cap']}")
+    for it, dms, rep, a0, a1, cap in densify:
+        print(f"  densify at step {it}: {dms:.3f} ms; cloned {rep[0]}, split {rep[1]}, pruned "
+              f"{rep[2]}, overflow {bool(rep[3])}; active {a0} -> {a1} of {cap}")
+    recs = [json.loads(line) for line in open(os.path.join(model, "train_log.jsonl"))]
+    evals = [r["eval"] for r in recs if "eval" in r]
+    print(f"  loss first {steps[0]['loss']:.6f}, last {steps[-1]['loss']:.6f}; eval {evals}")
+    if len(steps) != DTU_ITERS or not all(np.isfinite(r["loss"]) for r in steps):
+        raise RuntimeError("the chain's training loss is not finite at every step")
+    low = [r["iter"] for r in steps if min(r["launches"]) < 1]
+    if low:
+        raise RuntimeError(f"steps without a launch of each of K1-K4: {low[:10]}")
+    want = list(range(DTU_DENSIFY_FROM + DTU_DENSIFY_EVERY, DTU_ITERS + 1, DTU_DENSIFY_EVERY))
+    if [d[0] for d in densify] != want or \
+            not any(d[2][0] + d[2][1] for d in densify):
+        raise RuntimeError(f"densification at the default threshold: {densify}")
+    if len(evals) != 1 or not np.isfinite(evals[0]["psnr"]):
+        raise RuntimeError(f"eval records: {evals}")
+
+    # the appearance state: trained embedding rows moved, the others kept
+    # their initial bits; every network weight moved
+    uids = sorted(c.uid for c in scene_lib.Scene(scene, "", shuffle=False).train_cameras)
+    net0, emb0 = app_lib.init_appearance(torch.Generator().manual_seed(0))
+    moved = (tp.app_emb.detach().cpu() != emb0).any(dim=1)
+    still = [n for (n, p), p0 in zip(tp.app_net.named_parameters(), net0.parameters())
+             if torch.equal(p.detach().cpu(), p0)]
+    print(f"  appearance: {int(moved.sum())} embedding rows moved (trained uids "
+          f"{uids[0]}-{uids[-1]}, {len(uids)}), the other {int((~moved).sum())} bit-equal to "
+          f"their init: {bool(moved[uids].all() and moved.sum() == len(uids))}; network "
+          f"parameters unchanged: {still or 'none'}")
+    if not (moved[uids].all() and int(moved.sum()) == len(uids)) or still:
+        raise RuntimeError("the appearance state did not train as expected")
+    path = os.path.join(model, f"chkpnt{DTU_ITERS}.pkl")
+    tp2, st2, gs2, _ = train.load_checkpoint(path, "cuda")
+    leaves, leaves2 = train.app_leaves(tp), train.app_leaves(tp2)
+    ok = all(torch.equal(leaves[k].detach(), leaves2[k].detach()) for k in leaves)
+    resaved_dir = os.path.join(model, "resaved")
+    os.makedirs(resaved_dir)
+    tp3, st3, _, _ = train.load_checkpoint(
+        train.save_checkpoint(resaved_dir, DTU_ITERS, tp2, st2, gs2), "cuda")
+    ok3 = all(torch.equal(leaves2[k].detach(), train.app_leaves(tp3)[k].detach())
+              and torch.equal(st2.mu_app[k], st3.mu_app[k])
+              and torch.equal(st2.nu_app[k], st3.nu_app[k]) for k in leaves2)
+    print(f"  checkpoint {os.path.getsize(path) / 2**20:.1f} MiB: app_net / app_emb equal to "
+          f"the trained state bit for bit {ok}; saved again and read back, app_* and their "
+          f"moments bit for bit {ok3}")
+    if not (ok and ok3):
+        raise RuntimeError("the checkpoint does not round-trip the appearance state")
+    return tp, gstate, steps
+
+
+def stage_launches(fn, *args):
+    """fn(*args) with K2/K1/K3/K4/K5's launches counted over exactly that
+    call; returns (result, {name: launches}, host seconds)."""
+    from gof_tpu_torch.ops import integrate
+
+    counters = train_counters() + (integrate.INTEGRATE,)
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = fn(*args)
+    torch.cuda.synchronize()
+    return res, {k.name: k.launches for k in counters}, time.perf_counter() - t0
+
+
+def dtu_render_metrics(model: str, smi: str) -> dict:
+    """render_cli --skip_train, then metrics: a finite PSNR and SSIM, LPIPS
+    null with its reason (no VGG weights on the machine)."""
+    from gof_tpu_torch import metrics, render_cli
+
+    stats, launches, secs = stage_launches(render_cli.main, ["-m", model, "--skip_train"])
+    n = len(stats["test"])
+    print(f"dtu chain: render_cli {n} test views in {secs:.2f} s, ms "
+          f"{[round(s['ms'], 2) for s in stats['test']]}; launches {launches}; card {smi}")
+    if launches["expand"] < n or launches["rasterize_fwd"] < n:
+        raise RuntimeError(f"render launches {launches} for {n} views")
+    t0 = time.perf_counter()
+    metrics.main(["-m", model])
+    res = json.load(open(os.path.join(model, "results.json")))[f"ours_{DTU_ITERS}"]
+    print(f"dtu chain: metrics in {time.perf_counter() - t0:.2f} s: {res}")
+    if not (np.isfinite(res["PSNR"]) and np.isfinite(res["SSIM"]) and res["LPIPS"] is None
+            and "LPIPS_reason" in res):
+        raise RuntimeError(f"results.json: {res}")
+    return res
+
+
+def dtu_tsdf(model: str, args: list, label: str, smi: str) -> dict:
+    """extract_mesh_tsdf.main in one layout: counts, stage seconds and
+    launches; a non-empty, finite mesh."""
+    from gof_tpu_torch import extract_mesh_tsdf
+    from gof_tpu_torch.utils import ply
+
+    res, launches, secs = stage_launches(extract_mesh_tsdf.main, ["-m", model, *args])
+    v, f = ply.read_ply(res["path"])
+    verts = np.stack([v["x"], v["y"], v["z"]], -1)
+    grid = ({k: res[k] for k in ("blocks", "voxels", "samples", "observed")} if "blocks" in res
+            else {k: res[k] for k in ("dims", "voxel", "voxels", "observed")})
+    print(f"dtu chain: extract_mesh_tsdf {label} ({' '.join(args)}) in {secs:.2f} s: {grid}; "
+          f"{res['verts']} vertices, {res['faces']} faces; stage s "
+          + ", ".join(f"{k} {s:.3f}" for k, s in res["seconds"].items())
+          + f"; launches {launches}; card {smi}")
+    if not (res["faces"] > 0 and len(verts) > 0 and np.isfinite(verts).all()
+            and f.max() < len(verts)):
+        raise RuntimeError(f"TSDF mesh ({label}) empty or not finite")
+    if launches["expand"] < res["views"] or launches["rasterize_fwd"] < res["views"]:
+        raise RuntimeError(f"TSDF depth renders launched {launches} for {res['views']} views")
+    return res
+
+
+def dtu_geometry(model: str, scene: str, label: str, smi: str) -> dict:
+    """eval_procedural_geometry.main: each mesh under model/test/ours_N
+    against gt_mesh.ply; the TSDF mesh's cropped mean_d2s under D2S_GATE."""
+    from gof_tpu_torch.scripts import eval_procedural_geometry
+
+    t0 = time.perf_counter()
+    res = eval_procedural_geometry.main(["-m", model, "-s", scene, "--iteration",
+                                         str(DTU_ITERS)])
+    print(f"dtu chain: eval_procedural_geometry ({label}) in {time.perf_counter() - t0:.2f} s "
+          f"(host); card {smi}")
+    for name, r in res.items():
+        print(f"  {label} {name}: F@{r['tau']} {r['fscore']:.4f}, precision "
+              f"{r['precision']:.4f}, recall {r['recall']:.4f}, chamfer {r['chamfer_overall']:.4f}"
+              f" (d2s {r['chamfer_mean_d2s']:.4f}, s2d {r['chamfer_mean_s2d']:.4f}); raw F "
+              f"{r['raw_fscore']:.4f}, chamfer {r['raw_chamfer_overall']:.4f}; "
+              f"{r['cropped_samples']} of {r['pred_samples']} samples in the crop")
+    if "tsdf" not in res or not res["tsdf"]["chamfer_mean_d2s"] < D2S_GATE:
+        raise RuntimeError(f"the {label} TSDF mesh's mean_d2s fails the gate {D2S_GATE}")
+    return res
+
+
+def dtu_chain(root: str, smi: str) -> dict:
+    """The DTU chain through the CLIs' mains on the card: the scene, train,
+    render_cli, metrics, and extract_mesh_tsdf in both layouts (the dense
+    mesh moved to a model dir of its own, so each TSDF mesh is scored
+    alone). extract_mesh, the geometry scores and the card-against-CPU
+    checks follow in main."""
+    scene, _ = dtu_scene(root, smi)
+    model = os.path.join(root, "dtu_model")
+    tp, gstate, _ = dtu_train(scene, model, smi)
+    dtu_render_metrics(model, smi)
+    dense = dtu_tsdf(model, TSDF_DENSE, "dense", smi)
+    dense_model = os.path.join(root, "dtu_dense")
+    dense_dir = os.path.join(dense_model, "test", f"ours_{DTU_ITERS}", "tsdf")
+    os.makedirs(dense_dir)
+    shutil.move(dense["path"], os.path.join(dense_dir, "tsdf.ply"))
+    sparse = dtu_tsdf(model, TSDF_SPARSE, "sparse", smi)
+    return {"scene": scene, "model": model, "dense_model": dense_model, "tp": tp,
+            "gstate": gstate, "dense": dense, "sparse": sparse}
+
+
+def dtu_card_vs_cpu(chain: dict, smi: str) -> None:
+    """The chain's two new device paths held against the port's own CPU
+    path on the same inputs: the appearance network at full width (1237x822,
+    crop 1216x800) with the trained weights, and fuse_blocks /
+    fuse_depth_maps (with discover_blocks) on three of the chain's depth
+    maps."""
+    import copy
+
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch import extract_mesh_tsdf
+    from gof_tpu_torch.data import scene as scene_lib
+    from gof_tpu_torch.mesh import tsdf as tsdf_lib
+    from gof_tpu_torch.model import appearance as app_lib
+    from gof_tpu_torch.render_cli import render_eval
+
+    cfg, _, _ = config_lib.load_cfg(chain["model"])
+    sc = scene_lib.Scene(cfg.source_path, "", eval_split=cfg.eval, shuffle=False)
+    tp, gstate = chain["tp"], chain["gstate"]
+    bg = torch.zeros(3, device="cuda")
+    infos = sc.train_cameras[::12][:3]
+    cams = [sc.camera(i, device="cuda") for i in infos]
+    outs = [render_eval(tp.gauss, gstate, c, cfg, bg).image for c, _ in cams]
+
+    # the appearance network: multiplier, appearance_l1 and the gradients
+    (cam, gt), image = cams[0], outs[0][:3].detach()
+    nets = {"card": (tp.app_net, tp.app_emb.detach()),
+            "cpu": (copy.deepcopy(tp.app_net).cpu(), tp.app_emb.detach().cpu())}
+    # appearance_l1's gradient into the multiplier is sign(diff) * crop / n:
+    # where the render times the multiplier meets the gt, the two devices'
+    # forwards (~1e-7 apart) can round to opposite signs, and one such pixel
+    # can move conv_out's gradient by most of the bound. The gradients are
+    # therefore held with the CPU's gradient into the multiplier fed to both
+    # backward passes; each device's own L1 gradient is printed beside them.
+    res, upstream = {}, None
+    for where in ("cpu", "card"):
+        net, emb = nets[where]
+        d = emb.device
+        leaves = {**{f"net.{n}": p for n, p in net.named_parameters()},
+                  "emb": emb.clone().requires_grad_(True)}
+        for p in leaves.values():
+            p.grad = None
+        crop = app_lib.center_crop_32(image.to(d))
+        mult = app_lib.appearance_multiplier(crop, net, leaves["emb"], cam.uid)
+        diff = mult * crop - app_lib.center_crop_32(torch.as_tensor(gt, device=d))
+        l1 = torch.mean(torch.abs(diff))
+        l1.backward(retain_graph=True)
+        own = {k: v.grad.detach().cpu().clone() for k, v in leaves.items()}
+        if upstream is None:
+            upstream = (torch.sign(diff) * crop / diff.numel()).detach()
+        for p in leaves.values():
+            p.grad = None
+        mult.backward(upstream.to(d))
+        res[where] = (mult.detach().cpu(), float(l1.detach()),
+                      {k: v.grad.detach().cpu() for k, v in leaves.items()}, own,
+                      (diff.detach() > 0).cpu())
+    (m_gpu, l_gpu, g_gpu, o_gpu, s_gpu), (m_cpu, l_cpu, g_cpu, o_cpu, s_cpu) = (res["card"],
+                                                                                res["cpu"])
+    merr = float((m_gpu - m_cpu).abs().max())
+    lerr = abs(l_gpu - l_cpu) / abs(l_cpu)
+
+    def rel(a, b):
+        return {k: float((a[k] - b[k]).abs().max() / b[k].abs().max()) for k in b}
+
+    gerr, oerr = rel(g_gpu, g_cpu), rel(o_gpu, o_cpu)
+    worst, oworst = max(gerr, key=gerr.get), max(oerr, key=oerr.get)
+    print(f"dtu chain, card against CPU: appearance network at {tuple(image.shape)}, crop "
+          f"{tuple(m_gpu.shape)}, uid {cam.uid}: multiplier max |err| {merr:.3e} (bound 1e-5), "
+          f"appearance_l1 {l_gpu:.7f} / {l_cpu:.7f}, rel err {lerr:.3e} (bound 1e-5); "
+          f"gradients of appearance_l1 at the CPU's signs, max |err| / max |CPU| worst {worst} "
+          f"{gerr[worst]:.3e} (bound 1e-4) over {len(gerr)} leaves; at each device's own "
+          f"signs, worst {oworst} {oerr[oworst]:.3e}, {int((s_gpu != s_cpu).sum())} pixels whose "
+          f"sign differs; card {smi}")
+    print("  per leaf (CPU's signs, own signs): " + ", ".join(
+        f"{k} {gerr[k]:.2e} {oerr[k]:.2e}" for k in gerr))
+    if merr > 1e-5 or lerr > 1e-5 or gerr[worst] > 1e-4:
+        raise RuntimeError("the appearance network on the card disagrees with the CPU")
+    emb_rows = (g_gpu["emb"].abs().sum(1) > 0).nonzero().flatten().tolist()
+    if emb_rows != [cam.uid]:
+        raise RuntimeError(f"embedding gradient rows {emb_rows}, not [{cam.uid}]")
+
+    # the fusion on three depth maps, with the chain's sparse and dense settings
+    depths = [extract_mesh_tsdf.masked_depth(o[6], o[7], i.alpha) for o, i in zip(outs, infos)]
+    colors = [o[:3] for o in outs]
+    cpu_cams = [sc.camera(i, device="cpu")[0] for i in infos]
+    card_cams = [c for c, _ in cams]
+
+    def held(label, card, cpu):
+        (t_g, w_g), (t_c, w_c) = [tuple(x.cpu() for x in pair) for pair in (card, cpu)]
+        differ = int((w_g != w_c).sum())
+        same = (w_g == w_c) & (w_g > 0)
+        both_obs = (w_g > 0) & (w_c > 0)
+        err = float((t_g[same] - t_c[same]).abs().max()) if same.any() else 0.0
+        err_obs = float((t_g[both_obs] - t_c[both_obs]).abs().max()) if both_obs.any() else 0.0
+        print(f"  {label}: {w_g.numel()} samples, {int((w_g > 0).sum())} observed; weight differs "
+              f"at {differ} ({differ / w_g.numel():.2e}, bound 1e-4); tsdf max |err| {err:.3e} "
+              f"where the weights agree (bound 1e-5), {err_obs:.3e} where both > 0")
+        if differ > 1e-4 * w_g.numel() or err > 1e-5:
+            raise RuntimeError(f"{label} on the card disagrees with the CPU")
+
+    blocks = {}
+    for where, cs in (("card", card_cams), ("cpu", cpu_cams)):
+        blocks[where] = tsdf_lib.discover_blocks([d.to(cs[0].world_view.device) for d in depths],
+                                                 cs, SPARSE_VOXEL, 16, SPARSE_TRUNC, DEPTH_MIN,
+                                                 DEPTH_MAX)
+    same_blocks = torch.equal(blocks["card"].cpu(), blocks["cpu"])
+    print(f"dtu chain, card against CPU: discover_blocks on views "
+          f"{[i.uid for i in infos]}: {len(blocks['card'])} / {len(blocks['cpu'])} blocks, equal "
+          f"{same_blocks}; card {smi}")
+    if not same_blocks:
+        raise RuntimeError("discover_blocks on the card disagrees with the CPU")
+    fused = {}
+    for where, cs in (("card", card_cams), ("cpu", cpu_cams)):
+        t0 = time.perf_counter()
+        d = cs[0].world_view.device
+        t, w, _ = tsdf_lib.fuse_blocks([x.to(d) for x in depths], [x.to(d) for x in colors],
+                                       cs, blocks[where], SPARSE_VOXEL, 16, SPARSE_TRUNC,
+                                       DEPTH_MIN, DEPTH_MAX)
+        torch.cuda.synchronize()
+        fused[where] = ((t, w), time.perf_counter() - t0)
+    print(f"  fuse_blocks: card {fused['card'][1]:.3f} s, CPU {fused['cpu'][1]:.3f} s (host clock)")
+    held("fuse_blocks", fused["card"][0], fused["cpu"][0])
+    lo, dvox, dims = extract_mesh_tsdf.dense_grid(tp.gauss, gstate, 0.002, DENSE_CHECK_DIM)
+    dense = {}
+    for where, cs in (("card", card_cams), ("cpu", cpu_cams)):
+        t0 = time.perf_counter()
+        r = tsdf_lib.fuse_depth_maps([x.to(cs[0].world_view.device) for x in depths], cs, lo,
+                                     dvox, dims, DENSE_TRUNC, DEPTH_MIN, DEPTH_MAX)
+        torch.cuda.synchronize()
+        dense[where] = (r, time.perf_counter() - t0)
+    print(f"  fuse_depth_maps on a {dims} grid (voxel {dvox:.4f}): card {dense['card'][1]:.3f} s, "
+          f"CPU {dense['cpu'][1]:.3f} s (host clock)")
+    held("fuse_depth_maps", dense["card"][0], dense["cpu"][0])
+
+
+# ---------------------------------------------------------------------------
 # Mesh extraction
 # ---------------------------------------------------------------------------
 
@@ -1192,9 +1595,9 @@ def mesh_entry(model: str, device: str = "cuda"):
     return res, launches
 
 
-def check_integrate(model: str, launches) -> dict:
+def check_integrate(model: str, launches, name: str) -> dict:
     """K5 against its plain version at full size: one training view of the
-    model and all of its tetra points."""
+    model and all of its tetra points; the `kernels` entry is `name`."""
     from gof_tpu_torch.mesh import extract
     from gof_tpu_torch.ops import integrate as ti
 
@@ -1220,7 +1623,7 @@ def check_integrate(model: str, launches) -> dict:
     seg_rows = (b.bounds[pb.block_tile.long() + 1] - b.bounds[pb.block_tile.long()]).long()
     real = (pb.point_of_slot < n).reshape(pb.n_blocks, ti.PBLOCK).sum(1)
     pairs = int((seg_rows * real).sum())
-    print(f"integrate: {n} tetra points of view 0, payload {tuple(payload.shape)}, "
+    print(f"{name}: {n} tetra points of view 0, payload {tuple(payload.shape)}, "
           f"{pb.n_blocks} point blocks ({int(real.sum())} real slots of "
           f"{pb.n_blocks * ti.PBLOCK}), {pairs} (point, gaussian row) pairs "
           f"({int((seg_rows * ti.PBLOCK).sum())} over all slots): max |err| "
@@ -1231,10 +1634,10 @@ def check_integrate(model: str, launches) -> dict:
         raise RuntimeError("integrate kernel disagrees with its plain version")
     ms = cuda_ms(lambda: ti.integrate_transmittance(payload, b, pb, n), 10)
     plain_ms = cuda_ms(lambda: ti.integrate_transmittance_reference(payload, b, pb, n), 3)
-    print(f"integrate: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     moved = (payload.numel() + 3 * pb.rx.numel() + pb.point_of_slot.numel() + b.bounds.numel()
              + n)
-    return bound({"name": "integrate", "route": "cuda",
+    return bound({"name": name, "route": "cuda",
                   "source": "gof_tpu_torch/csrc/integrate.cu",
                   "replaces": "gof_tpu/ops/integrate.py:113", "launches": launches["integrate"],
                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms},
@@ -1986,17 +2389,27 @@ def main() -> None:
         saved, densify_inputs = densify_entry(src, densified, smi)
         resume_entry(src, densified, saved)
         grown_kernels = densify_card_vs_cpu(src, densify_inputs, smi)
-        mesh_model = trained
-        _, mesh_launches = mesh_entry(trained)
+        chain = dtu_chain(root, smi)
+        mesh_model = chain["model"]
+        _, mesh_launches = mesh_entry(mesh_model)
         if mesh_launches is None:
-            print("mesh: the trained model's field crosses 0.5 nowhere; extracting the "
+            print("mesh: the chain model's field crosses 0.5 nowhere; extracting the "
                   "serving model instead")
             mesh_model = model
             _, mesh_launches = mesh_entry(model)
             if mesh_launches is None:
                 raise RuntimeError("the serving model's field crosses 0.5 nowhere either")
-        integrate_kernel = check_integrate(mesh_model, mesh_launches)
+        # K5 at view 0 of the 12-step model of 100k gaussians (the inputs of
+        # the "integrate" entry since its redesign) and of the mesh path's model
+        integrate_kernels = [check_integrate(trained, mesh_launches, "integrate"),
+                             check_integrate(mesh_model, mesh_launches, "integrate (chain model)"
+                                             if mesh_model == chain["model"] else
+                                             "integrate (serving model)")]
         check_small_mesh()
+        dtu_geometry(chain["model"], chain["scene"], "marching tets and sparse TSDF", smi)
+        dtu_geometry(chain["dense_model"], chain["scene"], "dense TSDF", smi)
+        dtu_card_vs_cpu(chain, smi)
+        del chain
         probe_kernels = probe_phase()
         ins = bench_phase("densify", True, False, 5000, launches)
         print("  kernels against their plain versions at this view's shapes:")
@@ -2009,7 +2422,7 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"render ms per view: {[s['ms'] for s in stats]}")
-    print(json.dumps({"kernels": kernels + grown_kernels + [serve_fwd, integrate_kernel]
+    print(json.dumps({"kernels": kernels + grown_kernels + [serve_fwd, *integrate_kernels]
                       + probe_kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,9 +11,12 @@ Ported so far: the serving path (constants, transforms, sh, cameras,
 config, model.gaussians, utils.ply, data.{colmap,readers,scene},
 ops.{quadrics,class_gather,binning,rasterize,tiled_ref,render}, render_cli)
 one training step with its host loop (ops.{rasterize backward, reduce,
-blend, knn}, utils.{losses,schedules}, train) and opacity-field mesh
-extraction (ops.integrate, mesh.{tetmesh,extract}, extract_mesh). This
-package never imports jax or gof_tpu.
+blend, knn}, utils.{losses,schedules}, train, with model.appearance),
+opacity-field mesh extraction (ops.integrate, mesh.{tetmesh,extract},
+extract_mesh) and the DTU/TNT chain after it (mesh.tsdf,
+extract_mesh_tsdf, metrics, utils.lpips, create_fused_ply,
+eval.{geometry,dtu,tnt}, scripts.{make_procedural_scene,
+eval_procedural_geometry}). This package never imports jax or gof_tpu.
 """
 
 __version__ = "0.1.0"

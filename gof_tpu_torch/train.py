@@ -11,7 +11,10 @@ statistics and regularizer channels, SH warm-up, opacity-reset cadence,
 3D-filter refresh, `train_log.jsonl` records, eval and PLY snapshots.
 
 Loss (gof_tpu train.py:355-383):
-  rgb:        (1 - lambda_dssim) * L1 + lambda_dssim * (1 - SSIM)
+  rgb:        (1 - lambda_dssim) * L1 + lambda_dssim * (1 - SSIM); with
+              --use_decoupled_appearance the L1 is appearance_l1's, on the
+              render times the appearance network's multiplier for the
+              camera's embedding row (model/appearance.py)
   distortion: mean of channel 8, weight lambda_distortion from
               distortion_from_iter
   normal:     mean of 1 - dot(rendered normal in world, normal from depth),
@@ -27,10 +30,9 @@ gof_tpu's), --start_checkpoint, --debug's fail-time npz dump,
 --debug_image_interval grids (utils/vis.py), --profile_dir (a torch.profiler
 trace) and the TensorBoard scalars follow gof_tpu.
 
-Not ported yet; each raises NotImplementedError naming its ROADMAP item
-rather than being skipped: the decoupled appearance network (A.10) and
---dp > 1 (A.18). There are no capacity re-jits or overflow gates: the port
-sizes its render buffers from each view's demand.
+Not ported yet: --dp > 1 (A.18) raises NotImplementedError naming its
+ROADMAP item rather than being skipped. There are no capacity re-jits or
+overflow gates: the port sizes its render buffers from each view's demand.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import pickle
 import random
 import time
 from collections import namedtuple
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -51,6 +53,7 @@ import torch.nn.functional as F
 from . import cameras as cameras_lib
 from . import config as config_lib
 from .data import scene as scene_lib
+from .model import appearance as app_lib
 from .model import gaussians as gm
 from .ops import render as render_lib
 from .ops.blend import pixel_rays
@@ -72,20 +75,34 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 @dataclass
 class TrainParams:
-    """Trainable state: the gaussians (the appearance network waits,
-    ROADMAP A.10)."""
+    """Trainable state: the gaussians and, with the decoupled appearance
+    network, the network and its [2048, 64] per-view embeddings (None
+    without: a run without --use_decoupled_appearance builds no network)."""
 
     gauss: gm.GaussianParams
+    app_net: app_lib.AppearanceNetwork | None = None
+    app_emb: torch.Tensor | None = None
+
+
+def app_leaves(tp: TrainParams) -> dict:
+    """The appearance parameters by name ("net.<parameter>", then "emb");
+    empty without the network."""
+    if tp.app_net is None:
+        return {}
+    return {**{f"net.{n}": p for n, p in tp.app_net.named_parameters()}, "emb": tp.app_emb}
 
 
 @dataclass
 class AdamState:
     """Adam moments per gaussian field, shaped like the field (gof_tpu keeps
-    them as lanes-major [59, CAP] buffers, a TPU layout choice)."""
+    them as lanes-major [59, CAP] buffers, a TPU layout choice), and per
+    appearance leaf, keyed as app_leaves (None without the network)."""
 
     count: int
     mu: gm.GaussianParams
     nu: gm.GaussianParams
+    mu_app: dict | None = None
+    nu_app: dict | None = None
 
 
 class Adam:
@@ -93,7 +110,9 @@ class Adam:
     gof_tpu's arithmetic (train.py:139-150): b1 0.9, b2 0.999, eps 1e-15,
     the position lr on gof_tpu's exponential schedule scaled by the scene
     extent and evaluated at the update count, fixed lrs for the other
-    groups (features_rest at feature_lr / 20)."""
+    groups (features_rest at feature_lr / 20); the appearance leaves per
+    leaf at appearance_network_lr and appearance_embeddings_lr, with the
+    same count and bias corrections (train.py:165-180)."""
 
     b1, b2, eps = 0.9, 0.999, 1e-15
 
@@ -119,31 +138,70 @@ class Adam:
             return gm.GaussianParams(*[torch.zeros_like(getattr(tp.gauss, f).detach())
                                        for f in GAUSS_FIELDS])
 
-        return AdamState(count=0, mu=zeros(), nu=zeros())
+        mu_app, nu_app = zero_app_moments(tp)
+        return AdamState(count=0, mu=zeros(), nu=zeros(), mu_app=mu_app, nu_app=nu_app)
+
+    def _leaf(self, g, m, v, lr, bc1, bc2):
+        m2 = self.b1 * m + (1.0 - self.b1) * g
+        v2 = self.b2 * v + (1.0 - self.b2) * g * g
+        return (-lr) * (m2 / bc1) / (torch.sqrt(v2 / bc2) + self.eps), m2, v2
+
+    def _bias_corrections(self, count: int, dev):
+        cf = torch.tensor(float(count), dtype=torch.float32, device=dev)
+        return 1.0 - torch.pow(self.b1, cf), 1.0 - torch.pow(self.b2, cf)
 
     def update(self, grads: gm.GaussianParams, state: AdamState):
-        """Returns (updates, new state); updates are added to the params."""
-        b1, b2 = self.b1, self.b2
+        """Returns (updates, new state); updates are added to the params.
+        The appearance moments pass through unchanged (update_app)."""
         dev = grads.xyz.device
         count_inc = state.count + 1
-        cf = torch.tensor(float(count_inc), dtype=torch.float32, device=dev)
-        bc1 = 1.0 - torch.pow(b1, cf)
-        bc2 = 1.0 - torch.pow(b2, cf)
+        bc1, bc2 = self._bias_corrections(count_inc, dev)
         lrs = self.group_lrs(state.count)
         upd, mu, nu = {}, {}, {}
         for f in GAUSS_FIELDS:
-            g, m, v = getattr(grads, f), getattr(state.mu, f), getattr(state.nu, f)
             lr = torch.as_tensor(lrs[f], dtype=torch.float32).to(dev)
-            m2 = b1 * m + (1.0 - b1) * g
-            v2 = b2 * v + (1.0 - b2) * g * g
-            upd[f] = (-lr) * (m2 / bc1) / (torch.sqrt(v2 / bc2) + self.eps)
-            mu[f], nu[f] = m2, v2
+            upd[f], mu[f], nu[f] = self._leaf(getattr(grads, f), getattr(state.mu, f),
+                                              getattr(state.nu, f), lr, bc1, bc2)
         return (gm.GaussianParams(**upd),
-                AdamState(count=count_inc, mu=gm.GaussianParams(**mu), nu=gm.GaussianParams(**nu)))
+                replace(state, count=count_inc, mu=gm.GaussianParams(**mu),
+                        nu=gm.GaussianParams(**nu)))
+
+    def update_app(self, grads: dict, state: AdamState):
+        """The appearance leaves' step, keyed as app_leaves; called after
+        update() of the same step, whose count (state.count) gives the bias
+        corrections, as gof_tpu's one update does. Returns (updates, new
+        state)."""
+        dev = grads["emb"].device
+        bc1, bc2 = self._bias_corrections(state.count, dev)
+        lr_net = torch.tensor(self.opt.appearance_network_lr, dtype=torch.float32, device=dev)
+        lr_emb = torch.tensor(self.opt.appearance_embeddings_lr, dtype=torch.float32, device=dev)
+        upd, mu, nu = {}, {}, {}
+        for k, g in grads.items():
+            upd[k], mu[k], nu[k] = self._leaf(g, state.mu_app[k], state.nu_app[k],
+                                              lr_emb if k == "emb" else lr_net, bc1, bc2)
+        return upd, replace(state, mu_app=mu, nu_app=nu)
 
 
 def make_optimizer(opt: config_lib.OptimizationParams, spatial_lr_scale: float) -> Adam:
     return Adam(opt, spatial_lr_scale)
+
+
+def zero_app_moments(tp: TrainParams):
+    """(mu_app, nu_app) zeros for tp's appearance leaves, or (None, None)."""
+    if tp.app_net is None:
+        return None, None
+    return tuple({k: torch.zeros_like(p.detach()) for k, p in app_leaves(tp).items()}
+                 for _ in range(2))
+
+
+def init_appearance(tp: TrainParams, opt_state: AdamState, device) -> tuple:
+    """Give tp the appearance network and embeddings gof_tpu's loop starts
+    from (train.py:629-631), drawn from a CPU generator seeded 0, with zero
+    moments. Returns (tp, opt_state)."""
+    net, emb = app_lib.init_appearance(torch.Generator().manual_seed(0), device)
+    tp = replace(tp, app_net=net, app_emb=emb)
+    mu_app, nu_app = zero_app_moments(tp)
+    return tp, replace(opt_state, mu_app=mu_app, nu_app=nu_app)
 
 
 def from_numpy(opt_state, like: gm.GaussianParams, device: torch.device | str = "cpu") -> AdamState:
@@ -161,18 +219,42 @@ def from_numpy(opt_state, like: gm.GaussianParams, device: torch.device | str = 
             for f, a, b in zip(GAUSS_FIELDS, edges[:-1], edges[1:])])
 
     return AdamState(count=int(np.asarray(opt_state.count)), mu=split(opt_state.mu_flat),
-                     nu=split(opt_state.nu_flat))
+                     nu=split(opt_state.nu_flat),
+                     mu_app=app_moments_from_numpy(opt_state.mu_app, device),
+                     nu_app=app_moments_from_numpy(opt_state.nu_app, device))
+
+
+def app_moments_from_numpy(moments, device: torch.device | str = "cpu"):
+    """gof_tpu's appearance moments, (flax tree, embeddings' moment), ->
+    a dict keyed as app_leaves; None stays None."""
+    if moments is None:
+        return None
+    net, emb = moments
+    out = {f"net.{k}": v.to(device) for k, v in app_lib.net_state_from_flax(net).items()}
+    out["emb"] = torch.tensor(np.asarray(emb, np.float32), device=device)
+    return out
+
+
+def app_moments_to_numpy(moments: dict | None):
+    """The inverse of app_moments_from_numpy."""
+    if moments is None:
+        return None
+    net = app_lib.net_state_to_flax({k[4:]: v for k, v in moments.items() if k != "emb"})
+    return net, moments["emb"].detach().cpu().numpy()
 
 
 def adam_to_numpy(state: AdamState) -> FusedAdamState:
     """The inverse of from_numpy: count and the moments in gof_tpu's
-    [NCOL, CAP] layout, as numpy arrays."""
+    [NCOL, CAP] layout, and the appearance moments in its trees, as numpy
+    arrays."""
     def flat(g: gm.GaussianParams) -> np.ndarray:
         cap = g.xyz.shape[0]
         return np.concatenate([getattr(g, f).detach().cpu().numpy().reshape(cap, -1).T
                                for f in GAUSS_FIELDS], axis=0)
 
-    return FusedAdamState(count=int(state.count), mu_flat=flat(state.mu), nu_flat=flat(state.nu))
+    return FusedAdamState(count=int(state.count), mu_flat=flat(state.mu), nu_flat=flat(state.nu),
+                          mu_app=app_moments_to_numpy(state.mu_app),
+                          nu_app=app_moments_to_numpy(state.nu_app))
 
 
 @torch.no_grad()
@@ -182,8 +264,8 @@ def grow_capacity(tp: TrainParams, gstate: gm.GaussianState, opt_state: AdamStat
     train.py:569-596): every per-slot tensor (params, GaussianState and the
     moments) padded from old_cap to new_cap slots with zeros, except
     rotation[:, 0] = 1 in the new slots, as gof_tpu pads (init_from_points
-    pads scaling with -10 instead). Adam's count is unchanged. Returns new
-    (tp, gstate, opt_state)."""
+    pads scaling with -10 instead). Adam's count and the appearance state
+    are unchanged. Returns new (tp, gstate, opt_state)."""
     def pad(x: torch.Tensor) -> torch.Tensor:
         out = x.new_zeros((new_cap,) + tuple(x.shape[1:]))
         out[:old_cap] = x.detach()
@@ -195,8 +277,8 @@ def grow_capacity(tp: TrainParams, gstate: gm.GaussianState, opt_state: AdamStat
     gauss = pad_all(tp.gauss)
     gauss.rotation[old_cap:, 0] = 1.0
     gstate = gm.GaussianState(*[pad(getattr(gstate, f)) for f in STATE_FIELDS])
-    opt_state = AdamState(count=opt_state.count, mu=pad_all(opt_state.mu), nu=pad_all(opt_state.nu))
-    return TrainParams(gauss=gauss), gstate, opt_state
+    opt_state = replace(opt_state, mu=pad_all(opt_state.mu), nu=pad_all(opt_state.nu))
+    return replace(tp, gauss=gauss), gstate, opt_state
 
 
 def pool_capacity(n_points: int) -> int:
@@ -231,12 +313,17 @@ def masked_shs(params: gm.GaussianParams, active_degree: int, max_degree: int) -
 
 
 def train_loss(image: torch.Tensor, gt: torch.Tensor, camera: cameras_lib.Camera,
-               opt: config_lib.OptimizationParams, step: int, with_reg: bool):
+               opt: config_lib.OptimizationParams, step: int, with_reg: bool, app=None):
     """The step's loss from the rendered [9, H, W] image (train.py:355-383).
     Returns (loss, l1, ssim, distortion, depth_normal); without with_reg the
-    regularizer channels are not rendered and their terms are zero."""
+    regularizer channels are not rendered and their terms are zero. `app`,
+    (network, embeddings) or None, selects appearance_l1 at the camera's
+    uid for the L1."""
     rgb = image[:3]
-    l1 = losses.l1_loss(rgb, gt)
+    if app is None:
+        l1 = losses.l1_loss(rgb, gt)
+    else:
+        l1 = app_lib.appearance_l1(rgb, gt, *app, camera.uid)
     ssim_val = losses.ssim(rgb, gt)
     loss = (1.0 - opt.lambda_dssim) * l1 + opt.lambda_dssim * (1.0 - ssim_val)
     zero = torch.zeros((), device=image.device)
@@ -263,13 +350,17 @@ def build_train_step(opt: config_lib.OptimizationParams, model_cfg: config_lib.M
 
     The params are updated in place (they stay autograd leaves); the
     optimizer and densification states are returned anew. `key_overflow` and
-    `compact_overflow` are always False: there is no overflow gate.
+    `compact_overflow` are always False: there is no overflow gate. With
+    --use_decoupled_appearance the L1 goes through tp's appearance network,
+    which Adam steps with the gaussians. Without the flag, an appearance
+    state that tp carries (a gof_tpu checkpoint always holds one) feeds
+    nothing and is stepped with zero gradients, as gof_tpu does
+    (train.py:409-415): its momentum alone moves it.
     """
     del pipe  # gof_tpu's capacities and backend; the port needs neither
     if dp != 1:
         raise _not_ported(f"--dp {dp} (camera-batch data parallelism)", "A.18")
-    if model_cfg.use_decoupled_appearance:
-        raise _not_ported("--use_decoupled_appearance", "A.10")
+    use_app = model_cfg.use_decoupled_appearance
     sh_degree = model_cfg.sh_degree
     kernel_size = model_cfg.kernel_size
 
@@ -277,6 +368,9 @@ def build_train_step(opt: config_lib.OptimizationParams, model_cfg: config_lib.M
                 gt: torch.Tensor, step: int, camera: cameras_lib.Camera, bg: torch.Tensor):
         g = tp.gauss
         leaves = [getattr(g, f).requires_grad_(True) for f in GAUSS_FIELDS]
+        app = app_leaves(tp) if use_app else {}
+        for x in app.values():
+            x.requires_grad_(True)
         active_degree = min(int(step) // 1000, sh_degree)
         carrier = torch.zeros((g.xyz.shape[0], 3), device=g.xyz.device, requires_grad=True)
         scales_f = gm.filtered_scaling(g, gstate.filter_3d)
@@ -286,7 +380,8 @@ def build_train_step(opt: config_lib.OptimizationParams, model_cfg: config_lib.M
                                 kernel_size, bg, carrier=carrier, active_mask=gstate.active,
                                 with_stats=with_stats, with_reg=with_reg)
         loss, l1, ssim_val, distortion_loss, depth_normal_loss = train_loss(
-            out.image, gt, camera, opt, step, with_reg)
+            out.image, gt, camera, opt, step, with_reg,
+            (tp.app_net, tp.app_emb) if use_app else None)
         image = out.image[:3]
         loss.backward()
         grads = gm.GaussianParams(*[x.grad for x in leaves])
@@ -296,6 +391,14 @@ def build_train_step(opt: config_lib.OptimizationParams, model_cfg: config_lib.M
             for x, f in zip(leaves, GAUSS_FIELDS):
                 x.add_(getattr(updates, f))
                 x.grad = None
+            carried = app if use_app else app_leaves(tp)
+            if carried:
+                app_upd, opt_state = tx.update_app(
+                    {k: x.grad if use_app else torch.zeros_like(x) for k, x in carried.items()},
+                    opt_state)
+                for k, x in carried.items():
+                    x.add_(app_upd[k])
+                    x.grad = None
             psnr = losses.psnr(image, gt)
             false = torch.zeros((), dtype=torch.bool, device=image.device)
             metrics = {"l1": l1.detach(), "ssim": ssim_val.detach(),
@@ -360,6 +463,8 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
                                             model_cfg.sh_degree, cap, device=device)
         tp = TrainParams(gauss=gauss)
         opt_state = tx.init(tp)
+    if model_cfg.use_decoupled_appearance and tp.app_net is None:
+        tp, opt_state = init_appearance(tp, opt_state, device)
 
     cam_meta = sc.all_cameras_meta(sc.train_cameras, device=device)
     gstate.filter_3d = gm.compute_3d_filter(tp.gauss.xyz, gstate.active, *cam_meta)
@@ -441,7 +546,7 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
                         tp.gauss, gstate, opt_state, noise, opt.densify_grad_threshold,
                         0.05, sc.cameras_extent, opt.percent_dense,
                         iteration > opt.opacity_reset_interval)
-                    tp = TrainParams(gauss=gauss)
+                    tp = replace(tp, gauss=gauss)
                     if bool(rep.pool_overflow):  # the densify step's one host read
                         tp, gstate, opt_state = grow_capacity(tp, gstate, opt_state, cap,
                                                               2 * cap)
@@ -551,13 +656,18 @@ def save_checkpoint(model_path: str, iteration: int, tp: TrainParams, opt_state:
     """Write chkpnt{iteration}.pkl into model_path (gof_tpu
     train.py:1203-1213): a pickle of plain dicts of numpy arrays and ints,
     {"gauss": {field: array}, "gstate": {field: array}, "adam": {"count",
-    "mu_flat", "nu_flat"} in adam_to_numpy's layout, "iter": iteration}.
-    Returns the path."""
+    "mu_flat", "nu_flat"} in adam_to_numpy's layout, "iter": iteration};
+    with the appearance network also "app_net" (gof_tpu's flax tree),
+    "app_emb" and, in "adam", "mu_app" / "nu_app" as gof_tpu's (tree,
+    embeddings) pairs. Returns the path."""
     adam = adam_to_numpy(opt_state)
     blob = {"gauss": {f: getattr(tp.gauss, f).detach().cpu().numpy() for f in GAUSS_FIELDS},
             "gstate": {f: getattr(gstate, f).cpu().numpy() for f in STATE_FIELDS},
             "adam": {"count": adam.count, "mu_flat": adam.mu_flat, "nu_flat": adam.nu_flat},
             "iter": int(iteration)}
+    if tp.app_net is not None:
+        blob["app_net"], blob["app_emb"] = app_lib.app_to_numpy(tp.app_net, tp.app_emb)
+        blob["adam"].update(mu_app=adam.mu_app, nu_app=adam.nu_app)
     path = os.path.join(model_path, f"chkpnt{iteration}.pkl")
     with open(path, "wb") as f:
         pickle.dump(blob, f, protocol=pickle.HIGHEST_PROTOCOL)
@@ -601,14 +711,14 @@ class _CheckpointUnpickler(pickle.Unpickler):
 def load_checkpoint(path: str, device: torch.device | str = "cpu"):
     """Read a checkpoint written by save_checkpoint or by gof_tpu's
     (train.py:1216-1245). Returns (TrainParams, AdamState, GaussianState,
-    iteration) on `device`. A gof_tpu checkpoint always holds the
-    appearance network and its moments (app_net, app_emb, mu_app, nu_app);
-    they are dropped while the network is unported (ROADMAP A.10). gof_tpu's
-    legacy migration is not ported."""
+    iteration) on `device`, with the appearance network, its embeddings and
+    their moments where the checkpoint holds them (gof_tpu's always do).
+    gof_tpu's legacy migration is not ported."""
     with open(path, "rb") as f:
         blob = _CheckpointUnpickler(f).load()
     if "tp" in blob:  # gof_tpu's {"tp", "opt_state", "gstate", "iter"}
-        gauss, gstate, adam = blob["tp"].gauss, blob["gstate"], blob["opt_state"]
+        tp, gstate, adam = blob["tp"], blob["gstate"], blob["opt_state"]
+        gauss, app_net, app_emb = tp.gauss, tp.app_net, tp.app_emb
         if not isinstance(adam.mu_flat, np.ndarray):
             raise ValueError(f"{path}: a legacy gof_tpu checkpoint (moments stored as "
                              "TrainParams trees); gof_tpu.train.load_checkpoint migrates it, "
@@ -617,8 +727,12 @@ def load_checkpoint(path: str, device: torch.device | str = "cpu"):
         gauss = _GOF_CLASSES[("gof_tpu.model.gaussians", "GaussianParams")](**blob["gauss"])
         gstate = _GOF_CLASSES[("gof_tpu.model.gaussians", "GaussianState")](**blob["gstate"])
         adam = FusedAdamState(**blob["adam"])
+        app_net, app_emb = blob.get("app_net"), blob.get("app_emb")
     g, s = gm.from_numpy(gauss, gstate, device)
-    return TrainParams(gauss=g), from_numpy(adam, g, device), s, int(blob["iter"])
+    tp = TrainParams(gauss=g)
+    if app_net is not None:
+        tp.app_net, tp.app_emb = app_lib.app_from_numpy(app_net, app_emb, device)
+    return tp, from_numpy(adam, g, device), s, int(blob["iter"])
 
 
 def main(argv=None):

@@ -376,12 +376,84 @@ def test_train_main_cpu_writes_log_and_ply(synth_scene, tmp_path):
     assert os.path.exists(os.path.join(out, "test", "ours_5", "renders", "00001.png"))
 
 
-@pytest.mark.parametrize("extra", [["--use_decoupled_appearance"], ["--dp", "2"]],
-                         ids=["appearance", "dp"])
+@pytest.mark.parametrize("extra", [["--dp", "2"]], ids=["dp"])
 def test_train_unported_options_raise(synth_scene, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.main(["-s", synth_scene, "-m", str(tmp_path / "x"), "--cpu", "--iterations",
                      "3", "--sh_degree", "0", "--quiet", *extra])
+
+
+def test_train_with_decoupled_appearance(synth_scene, tmp_path, monkeypatch):
+    """--use_decoupled_appearance trains: every step's L1 goes through
+    appearance_l1 at the camera's uid; the embeddings of the trained uids
+    move and every other row keeps its initial bits; every network weight
+    moves; the checkpoint carries app_net, app_emb and their moments bit for
+    bit."""
+    from gof_tpu_torch.model import appearance as tapp
+
+    out = str(tmp_path / "app")
+    uids = []
+    spy_on(monkeypatch, tapp, "appearance_l1", uids, lambda a, r: a[4])
+    ttrain.main(["-s", synth_scene, "-m", out, "--cpu", "--iterations", "10", "--sh_degree",
+                 "1", "--kernel_size", "0.1", "--use_decoupled_appearance",
+                 "--checkpoint_iterations", "10", "--test_iterations", "99", "--quiet"])
+    assert len(uids) == 10
+    recs = [r for r in log_records(out) if "loss" in r]
+    assert recs[-1]["iter"] == 10 and np.isfinite(recs[-1]["loss"])
+    path = os.path.join(out, "chkpnt10.pkl")
+    tp, st, gs, it = ttrain.load_checkpoint(path)
+    net0, emb0 = tapp.init_appearance(torch.Generator().manual_seed(0))
+    trained = np.isin(np.arange(2048), uids)
+    moved = (tp.app_emb != emb0).any(dim=1).numpy()
+    assert (moved == trained).all()
+    for (n, a), b in zip(tp.app_net.named_parameters(), net0.parameters()):
+        assert not torch.equal(a.detach(), b), n
+    assert st.count == 10 and (st.mu_app["emb"][~torch.from_numpy(trained)] == 0).all()
+    path2 = ttrain.save_checkpoint(str(tmp_path), 10, tp, st, gs)
+    tp2, st2, _, _ = ttrain.load_checkpoint(path2)
+    for k, a in ttrain.app_leaves(tp).items():
+        assert torch.equal(a, ttrain.app_leaves(tp2)[k]), k
+        assert torch.equal(st.mu_app[k], st2.mu_app[k]) and torch.equal(st.nu_app[k],
+                                                                        st2.nu_app[k]), k
+
+
+def test_opacity_reset_keeps_opacity_moments(synth_scene, tmp_path):
+    """ROADMAP C14: a loop that resets the opacities at step 3 keeps
+    opacity's Adam moments as they were, in the port and in gof_tpu (the
+    original's reset replaces the optimizer's tensor and zeroes them). Each
+    package runs 3 steps twice, with and without the reset, and checkpoints
+    at 3: the opacities differ, the moments are bit-equal."""
+    from gof_tpu import config as jconfig_
+
+    argv = ["-s", synth_scene, "--cpu", "--iterations", "3", "--sh_degree", "1",
+            "--kernel_size", "0.1", "--densify_from_iter", "100", "--densify_until_iter", "10",
+            "--checkpoint_iterations", "3", "--test_iterations", "99", "--quiet"]
+    port, gof = {}, {}
+    for reset in (3, 1000):
+        out = str(tmp_path / f"port{reset}")
+        ttrain.main(argv + ["-m", out, "--opacity_reset_interval", str(reset)])
+        port[reset] = ttrain.load_checkpoint(os.path.join(out, "chkpnt3.pkl"))
+        out = str(tmp_path / f"gof{reset}")
+        jtrain.training(
+            jconfig_.ModelParams(source_path=synth_scene, model_path=out, sh_degree=1,
+                                 kernel_size=0.1),
+            jconfig_.OptimizationParams(iterations=3, densify_from_iter=100,
+                                        densify_until_iter=10, opacity_reset_interval=reset),
+            jconfig_.PipelineParams(backend="xla", key_capacity=512), test_iterations=set(),
+            save_iterations=set(), checkpoint_iterations={3}, quiet=True)
+        gof[reset] = jtrain.load_checkpoint(os.path.join(out, "chkpnt3.pkl"))
+    (tp_r, st_r, gs_r, _), (tp_n, st_n, *_) = port[3], port[1000]
+    assert not torch.equal(tp_r.gauss.opacity, tp_n.gauss.opacity)
+    assert float(tgm.filtered_opacity(tp_r.gauss, gs_r.filter_3d)[gs_r.active].max()) <= 0.0101
+    for m in ("mu", "nu"):
+        assert torch.equal(getattr(st_r, m).opacity, getattr(st_n, m).opacity), m
+        assert float(getattr(st_r, m).opacity.abs().max()) > 0, m
+    (jtp_r, jst_r, *_), (jtp_n, jst_n, *_) = gof[3], gof[1000]
+    assert not np.array_equal(np.asarray(jtp_r.gauss.opacity), np.asarray(jtp_n.gauss.opacity))
+    for m in ("mu_flat", "nu_flat"):
+        a, b = np.asarray(getattr(jst_r, m))[-1], np.asarray(getattr(jst_n, m))[-1]  # opacity row
+        np.testing.assert_array_equal(a, b)
+        assert np.abs(a).max() > 0, m
 
 
 # ---------------------------------------------------------------------------
