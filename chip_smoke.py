@@ -43,6 +43,21 @@ GPU.
    overflows, grow_capacity doubles it and one train step runs on it
    through build_train_step (K1-K4 each launched); K2, K1, K3 and K4 are
    held against their plain versions at that grown pool's shapes, as in 10;
+7b. liveness: the same scene through gof_tpu_torch.train.main for 48 steps
+   with densification over at 16 (nothing densifies) and temporal liveness
+   culling and the regularizers from 17: each step's host ms, key slots,
+   live demand and skip, K2 and K1 launched every step, K3 and K4 on every
+   step not skipped; at the trained state, each of the 8 views without a
+   limit and with warm limits (live_counts + 2): channels 0-7 bit-equal, T
+   and the distortion differing only where both T are below 1e-4, and one
+   build_train_step (with and without the regularizers) leaving a
+   bit-equal state; stale limits (1 chunk) on a translucent copy: live_bad
+   equal to the CPU's, the step a no-op that grows the bad tiles' bounds;
+   at view 0 the step's layers with and without the limit (CUDA events),
+   the whole step (host clock) and device busy / idle (torch.profiler), K1,
+   K3 and K4 on the compacted list against their plain versions; the xla
+   backend and the dense oracle on the card against the CUDA path (images
+   and the rasterizer inputs' gradients);
 8. the DTU/TNT chain, each stage through its CLI's main on the card with
    its launches counted: gof_tpu_torch.scripts.make_procedural_scene writes
    its default scene (1237x822, 36 train and 6 test views, 40k points,
@@ -116,7 +131,8 @@ GPU.
 12. profile single calls of K1, K3, K4 (both entries), K8, K9, K10, K11 and
    K13 (device time of each kernel they launch) in each phase;
 13. print the kernels' JSON line (the four of the first bench phase, K1, K3
-   and K4 of the second, the four on the grown pool of 7, K1 at the serving
+   and K4 of the second, the four on the grown pool of 7, K1, K3 and K4 on
+   the compacted list of 7b, K1 at the serving
    view, K5 at the chain model's first view and K6-K13, each with
    its bound and library time),
    the card's name and power limit, and as the last line
@@ -170,6 +186,16 @@ DENSIFY_ARGS = ["--iterations", str(DENSIFY_ITERS), "--densify_from_iter", "9",
                 "--depth_normal_from_iter", "15", "--checkpoint_iterations", "20", "40",
                 "--test_iterations", "40", "--save_iterations", "40"]
 DENSIFY_AT = (10, 20, 30)
+# the late training step: densification ends at 16 (densify_from_iter keeps
+# its default 500, so nothing densifies) and temporal liveness culling
+# turns on at 17, with the regularizers (gof_tpu's defaults turn them on at
+# 15,000, culling at 15,001); 48 steps visit each of the 8 views about four
+# times with culling on
+LIVE_ITERS, LIVE_UNTIL = 48, 16
+LIVE_ARGS = ["--iterations", str(LIVE_ITERS), "--densify_until_iter", str(LIVE_UNTIL),
+             "--distortion_from_iter", str(LIVE_UNTIL + 1),
+             "--depth_normal_from_iter", str(LIVE_UNTIL + 1),
+             "--test_iterations", str(LIVE_ITERS + 1)]
 BENCH_REPS = 10
 # the DTU/TNT chain on the procedural scene: the DTU job's training flags
 # (scripts/run_benchmarks.py:147-160) for 1000 steps, densifying at
@@ -757,27 +783,35 @@ def train_counters():
     return class_gather.EXPAND, rasterize.FWD, rasterize.BWD, reduce.REDUCE
 
 
-def timed_build(build, steps: list):
+def timed_build(build, steps: list, last: dict | None = None):
     """Wraps train.build_train_step: each step it builds is timed on the host
     clock between synchronisations and appended to `steps` with its
-    iteration, loss, active count, capacity and K2/K1/K3/K4 launches."""
+    iteration, loss, active count, capacity, K2/K1/K3/K4 launches and its
+    liveness metrics (whether it got a cache row, the key slots, the live
+    demand, whether it skipped its update); `last["state"]` holds the state
+    the last step returned."""
     counters = train_counters()
 
     def build_timed(*a, **k):
         step = build(*a, **k)
 
-        def timed(*args):
+        def timed(*args, **kw):
             before = [c.launches for c in counters]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = step(*args)
+            res = step(*args, **kw)
             loss = float(res[3]["loss"])
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             gs = res[2]
+            packed = res[3]["packed"].tolist()
             steps.append({"iter": int(args[4]), "ms": ms, "loss": loss,
                           "active": int(gs.active.sum()), "cap": int(gs.active.shape[0]),
-                          "launches": [c.launches - b for c, b in zip(counters, before)]})
+                          "launches": [c.launches - b for c, b in zip(counters, before)],
+                          "culled": kw.get("lim") is not None, "slots": int(packed[2]),
+                          "live_demand": int(packed[7]), "skipped": bool(packed[9])})
+            if last is not None:
+                last["state"] = res[:3]
             return res
 
         return timed
@@ -1150,6 +1184,352 @@ def densify_card_vs_cpu(src: str, inputs, smi: str) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Temporal liveness culling in the late training step
+# ---------------------------------------------------------------------------
+
+
+def live_setup(src: str, state):
+    """The liveness phase's fixed inputs: the scene's 8 training views and
+    their ground truth on the card, the loop's optimizer settings and a
+    copy of `state` (TrainParams, AdamState, GaussianState) there."""
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch import train
+    from gof_tpu_torch.data import scene as scene_lib
+
+    sc = scene_lib.Scene(src, "", shuffle=False)
+    views = []
+    for info in sc.train_cameras:
+        cam, gt = sc.camera(info, device="cuda")
+        views.append((cam, torch.as_tensor(gt, device="cuda")))
+    opt = config_lib.OptimizationParams(
+        densify_until_iter=LIVE_UNTIL, distortion_from_iter=LIVE_UNTIL + 1,
+        depth_normal_from_iter=LIVE_UNTIL + 1)
+    model_cfg = config_lib.ModelParams(sh_degree=3, kernel_size=0.1)
+    tx = train.make_optimizer(opt, sc.cameras_extent)
+    return views, opt, model_cfg, tx, state_copy(*state, device="cuda")
+
+
+def live_render(state, cam, lim=None, with_reg: bool = True):
+    """The late step's render (no statistics, SH degree 0, no background)
+    of `state`, with an optional liveness limit."""
+    from gof_tpu_torch import train
+    from gof_tpu_torch.model import gaussians as gm
+    from gof_tpu_torch.ops import render as render_lib
+
+    g, s = state[0].gauss, state[2]
+    with torch.no_grad():
+        return render_lib.render(cam, g.xyz, gm.filtered_scaling(g, s.filter_3d), g.rotation,
+                                 gm.filtered_opacity(g, s.filter_3d), train.masked_shs(g, 0, 3),
+                                 3, 0.1, torch.zeros(3, device=g.xyz.device),
+                                 active_mask=s.active, with_stats=False, with_reg=with_reg,
+                                 live_limit_chunks=lim)
+
+
+def liveness_entry(src: str, out: str, smi: str):
+    """(a) The late training step through train.main: LIVE_ITERS steps,
+    densification over at LIVE_UNTIL (nothing densifies: densify_from_iter
+    keeps its default), culling and the regularizers on from the next step.
+    Each step's host ms, key slots, live demand and live fraction, the
+    skipped steps; K2 and K1 launched every step, K3 and K4 on every step
+    that was not skipped and on no skipped one; finite losses. Returns (the
+    launch counts, the last step's state)."""
+    from unittest import mock
+
+    from gof_tpu_torch import train
+
+    counters = train_counters()
+    steps, last = [], {}
+    for k in counters:
+        k.launches = 0
+    argv = ["-s", src, "-m", out, "--sh_degree", "3", "--kernel_size", "0.1", "--quiet",
+            *LIVE_ARGS]
+    t0 = time.perf_counter()
+    with mock.patch.object(train, "build_train_step",
+                           timed_build(train.build_train_step, steps, last)):
+        train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in counters}
+    print(f"liveness: {LIVE_ITERS} steps through gof_tpu_torch.train.main in {wall:.2f} s "
+          f"(densification over at {LIVE_UNTIL}, culling and the regularizers from "
+          f"{LIVE_UNTIL + 1}); launches {launches}; card {smi}")
+    for r in steps:
+        frac = r["live_demand"] / r["slots"] if r["culled"] else 1.0
+        print(f"  step {r['iter']}: {r['ms']:.3f} ms, loss {r['loss']:.6f}, key slots "
+              f"{r['slots']}, live demand {r['live_demand'] if r['culled'] else '-'} "
+              f"({frac:.4f} of the slots){', SKIPPED' if r['skipped'] else ''}, launches "
+              f"K2/K1/K3/K4 {r['launches']}")
+    culled = [r for r in steps if r["culled"]]
+    skipped = [r["iter"] for r in steps if r["skipped"]]
+    plain = [r["ms"] for r in steps if not r["culled"] and r["iter"] > 2]
+    print(f"  culled steps {len(culled)} (from step {culled[0]['iter'] if culled else '-'}), "
+          f"skipped {len(skipped)} {skipped}; median host ms: steps 3-{LIVE_UNTIL} "
+          f"(statistics on, no culling) {statistics.median(plain):.3f}, culled steps "
+          f"{statistics.median([r['ms'] for r in culled]):.3f}; median live fraction of the "
+          f"slots {statistics.median([r['live_demand'] / r['slots'] for r in culled]):.4f}")
+    if [r["iter"] for r in culled] != list(range(LIVE_UNTIL + 1, LIVE_ITERS + 1)):
+        raise RuntimeError(f"culling ran at {[r['iter'] for r in culled]}")
+    if len(steps) != LIVE_ITERS or not all(np.isfinite(r["loss"]) for r in steps):
+        raise RuntimeError(f"liveness run losses: {[r['loss'] for r in steps]}")
+    bad = [r["iter"] for r in steps
+           if min(r["launches"][:2]) < 1
+           or (min(r["launches"][2:]) < 1 if not r["skipped"] else max(r["launches"][2:]))]
+    if bad:
+        raise RuntimeError(f"steps whose launches do not match their skips: {bad}")
+    return launches, last["state"]
+
+
+def liveness_exact(src: str, state, smi: str) -> None:
+    """(b) At the trained state, each of the 8 views without a limit and
+    with lim = live_counts + LIVE_MARGIN_CHUNKS: the image channels 0-7
+    bit-equal; T and channel 8 (the distortion, normalized by T) differing
+    only at pixels where both walks' T is below TRANSMITTANCE_EPS (a tile
+    whose compacted segment starts at another offset in its 128-key window
+    stops at another window boundary after saturation, and T keeps
+    shrinking through every row walked; ROADMAP C21). One build_train_step
+    from copies of one state, with and without the limit, without and with
+    the regularizers: every param, moment, the count and the GaussianState
+    bit-equal after it (no gradient the loss takes depends on T when the
+    background is black, and K3 writes exact zeros past the cutoff, C20)."""
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch import train
+    from gof_tpu_torch.constants import TRANSMITTANCE_EPS
+    from gof_tpu_torch.ops import binning
+
+    views, opt, model_cfg, tx, st0 = live_setup(src, state)
+    print(f"liveness, warm limits at the trained state ({int(st0[2].active.sum())} active), "
+          f"card {smi}:")
+    failures = []
+    for i, (cam, gt) in enumerate(views):
+        full = live_render(st0, cam)
+        lim = full.live_counts + binning.LIVE_MARGIN_CHUNKS
+        comp = live_render(st0, cam, lim)
+        keys = int(live_render(st0, cam, torch.full_like(lim, binning.LIM_INF)).live_demand)
+        diff = [int((full.image[c] != comp.image[c]).sum()) for c in range(9)]
+        tf, tc = full.transmittance, comp.transmittance
+        moved = (tf != tc) | (full.image[8] != comp.image[8])
+        outside = int((moved & ~((tf < TRANSMITTANCE_EPS) & (tc < TRANSMITTANCE_EPS))).sum())
+        print(f"  view {i}: keys {keys}, live demand {int(comp.live_demand)} "
+              f"({int(comp.live_demand) / max(keys, 1):.4f}), bad tiles {int(comp.live_bad.sum())};"
+              f" pixels differing per channel 0-8 {diff}, in T {int((tf != tc).sum())} (max "
+              f"|dT| {float((tf - tc).abs().max()):.3e}), of those with either T >= 1e-4: "
+              f"{outside}")
+        if any(diff[:8]) or outside or bool(comp.live_bad.any()):
+            failures.append(f"view {i} render")
+        for with_reg in (False, True):
+            step = train.build_train_step(opt, model_cfg, config_lib.PipelineParams(), tx,
+                                          with_stats=False, with_reg=with_reg)
+            bg = torch.zeros(3, device="cuda")
+            a = step(*state_copy(*st0, device="cuda"), gt, LIVE_ITERS + 1, cam, bg)[:3]
+            b = step(*state_copy(*st0, device="cuda"), gt, LIVE_ITERS + 1, cam, bg, lim=lim)[:3]
+            moved = {k: v for k, v in state_diff(b, a).items() if v}
+            print(f"    step REG={int(with_reg)} with and without the limit: elements "
+                  f"differing per field {moved or 'none'}")
+            if moved:
+                failures.append(f"view {i} step REG={int(with_reg)}")
+    if failures:
+        raise RuntimeError(f"warm liveness limits changed the result: {failures}")
+
+
+def liveness_stale(src: str, state, smi: str, cpu_views=(0, TRAIN_VIEWS - 1)) -> None:
+    """(c) A translucent copy of the state (opacity x 0.2) with lim = 1 on
+    every tile: live_bad on the card equal to the plain CPU path's on the
+    same inputs (views `cpu_views`; the CPU takes seconds a view); on every
+    view the step skips, leaving every param, moment, the count and the
+    GaussianState bit-equal, and grows the bad tiles' row entries to
+    2 * 1 + 4."""
+    from gof_tpu_torch import cameras, train
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch.ops import binning
+
+    views, opt, model_cfg, tx, st0 = live_setup(src, state)
+    with torch.no_grad():
+        op = torch.sigmoid(st0[0].gauss.opacity) * 0.2
+        st0[0].gauss.opacity.copy_(torch.log(op / (1 - op)))
+    cpu = state_copy(*st0, device="cpu")
+    for i, (cam, gt) in enumerate(views):
+        ntiles = int(np.prod(binning.tile_grid(cam.width, cam.height)))
+        lim = torch.ones(ntiles, dtype=torch.int32, device="cuda")
+        got = live_render(st0, cam, lim)
+        if i in cpu_views:
+            cam_cpu = cameras.Camera(**{k: (v.cpu() if torch.is_tensor(v) else v)
+                                        for k, v in vars(cam).items()})
+            bad_cpu = live_render(cpu, cam_cpu, lim.cpu()).live_bad
+            want, same = int(bad_cpu.sum()), torch.equal(got.live_bad.cpu(), bad_cpu)
+        else:
+            want, same = "-", True
+        step = train.build_train_step(opt, model_cfg, config_lib.PipelineParams(), tx,
+                                      with_stats=False)
+        after = step(*state_copy(*st0, device="cuda"), gt, LIVE_ITERS + 1, cam,
+                     torch.zeros(3, device="cuda"), lim=lim)
+        moved = {k: v for k, v in state_diff(after[:3], cpu).items() if v}
+        new = after[3]["live_new_lim"]
+        grown = bool((new[got.live_bad] == 6).all())
+        kept = bool((new[~got.live_bad] == got.live_counts[~got.live_bad] + 2).all())
+        print(f"  stale view {i}: bad tiles card {int(got.live_bad.sum())} of {ntiles}, CPU "
+              f"{want}, equal {same}; step skipped "
+              f"{bool(after[3]['packed'][9])}, fields moved {moved or 'none'}; new row 6 on the "
+              f"bad tiles {grown}, live_counts + 2 elsewhere {kept}; card {smi}")
+        if not (same and bool(got.live_bad.any()) and bool(after[3]["packed"][9])
+                and not moved and grown and kept):
+            raise RuntimeError(f"stale liveness limits on view {i}")
+
+
+def liveness_kernels(src: str, state, smi: str, launches) -> list:
+    """(d) At view 0 of the trained state, with lim = live_counts +
+    LIVE_MARGIN_CHUNKS: each layer of the step without and with the limit
+    by CUDA events (step_layers), the whole step on the host clock (median
+    of 5, in turns), device busy and idle from torch.profiler; K2 and K1 (on
+    the compacted list) and K3 and K4 (on its backward) against their plain
+    versions. Returns their kernels-line entries."""
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch import train
+    from gof_tpu_torch.ops import binning
+
+    views, opt, model_cfg, tx, st0 = live_setup(src, state)
+    cam, gt = views[0]
+    lim = live_render(st0, cam).live_counts + binning.LIVE_MARGIN_CHUNKS
+    step_i, bg = LIVE_ITERS + 1, torch.zeros(3, device="cuda")
+    print(f"liveness at view 0 ({cam.width}x{cam.height}), card {smi}:")
+    layers = {}
+    for label, row in (("without the limit", None), ("with the limit", lim)):
+        g, st, s = state_copy(*st0, device="cuda")
+        layers[label], ins, _, _ = step_layers(g.gauss, s, st, tx, gt, cam, opt, model_cfg,
+                                               False, True, step_i, lim=row)
+        print(f"  layers {label} (CUDA events, median of 5, ms): total "
+              f"{sum(layers[label].values()):.3f}; keys {ins['keys']}, blended list "
+              f"{int(ins['b'].num_keys)}, compact rows {ins['demand']}")
+        for name, v in layers[label].items():
+            print(f"    {name}: {v:.3f}")
+    step = train.build_train_step(opt, model_cfg, config_lib.PipelineParams(), tx,
+                                  with_stats=False)
+    ms = {"without": [], "with": []}
+    for _ in range(5):
+        for key, row in (("without", None), ("with", lim), ("with", lim), ("without", None)):
+            st = state_copy(*st0, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*st, gt, step_i, cam, bg, lim=row)
+            torch.cuda.synchronize()
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+    print(f"  whole step (host clock, synchronised, median of 10 in turns): without the limit "
+          f"{statistics.median(ms['without']):.3f} ms, with {statistics.median(ms['with']):.3f} ms")
+    for label, row in (("without the limit", None), ("with the limit", lim)):
+        print(f"  profile, {label}:")
+        profile_steps(lambda *a: step(*a, lim=row), (*state_copy(*st0, device="cuda"), gt,
+                                                     step_i, cam, bg))
+    print("  kernels on the compacted list against their plain versions:")
+    return train_kernels(ins, "liveness", False, True, launches)[1:]  # K1, K3, K4
+
+
+def oracle_scenes():
+    """tests/test_torch_oracle.py's full-cover scene (12 gaussians whose
+    rects cover a 96x64 image) and its culled scene (40 gaussians, 64x32),
+    as (arrays, camera) pairs on the card."""
+    from gof_tpu_torch import cameras, sh
+
+    out = []
+    for seed, n, w, h, scale, z_span in ((0, 12, 96, 64, 0.9, (4.0, 7.0)),
+                                         (0, 40, 64, 32, 0.15, (3.0, 8.0))):
+        rng = np.random.default_rng(seed)
+        z = rng.uniform(*z_span, size=n)
+        x = rng.uniform(-1.0, 1.0, size=n) * z * 0.2
+        y = rng.uniform(-1.0, 1.0, size=n) * z * 0.2
+        scales = rng.uniform(0.5, 1.5, size=(n, 3)) * scale
+        q = rng.normal(size=(n, 4))
+        q /= np.linalg.norm(q, axis=-1, keepdims=True)
+        opac = rng.uniform(0.3, 0.95, size=n)
+        colors = torch.tensor(rng.uniform(0.05, 0.95, size=(n, 3)), dtype=torch.float32)
+        arrays = [torch.tensor(a, dtype=torch.float32, device="cuda")
+                  for a in (np.stack([x, y, z], -1), scales, q, opac)]
+        arrays.append(sh.rgb_to_sh_dc(colors)[:, None, :].cuda())
+        out.append((arrays, cameras.look_at_camera(eye=(0, 0, 0), target=(0, 0, 5.0),
+                                                   width=w, height=h, device="cuda")))
+    return out
+
+
+def raster_grads(arrays, cam, which: str):
+    """Image, T and the gradients of sum(image[:8] * w) with respect to the
+    rasterizer's inputs (rgb, opacity, M, u0), from the oracle or a render
+    backend: preprocess runs once and its outputs become leaves."""
+    import dataclasses
+    from unittest import mock
+
+    from gof_tpu_torch.ops import oracle, quadrics
+    from gof_tpu_torch.ops import render as render_lib
+
+    m, s, r, o, shs = arrays
+    bg = torch.tensor([0.2, 0.3, 0.4], device=m.device)
+    pre = quadrics.preprocess(m, s, r, shs, 0, cam, 0.1, opacities=o)
+    leaves = {k: getattr(pre, k).detach().clone().requires_grad_(True)
+              for k in ("rgb", "v2g_M", "v2g_u0")}
+    op = o.clone().requires_grad_(True)
+    pre = dataclasses.replace(pre, **leaves)
+    with mock.patch.object(quadrics, "preprocess", lambda *a, **k: pre):
+        if which == "oracle":
+            out = oracle.render_oracle(m, s, r, op, shs, 0, cam, 0.1, bg)
+        else:
+            out = render_lib.render(cam, m, s, r, op, shs, 0, 0.1, bg, backend=which)
+    w = torch.from_numpy(np.random.default_rng(1).normal(0, 0.1, out.image[:8].shape)
+                         .astype(np.float32)).to(m.device)
+    (out.image[:8] * w).sum().backward()
+    return (out.image.detach(), out.transmittance.detach(),
+            [leaves["rgb"].grad, op.grad, leaves["v2g_M"].grad, leaves["v2g_u0"].grad])
+
+
+def backends_on_card(smi: str) -> None:
+    """(e) The xla backend and the dense oracle on the card against the CUDA
+    path, with the CPU tests' tolerances (tests/test_torch_oracle.py): on
+    the full-cover scene the oracle's image and T (rtol 2e-4, atol 2e-5 and
+    2e-6) and its autograd gradients into the rasterizer's inputs (1e-4 of
+    their largest magnitude); on both scenes the xla backend's image (atol
+    1e-5, rtol 1e-4) and gradients (1e-4)."""
+    from gof_tpu_torch.ops import rasterize as rz
+
+    failures = []
+    for k, (arrays, cam) in enumerate(oracle_scenes()):
+        fwd0, bwd0 = rz.FWD.launches, rz.BWD.launches
+        img_p, T_p, g_p = raster_grads(arrays, cam, "pallas")
+        launched = (rz.FWD.launches - fwd0, rz.BWD.launches - bwd0)
+        refs = [("xla", ATOL, RTOL, ATOL)] + ([("oracle", 2e-5, 2e-4, 2e-6)] if k == 0 else [])
+        for which, atol, rtol, t_atol in refs:
+            img, T, g = raster_grads(arrays, cam, which)
+            img_ok = bool(((img_p - img).abs() <= atol + rtol * img.abs()).all())
+            t_ok = bool(((T_p - T).abs() <= t_atol + rtol * T.abs()).all())
+            gaps = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(g_p, g)]
+            print(f"  {cam.width}x{cam.height}, {arrays[0].shape[0]} gaussians, CUDA path "
+                  f"(K1/K3 launches {launched}) against the {which} on the card: image max "
+                  f"|err| {float((img_p - img).abs().max()):.3e} within atol {atol}/rtol "
+                  f"{rtol} {img_ok}; T within {t_ok}; gradient gaps (rgb, opacity, M, u0) "
+                  f"{[f'{x:.2e}' for x in gaps]} (bound {GRAD_BOUND}); card {smi}")
+            if not (img_ok and t_ok and max(gaps) <= GRAD_BOUND and min(launched) >= 1):
+                failures.append(f"{which} at {cam.width}x{cam.height}")
+    if failures:
+        raise RuntimeError(f"the CUDA path against the xla backend or the oracle: {failures}")
+
+
+def liveness_phase(src: str, root: str, smi: str) -> list:
+    """(a)-(e) of the liveness phase. Returns its kernels-line entries."""
+    t0 = time.perf_counter()
+    launches, state = liveness_entry(src, os.path.join(root, "liveness"), smi)
+    marks = [("loop", time.perf_counter())]
+    liveness_exact(src, state, smi)
+    marks.append(("warm limits", time.perf_counter()))
+    liveness_stale(src, state, smi)
+    marks.append(("stale limits", time.perf_counter()))
+    kernels = liveness_kernels(src, state, smi, launches)
+    marks.append(("layers and kernels", time.perf_counter()))
+    backends_on_card(smi)
+    marks.append(("backends", time.perf_counter()))
+    prev, parts = t0, []
+    for name, t in marks:
+        parts.append(f"{name} {t - prev:.1f}")
+        prev = t
+    print(f"liveness phase: {prev - t0:.1f} s ({', '.join(parts)} s)")
+    return kernels
+
+
+# ---------------------------------------------------------------------------
 # The DTU/TNT chain on the procedural scene
 # ---------------------------------------------------------------------------
 
@@ -1374,10 +1754,15 @@ def dtu_chain(root: str, smi: str) -> dict:
 def dtu_card_vs_cpu(chain: dict, smi: str) -> None:
     """The chain's two new device paths held against the port's own CPU
     path on the same inputs: the appearance network at full width (1237x822,
-    crop 1216x800) with the trained weights, and fuse_blocks /
-    fuse_depth_maps (with discover_blocks) on three of the chain's depth
-    maps."""
+    crop 1216x800) with the trained weights, against the CPU in float64
+    (the CPU in float32 and the card through cuDNN, which the package turns
+    off, are printed beside it, with the kernels of each card path and its
+    time), and fuse_blocks / fuse_depth_maps (with discover_blocks) on three
+    of the chain's depth maps."""
+    import contextlib
     import copy
+
+    from torch.profiler import ProfilerActivity, profile
 
     from gof_tpu_torch import config as config_lib
     from gof_tpu_torch import extract_mesh_tsdf
@@ -1385,6 +1770,7 @@ def dtu_card_vs_cpu(chain: dict, smi: str) -> None:
     from gof_tpu_torch.mesh import tsdf as tsdf_lib
     from gof_tpu_torch.model import appearance as app_lib
     from gof_tpu_torch.render_cli import render_eval
+    from gof_tpu_torch.utils import losses
 
     cfg, _, _ = config_lib.load_cfg(chain["model"])
     sc = scene_lib.Scene(cfg.source_path, "", eval_split=cfg.eval, shuffle=False)
@@ -1396,55 +1782,107 @@ def dtu_card_vs_cpu(chain: dict, smi: str) -> None:
 
     # the appearance network: multiplier, appearance_l1 and the gradients
     (cam, gt), image = cams[0], outs[0][:3].detach()
-    nets = {"card": (tp.app_net, tp.app_emb.detach()),
-            "cpu": (copy.deepcopy(tp.app_net).cpu(), tp.app_emb.detach().cpu())}
+    emb = tp.app_emb.detach()
+    nets = {"cpu64": (copy.deepcopy(tp.app_net).cpu().double(), emb.cpu().double()),
+            "cpu": (copy.deepcopy(tp.app_net).cpu(), emb.cpu()),
+            "card": (tp.app_net, emb), "card_cudnn": (tp.app_net, emb)}
+
+    def cudnn(where):
+        """cuDNN on for the card_cudnn pass (forward and backward), TF32 off."""
+        return (torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                           allow_tf32=False)
+                if where == "card_cudnn" else contextlib.nullcontext())
+
     # appearance_l1's gradient into the multiplier is sign(diff) * crop / n:
-    # where the render times the multiplier meets the gt, the two devices'
-    # forwards (~1e-7 apart) can round to opposite signs, and one such pixel
-    # can move conv_out's gradient by most of the bound. The gradients are
-    # therefore held with the CPU's gradient into the multiplier fed to both
-    # backward passes; each device's own L1 gradient is printed beside them.
+    # where the render times the multiplier meets the gt, two forwards ~1e-7
+    # apart can round to opposite signs, and one such pixel can move
+    # conv_out's gradient by most of the bound. The gradients are therefore
+    # held with the reference's gradient into the multiplier fed to every
+    # backward pass; each one's own L1 gradient is printed beside them.
     res, upstream = {}, None
-    for where in ("cpu", "card"):
-        net, emb = nets[where]
-        d = emb.device
+    for where in ("cpu64", "cpu", "card", "card_cudnn"):
+        net, e = nets[where]
+        d, dt = e.device, e.dtype
         leaves = {**{f"net.{n}": p for n, p in net.named_parameters()},
-                  "emb": emb.clone().requires_grad_(True)}
+                  "emb": e.clone().requires_grad_(True)}
         for p in leaves.values():
             p.grad = None
-        crop = app_lib.center_crop_32(image.to(d))
-        mult = app_lib.appearance_multiplier(crop, net, leaves["emb"], cam.uid)
-        diff = mult * crop - app_lib.center_crop_32(torch.as_tensor(gt, device=d))
-        l1 = torch.mean(torch.abs(diff))
-        l1.backward(retain_graph=True)
-        own = {k: v.grad.detach().cpu().clone() for k, v in leaves.items()}
-        if upstream is None:
-            upstream = (torch.sign(diff) * crop / diff.numel()).detach()
-        for p in leaves.values():
-            p.grad = None
-        mult.backward(upstream.to(d))
+        with cudnn(where):
+            crop = app_lib.center_crop_32(image.to(d, dt))
+            mult = app_lib.appearance_multiplier(crop, net, leaves["emb"], cam.uid)
+            diff = mult * crop - app_lib.center_crop_32(torch.as_tensor(gt, device=d, dtype=dt))
+            l1 = torch.mean(torch.abs(diff))
+            l1.backward(retain_graph=True)
+            own = {k: v.grad.detach().cpu().clone() for k, v in leaves.items()}
+            if upstream is None:
+                upstream = (torch.sign(diff) * crop / diff.numel()).detach()
+            for p in leaves.values():
+                p.grad = None
+            mult.backward(upstream.to(d, dt))
         res[where] = (mult.detach().cpu(), float(l1.detach()),
                       {k: v.grad.detach().cpu() for k, v in leaves.items()}, own,
                       (diff.detach() > 0).cpu())
-    (m_gpu, l_gpu, g_gpu, o_gpu, s_gpu), (m_cpu, l_cpu, g_cpu, o_cpu, s_cpu) = (res["card"],
-                                                                                res["cpu"])
-    merr = float((m_gpu - m_cpu).abs().max())
-    lerr = abs(l_gpu - l_cpu) / abs(l_cpu)
+    (m_gpu, l_gpu, g_gpu, o_gpu, s_gpu), (m_ref, l_ref, g_ref, o_ref, s_ref) = (res["card"],
+                                                                                res["cpu64"])
+    g_cpu, g_dnn = res["cpu"][2], res["card_cudnn"][2]
+    merr = float((m_gpu.double() - m_ref).abs().max())
+    lerr = abs(l_gpu - l_ref) / abs(l_ref)
 
     def rel(a, b):
-        return {k: float((a[k] - b[k]).abs().max() / b[k].abs().max()) for k in b}
+        return {k: float((a[k].double() - b[k].double()).abs().max() / b[k].abs().max())
+                for k in b}
 
-    gerr, oerr = rel(g_gpu, g_cpu), rel(o_gpu, o_cpu)
+    gerr, oerr, cerr, c32 = rel(g_gpu, g_ref), rel(o_gpu, o_ref), rel(g_cpu, g_ref), \
+        rel(g_gpu, g_cpu)
     worst, oworst = max(gerr, key=gerr.get), max(oerr, key=oerr.get)
-    print(f"dtu chain, card against CPU: appearance network at {tuple(image.shape)}, crop "
-          f"{tuple(m_gpu.shape)}, uid {cam.uid}: multiplier max |err| {merr:.3e} (bound 1e-5), "
-          f"appearance_l1 {l_gpu:.7f} / {l_cpu:.7f}, rel err {lerr:.3e} (bound 1e-5); "
-          f"gradients of appearance_l1 at the CPU's signs, max |err| / max |CPU| worst {worst} "
-          f"{gerr[worst]:.3e} (bound 1e-4) over {len(gerr)} leaves; at each device's own "
-          f"signs, worst {oworst} {oerr[oworst]:.3e}, {int((s_gpu != s_cpu).sum())} pixels whose "
-          f"sign differs; card {smi}")
-    print("  per leaf (CPU's signs, own signs): " + ", ".join(
-        f"{k} {gerr[k]:.2e} {oerr[k]:.2e}" for k in gerr))
+    cworst, c32worst = max(cerr, key=cerr.get), max(c32, key=c32.get)
+    derr = rel(g_dnn, g_ref)
+    dworst = max(derr, key=derr.get)
+    print(f"dtu chain, card against CPU (float64): appearance network at "
+          f"{tuple(image.shape)}, crop {tuple(m_gpu.shape)}, uid {cam.uid}: multiplier max "
+          f"|err| {merr:.3e} (bound 1e-5), appearance_l1 {l_gpu:.7f} / {l_ref:.7f}, rel err "
+          f"{lerr:.3e} (bound 1e-5); gradients of appearance_l1 at the reference's signs, max "
+          f"|err| / max |ref| worst {worst} {gerr[worst]:.3e} (bound 1e-4) over {len(gerr)} "
+          f"leaves; at each one's own signs, worst {oworst} {oerr[oworst]:.3e}, "
+          f"{int((s_gpu != s_ref).sum())} pixels whose sign differs; the CPU in float32 "
+          f"against float64 worst {cworst} {cerr[cworst]:.3e}, the card against it worst "
+          f"{c32worst} {c32[c32worst]:.3e}; card {smi}")
+    print("  per leaf (card at the reference's signs, at its own, CPU float32, card through "
+          "cuDNN): " + ", ".join(f"{k} {gerr[k]:.2e} {oerr[k]:.2e} {cerr[k]:.2e} {derr[k]:.2e}"
+                                 for k in gerr))
+
+    # the appearance forward + backward (appearance_l1, as the step runs it)
+    # and SSIM's through the port's convolutions and through cuDNN: CUDA-event
+    # time, and the kernels the appearance pass launches
+    net, e = nets["card"]
+    crop_gt = app_lib.center_crop_32(torch.as_tensor(gt, device="cuda"))
+
+    def app_pass():
+        for p in net.parameters():
+            p.grad = None
+        crop = app_lib.center_crop_32(image)
+        mult = app_lib.appearance_multiplier(crop, net, e.clone().requires_grad_(True), cam.uid)
+        torch.mean(torch.abs(mult * crop - crop_gt)).backward()
+
+    def ssim_pass():
+        (1.0 - losses.ssim(image.clone().requires_grad_(True), gt_card)).backward()
+
+    gt_card = torch.as_tensor(gt, device="cuda")
+    for where in ("card", "card_cudnn"):
+        with cudnn(where):
+            ms, ssim_ms = cuda_ms(app_pass, 10, 2), cuda_ms(ssim_pass, 10, 2)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                app_pass()
+                torch.cuda.synchronize()
+        dev = sorted((ev for ev in prof.key_averages()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda ev: ev.self_device_time_total, reverse=True)
+        leaf, err = (worst, gerr[worst]) if where == "card" else (dworst, derr[dworst])
+        print(f"  appearance forward + backward, {where} (the port's path: {where == 'card'}): "
+              f"{ms:.3f} ms (CUDA events, median of 10; SSIM's forward + backward "
+              f"{ssim_ms:.3f} ms); worst gradient against float64 "
+              f"{leaf} {err:.3e}; busiest kernels: " + "; ".join(
+                  f"{ev.key[:60]} {ev.self_device_time_total / 1e3:.3f} ms" for ev in dev[:5]))
     if merr > 1e-5 or lerr > 1e-5 or gerr[worst] > 1e-4:
         raise RuntimeError("the appearance network on the card disagrees with the CPU")
     emb_rows = (g_gpu["emb"].abs().sum(1) > 0).nonzero().flatten().tolist()
@@ -2005,11 +2443,14 @@ def bench_state():
     return g, s, cam, torch.from_numpy(gt).cuda()
 
 
-def step_layers(g, s, st, tx, gt, cam, opt, model_cfg, with_stats, with_reg, step_i, reps=5):
+def step_layers(g, s, st, tx, gt, cam, opt, model_cfg, with_stats, with_reg, step_i, reps=5,
+                lim=None):
     """The train step cut at its layers (build_train_step's operations, the
     rasterize Function opened up), each between CUDA events; medians over
-    `reps` steps. Returns (layer ms, the backward kernels' inputs of the
-    last step, the state)."""
+    `reps` steps. With a liveness limit `lim` ([NTILES] chunks) the sorted
+    list is compacted (binning.compact_live, its host read included) before
+    the payload gather. Returns (layer ms, the backward kernels' inputs of
+    the last step, the state)."""
     from gof_tpu_torch import train
     from gof_tpu_torch.model import gaussians as gm
     from gof_tpu_torch.ops import binning, quadrics, tiled_ref
@@ -2044,6 +2485,10 @@ def step_layers(g, s, st, tx, gt, cam, opt, model_cfg, with_stats, with_reg, ste
             b = binning.bin_gaussians(pre.depth, rects, ntx, nty, mean2d=pre.mean2d,
                                       radius=pre.radius)
         mark("binning (class layout, K2 expand, sorts; slot-demand read)")
+        if lim is not None:
+            b_full = b
+            b = binning.compact_live(b_full, lim, P)[0]
+            mark("compaction (live prefixes; live-demand read)")
         coef = pre.coef.detach()
         op_eff = opac_f * torch.where(pre.valid, coef, torch.zeros_like(coef))
         with torch.no_grad():
@@ -2088,6 +2533,7 @@ def step_layers(g, s, st, tx, gt, cam, opt, model_cfg, with_stats, with_reg, ste
             times.setdefault(name, []).append(e0.elapsed_time(e1))
     ex = binning.class_expansion(pre.depth.detach(), rects, ntiles, pre.mean2d.detach(),
                                  pre.radius.detach())
+    keys = int((b_full if lim is not None else b).num_keys)
     tbl = torch.stack(ex.cols).contiguous()
     gidx = torch.clamp(ex.gidx, 0, P - 1).to(torch.int32).contiguous()
     with torch.no_grad():  # the last step's payload with and without the statistics columns
@@ -2096,7 +2542,7 @@ def step_layers(g, s, st, tx, gt, cam, opt, model_cfg, with_stats, with_reg, ste
     payloads = {True: full, False: full[:rz.P_COLS].contiguous()}
     ins = dict(payload=payload, payloads=payloads, b=b, meta=meta, ntx=ntx, ntiles=ntiles,
                fout=fout, gout=gout, demand=demand, half=half, P=P, rows=rows, gid=gid,
-               expand=(tbl, gidx))
+               expand=(tbl, gidx), keys=keys)
     return {k: statistics.median(v) for k, v in times.items()}, ins, st, s
 
 
@@ -2389,6 +2835,7 @@ def main() -> None:
         saved, densify_inputs = densify_entry(src, densified, smi)
         resume_entry(src, densified, saved)
         grown_kernels = densify_card_vs_cpu(src, densify_inputs, smi)
+        live_kernels = liveness_phase(src, root, smi)
         chain = dtu_chain(root, smi)
         mesh_model = chain["model"]
         _, mesh_launches = mesh_entry(mesh_model)
@@ -2422,8 +2869,8 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"render ms per view: {[s['ms'] for s in stats]}")
-    print(json.dumps({"kernels": kernels + grown_kernels + [serve_fwd, *integrate_kernels]
-                      + probe_kernels}))
+    print(json.dumps({"kernels": kernels + grown_kernels + live_kernels
+                      + [serve_fwd, *integrate_kernels] + probe_kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

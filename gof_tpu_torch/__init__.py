@@ -27,3 +27,8 @@ import torch as _torch
 # forbid TF32 in matmuls and cuDNN convolutions.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+# Convolutions (the appearance network, SSIM's blur, LPIPS) run on torch's
+# own CUDA path (im2col and cuBLAS GEMMs; depthwise kernels), not cuDNN,
+# which picks its algorithm by heuristics and process state, some of them
+# summing by atomics: the same inputs then give other bits from run to run.
+_torch.backends.cudnn.enabled = False

@@ -2,10 +2,12 @@
 
 Reads and writes the `cfg_args.json` that gof_tpu persists in a model
 directory, and turns the dataclasses into argparse flags with gof_tpu's names
-and defaults (`add_group`, `extract`). The port accepts and ignores the
-pipeline's `backend`, `key_capacity`, `compact_capacity` and `live_capacity`:
-it sizes its buffers from each view's real demand and always runs its CUDA
-kernels on CUDA tensors.
+and defaults (`add_group`, `extract`). The pipeline's `backend` picks the
+render path, as in gof_tpu: "pallas" (the default) runs the CUDA kernels on
+CUDA tensors and their plain versions on CPU tensors, "xla" the tiled
+reference renderer (ops/tiled_ref.py) on either device. The port accepts
+and ignores `key_capacity`, `compact_capacity` and `live_capacity`: it sizes
+its buffers from each view's real demand.
 """
 
 from __future__ import annotations
@@ -36,8 +38,10 @@ class ModelParams:
 
 @dataclass
 class PipelineParams:
-    # read for compatibility with gof_tpu's cfg_args.json; unused by the port
+    # the render path: "pallas" (the kernels) | "xla" (ops/tiled_ref.py)
     backend: str = "pallas"
+    # the capacities below are read for compatibility with gof_tpu's
+    # cfg_args.json; the port sizes its buffers from the demand
     debug: bool = False
     key_capacity: int = 1 << 21
     compact_capacity: int = 0

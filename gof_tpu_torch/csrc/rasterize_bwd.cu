@@ -17,7 +17,10 @@
 //   row (base-relative c * 128 + row == CH_MEDIDX) agree with the forward
 //   bit for bit; gof_tpu's T * shift_down(prod_incl) rounds differently;
 // - suffix sums come by subtraction from the forward totals:
-//   SF = TOT_F - (PwF + sum_{j <= i} w_j F_j),
+//   SF = TOT_F - (PwF + sum_{j <= i} w_j F_j), and SF = 0 past the cutoff
+//   (exact: every later weight is zero; gof_tpu keeps the subtraction's
+//   rounding residue there, which made a row's gradient depend on where
+//   the walk's windows end),
 //   dL/da = T_excl * cutoff * F - (SF + T_final * bg.g_rgb) / (1 - a);
 // - the reference's quirks: distortion flows through m only, the median
 //   depth gradient goes to the median visit only, the 0.99 alpha clamp is
@@ -320,7 +323,9 @@ bwd_kernel(const float* __restrict__ payload, int64_t cap, const int32_t* __rest
             F = F - (n0 * gn0 + n1 * gn1 + n2 * gn2) * inv_len;  // + (-n / |n|) . gn
           }
           PwF[k] = PwF[k] + w * F;
-          const float SF = q[Q_TOT * NPIX] - PwF[k];
+          // past the cutoff every later weight is zero, so the suffix is
+          // exactly zero: the subtraction's rounding residue is dropped
+          const float SF = cutoff ? q[Q_TOT * NPIX] - PwF[k] : 0.0f;
           const float dL_da =
               (cutoff ? Te * F : 0.0f) - __fdividef(SF + q[Q_TBG * NPIX], 1.0f - a);
           const float dop_pix = E * dL_da;

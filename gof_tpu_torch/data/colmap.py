@@ -1,9 +1,10 @@
-"""COLMAP binary/text model parsing (pure numpy; counterpart of
-gof_tpu/data/colmap.py without its native reader).
+"""COLMAP binary/text model parsing (counterpart of gof_tpu/data/colmap.py).
 
 Replaces scene/colmap_loader.py (294 LoC): cameras.bin/txt, images.bin/txt,
 points3D.bin/txt readers. Same data model; implemented with struct/numpy
-bulk reads rather than per-record torch ops.
+bulk reads rather than per-record torch ops. Binary models are read by the
+native C++ reader (gof_tpu_torch/native, built with g++ at first use) when
+it loads, by the Python parsers otherwise; the first read says which.
 """
 
 from __future__ import annotations
@@ -156,10 +157,26 @@ def read_points3d_text(path: str):
     return np.array(xyz), np.array(rgb, np.uint8), np.array(err)
 
 
+_READER_SAID = False
+
+
+def _say_reader(native: bool) -> None:
+    global _READER_SAID
+    if not _READER_SAID:
+        _READER_SAID = True
+        print("COLMAP reader: " + ("native (gof_tpu_torch/native)" if native
+                                   else "Python parsers (the native reader did not load)"))
+
+
 def load_model(sparse_dir: str):
     """Load (cameras, images, points) from a COLMAP sparse dir, preferring
-    binary (scene/dataset_readers.py:140-150). Python parsers only."""
+    binary (scene/dataset_readers.py:140-150). Uses the native C++ reader
+    when it loads; falls back to the Python parsers."""
     if os.path.exists(os.path.join(sparse_dir, "cameras.bin")):
+        native = _load_model_native(sparse_dir)
+        _say_reader(native is not None)
+        if native is not None:
+            return native
         cams = read_cameras_binary(os.path.join(sparse_dir, "cameras.bin"))
         imgs = read_images_binary(os.path.join(sparse_dir, "images.bin"))
         pts = read_points3d_binary(os.path.join(sparse_dir, "points3D.bin"))
@@ -168,3 +185,28 @@ def load_model(sparse_dir: str):
         imgs = read_images_text(os.path.join(sparse_dir, "images.txt"))
         pts = read_points3d_text(os.path.join(sparse_dir, "points3D.txt"))
     return cams, imgs, pts
+
+
+def _load_model_native(sparse_dir: str):
+    from .. import native
+
+    rc = native.read_cameras_native(os.path.join(sparse_dir, "cameras.bin"))
+    ri = native.read_images_native(os.path.join(sparse_dir, "images.bin"))
+    rp = native.read_points3d_native(os.path.join(sparse_dir, "points3D.bin"))
+    if rc is None or ri is None or rp is None:
+        return None
+    cam_ids, models, wh, params = rc
+    model_names = {k: v[0] for k, v in CAMERA_MODELS.items()}
+    cams = {
+        int(cid): ColmapCamera(
+            int(cid), model_names.get(int(m), "UNKNOWN"), int(w), int(h),
+            np.asarray(p[: CAMERA_MODELS.get(int(m), ("", 12))[1]]),
+        )
+        for cid, m, (w, h), p in zip(cam_ids, models, wh, params)
+    }
+    ids, qvec, tvec, img_cam_ids, names = ri
+    imgs = {
+        int(i): ColmapImage(int(i), qvec[k], tvec[k], int(img_cam_ids[k]), names[k])
+        for k, i in enumerate(ids)
+    }
+    return cams, imgs, rp

@@ -19,6 +19,7 @@ import torch
 from .. import cameras as cameras_lib
 from ..model import gaussians as gm
 from ..utils import ply
+from ..utils.hostio import device_get
 from . import readers
 
 
@@ -107,17 +108,13 @@ class Scene:
         return int(info.width / gd), int(info.height / gd)
 
 
-def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
 def save_gaussians_ply(path: str, params: gm.GaussianParams, state: gm.GaussianState,
                        sh_degree: int) -> None:
     """Write the active Gaussians with gof_tpu's PLY fields."""
-    idx = np.nonzero(_host(state.active))[0]
-    xyz = _host(params.xyz)[idx]
-    f_dc = _host(params.features_dc)[idx].reshape(len(idx), -1)  # [N, 3]
-    f_rest = _host(params.features_rest)[idx]  # [N, K-1, 3]
+    idx = np.nonzero(device_get(state.active))[0]
+    xyz = device_get(params.xyz)[idx]
+    f_dc = device_get(params.features_dc)[idx].reshape(len(idx), -1)  # [N, 3]
+    f_rest = device_get(params.features_rest)[idx]  # [N, K-1, 3]
     # the reference stores rest coefficients channel-major (K-1 per channel)
     f_rest_flat = f_rest.transpose(0, 2, 1).reshape(len(idx), -1)
     props = {"x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2]}
@@ -126,14 +123,14 @@ def save_gaussians_ply(path: str, params: gm.GaussianParams, state: gm.GaussianS
         props[f"f_dc_{i}"] = f_dc[:, i]
     for i in range(f_rest_flat.shape[1]):
         props[f"f_rest_{i}"] = f_rest_flat[:, i]
-    props["opacity"] = _host(params.opacity)[idx]
-    sc = _host(params.scaling)[idx]
+    props["opacity"] = device_get(params.opacity)[idx]
+    sc = device_get(params.scaling)[idx]
     for i in range(3):
         props[f"scale_{i}"] = sc[:, i]
-    rot = _host(params.rotation)[idx]
+    rot = device_get(params.rotation)[idx]
     for i in range(4):
         props[f"rot_{i}"] = rot[:, i]
-    props["filter_3D"] = _host(state.filter_3d)[idx]
+    props["filter_3D"] = device_get(state.filter_3d)[idx]
     os.makedirs(os.path.dirname(path), exist_ok=True)
     ply.write_ply(path, props)
 

@@ -92,7 +92,7 @@ def main(argv=None):
             torch.cuda.synchronize()
         return time.perf_counter()
 
-    model_cfg, _pipe, _opt = config_lib.load_cfg(ns.model_path)
+    model_cfg, pipe, _opt = config_lib.load_cfg(ns.model_path)
     model_cfg.model_path = ns.model_path
     pc_dir = os.path.join(ns.model_path, "point_cloud")
     iteration = ns.iteration
@@ -116,7 +116,7 @@ def main(argv=None):
     depths, colors, cams = [], [], []
     for info in sc.train_cameras:
         camera, _gt = sc.camera(info, device=device)
-        img = render_eval(gauss, gstate, camera, model_cfg, bg).image
+        img = render_eval(gauss, gstate, camera, model_cfg, bg, pipe.backend).image
         depths.append(masked_depth(img[6], img[7], info.alpha))
         colors.append(img[:3])
         cams.append(camera)

@@ -7,7 +7,8 @@ conv 16 -> conv 3 -> sigmoid. The port runs NCHW; gof_tpu's flax weights
 carry across by name (`app_from_numpy` / `app_to_numpy`: HWIO kernels <->
 OIHW weights). The align-corners resizes use gof_tpu's own
 grid arithmetic, not F.interpolate's, so both packages sample at the same
-float positions.
+float positions. The convs' weight and bias gradients sum over the pixels
+in float64 (`Conv3x3`); everything else is float32, as in gof_tpu.
 """
 
 from __future__ import annotations
@@ -81,10 +82,44 @@ def bilinear_resize_align_corners(img: torch.Tensor, out_h: int, out_w: int) -> 
                      _align_corners_grid(out_w, w, img.device))[0]
 
 
+class _Conv3x3(torch.autograd.Function):
+    """A 3x3 conv with padding 1 whose weight and bias gradients sum in
+    float64. Each sums over every pixel (~1M at full width), and a float32
+    sum that long drifts from the exact value by up to ~1e-4 of its max
+    with the trained state's cancellation; a product of two float32 values
+    is exact in float64, so these sums round once, at the end. The forward
+    and the input gradient (27-144 terms each) stay float32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return F.conv2d(x, weight, bias, padding=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        gx = (torch.nn.grad.conv2d_input(x.shape, weight, grad, padding=1)
+              if ctx.needs_input_grad[0] else None)
+        g64 = grad.double()
+        gw = torch.nn.grad.conv2d_weight(x.double(), weight.shape, g64, padding=1)
+        return gx, gw.to(weight.dtype), g64.sum((0, 2, 3)).to(weight.dtype)
+
+
+class Conv3x3(nn.Conv2d):
+    """nn.Conv2d(in, out, 3, padding=1) through _Conv3x3 (same parameters
+    and names)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 3, padding=1)
+
+    def forward(self, x):
+        return _Conv3x3.apply(x, self.weight, self.bias)
+
+
 class UpsampleBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels // 4, out_channels, 3, padding=1)
+        self.conv = Conv3x3(in_channels // 4, out_channels)
 
     def forward(self, x):
         return F.relu(self.conv(pixel_shuffle(x, 2)))
@@ -95,11 +130,11 @@ class AppearanceNetwork(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.conv_in = nn.Conv2d(3 + APPEARANCE_DIM, 256, 3, padding=1)
+        self.conv_in = Conv3x3(3 + APPEARANCE_DIM, 256)
         self.up = nn.ModuleList([UpsampleBlock(256, 128), UpsampleBlock(128, 64),
                                  UpsampleBlock(64, 32), UpsampleBlock(32, 16)])
-        self.conv_mid = nn.Conv2d(16, 16, 3, padding=1)
-        self.conv_out = nn.Conv2d(16, 3, 3, padding=1)
+        self.conv_mid = Conv3x3(16, 16)
+        self.conv_out = Conv3x3(16, 3)
 
     def forward(self, x):
         x = F.relu(self.conv_in(x))

@@ -13,6 +13,10 @@ CUDA code reads `num_rendered`), rounded up to CHUNK_SIZE, so nothing
 overflows and `overflow` is always a False tensor. The 3-key sort is two
 stable torch sorts: by id, then by the int64 key (tile << 32) + depth bits.
 
+`compact_live` cuts each tile's list to the prefix the previous visit of
+the same camera walked (temporal liveness culling), sized likewise from its
+demand.
+
 `bin_items_aligned` bins items that touch one tile each (the integrate
 path's query points) into block-aligned segments, in gof_tpu's order, with
 its slot array likewise sized to the demand.
@@ -217,6 +221,74 @@ def bin_gaussians(depth, rects: TileRect, ntx: int, nty: int,
         overflow=torch.zeros((), dtype=torch.bool, device=depth.device),
         num_slots=torch.tensor(ex.num_slots, device=depth.device),
     )
+
+
+# ---------------------------------------------------------------------------
+# Temporal liveness compaction
+# ---------------------------------------------------------------------------
+
+# chunks of headroom added to every cached live count (the drift of the
+# window phase at a segment's head plus slow motion of the saturation
+# boundary between visits of one camera)
+LIVE_MARGIN_CHUNKS = 2
+
+LIM_INF = 1 << 24  # "no limit" sentinel, in chunks
+
+
+def _expand(values: torch.Tensor, starts: torch.Tensor, in_cap: torch.Tensor,
+            capacity: int) -> torch.Tensor:
+    """Per-segment int constants to per-slot values: segment i covers slots
+    [starts[i], starts[i+1]). A scatter-add of the deltas v[i] - v[i-1] at
+    the starts, then a cumsum (empty segments telescope)."""
+    v = values.to(torch.int64)
+    prev = torch.cat([v.new_zeros(1), v[:-1]])
+    delta = torch.where(in_cap, v - prev, torch.zeros_like(v))
+    d = v.new_zeros(capacity)
+    d.index_add_(0, torch.where(in_cap, starts, torch.zeros_like(starts)), delta)
+    return torch.cumsum(d, 0)
+
+
+def compact_live(b: Binning, lim_chunks: torch.Tensor, num_gaussians: int):
+    """Cut the sorted key list to per-tile live prefixes (gof_tpu's
+    compact_live, binning.py:377-450).
+
+    The forward blend walks each tile front to back and stops once every
+    pixel's transmittance is below TRANSMITTANCE_EPS: keys past that point
+    are never read and get no gradient. Saturation boundaries move slowly
+    between visits of one camera, so the previous visit's walked chunk
+    count (plus LIVE_MARGIN_CHUNKS) bounds this visit's prefix. The kept
+    slots are per-tile prefixes of the existing sort, so this is index
+    arithmetic (a scatter-add and a cumsum of per-tile offsets, then one
+    gather): no new sort. A stale bound is detected by the caller, not
+    trusted: a tile that is `truncated` and still unsaturated rendered
+    wrong, and the train step skips its update.
+
+    The compacted list is sized from its demand (one host read), rounded up
+    to CHUNK_SIZE, with id P past the demand, so `live_overflow` is always
+    False; gof_tpu's static live capacity has no counterpart.
+
+    lim_chunks: [NTILES] int per-tile bounds in chunks (LIM_INF: none).
+    Returns (Binning, truncated [NTILES] bool, live_overflow, live_demand).
+    """
+    dev = b.bounds.device
+    seg_start = b.bounds[:-1].to(torch.int64)
+    seg_len = b.bounds[1:].to(torch.int64) - seg_start
+    # clamp before the chunk -> key scale, so LIM_INF cannot wrap an int32
+    lim = torch.clamp(lim_chunks.to(torch.int32), max=1 << 22) * CHUNK_SIZE
+    lim_keys = torch.minimum(seg_len, lim.to(torch.int64))
+    truncated = lim_keys < seg_len
+    live_start = torch.cat([seg_len.new_zeros(1), torch.cumsum(lim_keys, 0)])
+    demand = int(live_start[-1])  # the one host read
+    lcap = max(-(-demand // CHUNK_SIZE) * CHUNK_SIZE, CHUNK_SIZE)
+    j = torch.arange(lcap, dtype=torch.int64, device=dev)
+    starts = live_start[:-1]
+    off = _expand(seg_start - starts, starts, starts < lcap, lcap)
+    src = torch.clamp(j + off, 0, b.slot_to_gaussian.shape[0] - 1)
+    gid = torch.where(j < demand, b.slot_to_gaussian[src].to(torch.int64), num_gaussians)
+    live_demand = torch.tensor(demand, dtype=torch.int32, device=dev)
+    bc = Binning(slot_to_gaussian=gid.to(torch.int32), bounds=live_start.to(torch.int32),
+                 num_keys=live_demand, overflow=b.overflow, num_slots=b.num_slots)
+    return bc, truncated, torch.zeros((), dtype=torch.bool, device=dev), live_demand
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,9 @@ tolerance.
 The backward recomputes T with that same serial arithmetic (not gof_tpu's
 `T * shift_down(prod_incl)`), so its T > 1e-4 cutoff and median visit agree
 with the forward bit for bit, and rebuilds the suffix sums by subtraction
-from the forward totals, as gof_tpu does. It keeps gof_tpu's quirks
+from the forward totals, as gof_tpu does, but takes them as exactly zero
+past the T > 1e-4 cutoff (gof_tpu keeps the subtraction's rounding residue
+there, so a row's gradient depended on where the walk's windows end). It keeps gof_tpu's quirks
 (rasterize_pallas.py:46-53): the distortion gradient flows through the
 mapped depth m only, the median-depth gradient goes to the median visit
 only, the 0.99 alpha clamp is ignored in dop and dL/dmv, and the caller
@@ -382,8 +384,10 @@ def _bwd_tiles(payload, fout, gout, binning, meta_vec, ntx, tids, halfw, halfh,
             F = F + (-n0 * inv_len) * gn0 + (-n1 * inv_len) * gn1 + (-n2 * inv_len) * gn2
         wF = torch.where(active, w * F, zero)
         incl = torch.cumsum(torch.cat([PwF[:, None], wF], dim=1), dim=1)[:, 1:]
-        dL_da = (torch.where(cutoff, T_excl * F, zero)
-                 - ((tot - incl) + t_bg) / (1.0 - a))
+        # past the cutoff every later weight is zero, so the suffix is exactly
+        # zero: the subtraction's rounding residue is dropped
+        sf = torch.where(cutoff, tot - incl, zero)
+        dL_da = torch.where(cutoff, T_excl * F, zero) - (sf + t_bg) / (1.0 - a)
         dop_pix = E * dL_da
         dL_dmv = -0.5 * E * op * dL_da
         s_mv = t * dL_dmv

@@ -24,12 +24,13 @@ def save_png(path: str, img_chw: np.ndarray) -> None:
 
 
 @torch.no_grad()
-def render_eval(gauss, gstate, camera, model_cfg, bg):
+def render_eval(gauss, gstate, camera, model_cfg, bg, backend: str = "pallas"):
     """Full-degree eval render of one view (gof_tpu train.py:1164-1200),
-    building no autograd graph. Buffers are sized to each view's demand, so
-    there is no overflow to retry. The densification statistics feed only
-    the backward, so their payload columns are left out. Returns the
-    RenderOut."""
+    building no autograd graph, through the render backend `backend`
+    (the model directory's pipeline setting in the CLIs). Buffers are sized
+    to each view's demand, so there is no overflow to retry. The
+    densification statistics feed only the backward, so their payload
+    columns are left out. Returns the RenderOut."""
     from .model import gaussians as gm
     from .ops import render as render_lib
 
@@ -37,11 +38,12 @@ def render_eval(gauss, gstate, camera, model_cfg, bg):
         camera, gauss.xyz, gm.filtered_scaling(gauss, gstate.filter_3d), gauss.rotation,
         gm.filtered_opacity(gauss, gstate.filter_3d), gm.get_features(gauss),
         model_cfg.sh_degree, model_cfg.kernel_size, bg, active_mask=gstate.active,
-        with_stats=False,
+        with_stats=False, backend=backend,
     )
 
 
-def render_set(scene, gauss, gstate, model_cfg, bg, split: str, cams, iteration: int, device):
+def render_set(scene, gauss, gstate, model_cfg, bg, split: str, cams, iteration: int, device,
+               backend: str = "pallas"):
     """Render one split; returns per-view stats [{"num_keys", "ms"}]."""
     base = os.path.join(model_cfg.model_path, split, f"ours_{iteration}")
     rdir = os.path.join(base, "renders")
@@ -52,7 +54,7 @@ def render_set(scene, gauss, gstate, model_cfg, bg, split: str, cams, iteration:
     for idx, info in enumerate(cams):
         camera, gt = scene.camera(info, device=device)
         t0 = time.perf_counter()
-        out = render_eval(gauss, gstate, camera, model_cfg, bg)
+        out = render_eval(gauss, gstate, camera, model_cfg, bg, backend)
         rgb = out.image[:3].cpu().numpy()  # waits for the device
         ms = (time.perf_counter() - t0) * 1e3
         stats.append({"num_keys": int(out.num_keys), "ms": ms})
@@ -81,7 +83,7 @@ def main(argv=None):
             raise RuntimeError("CUDA is not available; pass --cpu for the CPU path")
         device = torch.device("cuda")
 
-    model_cfg, _pipe, _opt = config_lib.load_cfg(ns.model_path)
+    model_cfg, pipe, _opt = config_lib.load_cfg(ns.model_path)
     model_cfg.model_path = ns.model_path
     iteration = ns.iteration if ns.iteration > 0 else _latest_iteration(ns.model_path)
 
@@ -97,10 +99,10 @@ def main(argv=None):
     stats = {}
     if not ns.skip_train:
         stats["train"] = render_set(sc, gauss, gstate, model_cfg, bg, "train", sc.train_cameras,
-                                    iteration, device)
+                                    iteration, device, pipe.backend)
     if not ns.skip_test and sc.test_cameras:
         stats["test"] = render_set(sc, gauss, gstate, model_cfg, bg, "test", sc.test_cameras,
-                                   iteration, device)
+                                   iteration, device, pipe.backend)
     print("Rendering complete.")
     return stats
 

@@ -30,6 +30,12 @@ gof_tpu's), --start_checkpoint, --debug's fail-time npz dump,
 --debug_image_interval grids (utils/vis.py), --profile_dir (a torch.profiler
 trace) and the TensorBoard scalars follow gof_tpu.
 
+Temporal liveness culling (gof_tpu train.py:833-850): from the first step
+past densify_until_iter on the pallas backend, each training camera's row
+of a device-resident cache bounds the keys each tile walks (its previous
+visit's walked chunks plus a margin); a step whose bound proved stale
+skips its update and grows the row (`build_train_step`).
+
 Not ported yet: --dp > 1 (A.18) raises NotImplementedError naming its
 ROADMAP item rather than being skipped. There are no capacity re-jits or
 overflow gates: the port sizes its render buffers from each view's demand.
@@ -55,9 +61,10 @@ from . import config as config_lib
 from .data import scene as scene_lib
 from .model import appearance as app_lib
 from .model import gaussians as gm
+from .ops import binning as binning_lib
 from .ops import render as render_lib
 from .ops.blend import pixel_rays
-from .utils import losses, schedules
+from .utils import hostio, losses, schedules
 
 GAUSS_FIELDS = tuple(f.name for f in fields(gm.GaussianParams))
 STATE_FIELDS = tuple(f.name for f in fields(gm.GaussianState))
@@ -346,7 +353,8 @@ def build_train_step(opt: config_lib.OptimizationParams, model_cfg: config_lib.M
                      with_reg: bool = True, dp: int = 1):
     """One training step for one camera: gof_tpu's `step_body` for dp == 1
     (train.py:328-481). Returns step(tp, opt_state, gstate, gt, step, camera,
-    bg) -> (tp, opt_state, gstate, metrics), with gof_tpu's metrics dict.
+    bg, lim=None) -> (tp, opt_state, gstate, metrics), with gof_tpu's
+    metrics dict.
 
     The params are updated in place (they stay autograd leaves); the
     optimizer and densification states are returned anew. `key_overflow` and
@@ -356,17 +364,33 @@ def build_train_step(opt: config_lib.OptimizationParams, model_cfg: config_lib.M
     state that tp carries (a gof_tpu checkpoint always holds one) feeds
     nothing and is stepped with zero gradients, as gof_tpu does
     (train.py:409-415): its momentum alone moves it.
+
+    pipe.backend picks the render path ("pallas": the kernels; "xla": the
+    tiled reference, whose render gives the densification carrier no
+    gradient, as in gof_tpu). lim: this camera's row of the liveness cache
+    ([>= NTILES] int32 chunk bounds, binning.LIM_INF = none), pallas
+    backend only. With it the render walks the compacted list; if any tile
+    was cut by a stale bound (`live_bad`, read on the host once after the
+    forward), the step runs no backward and no update: params, Adam's
+    moments and count, the GaussianState and the appearance leaves stay as
+    they were (gof_tpu's gate, train.py:421-439). Either way
+    metrics["live_new_lim"] is the row's next value (train.py:460-480),
+    padded with LIM_INF to lim's width.
     """
-    del pipe  # gof_tpu's capacities and backend; the port needs neither
     if dp != 1:
         raise _not_ported(f"--dp {dp} (camera-batch data parallelism)", "A.18")
+    backend = pipe.backend
     use_app = model_cfg.use_decoupled_appearance
     sh_degree = model_cfg.sh_degree
     kernel_size = model_cfg.kernel_size
 
     def step_fn(tp: TrainParams, opt_state: AdamState, gstate: gm.GaussianState,
-                gt: torch.Tensor, step: int, camera: cameras_lib.Camera, bg: torch.Tensor):
+                gt: torch.Tensor, step: int, camera: cameras_lib.Camera, bg: torch.Tensor,
+                lim: torch.Tensor | None = None):
         g = tp.gauss
+        use_live = lim is not None
+        ntx, nty = binning_lib.tile_grid(camera.width, camera.height)
+        lim_cam = lim[:ntx * nty] if use_live else None
         leaves = [getattr(g, f).requires_grad_(True) for f in GAUSS_FIELDS]
         app = app_leaves(tp) if use_app else {}
         for x in app.values():
@@ -378,29 +402,36 @@ def build_train_step(opt: config_lib.OptimizationParams, model_cfg: config_lib.M
         shs = masked_shs(g, active_degree, sh_degree)
         out = render_lib.render(camera, g.xyz, scales_f, g.rotation, opac_f, shs, sh_degree,
                                 kernel_size, bg, carrier=carrier, active_mask=gstate.active,
-                                with_stats=with_stats, with_reg=with_reg)
+                                with_stats=with_stats, with_reg=with_reg, backend=backend,
+                                live_limit_chunks=lim_cam)
         loss, l1, ssim_val, distortion_loss, depth_normal_loss = train_loss(
             out.image, gt, camera, opt, step, with_reg,
             (tp.app_net, tp.app_emb) if use_app else None)
         image = out.image[:3]
-        loss.backward()
-        grads = gm.GaussianParams(*[x.grad for x in leaves])
-        stat_new = gm.add_densification_stats(gstate, carrier.grad, out.radii, out.visibility)
+        # a stale liveness bound cut an unsaturated tile: skip the update
+        live_inv = use_live and bool(out.live_bad.any())  # the one host read
+        if live_inv:
+            stat_new = gstate
+        else:
+            loss.backward()
+            grads = gm.GaussianParams(*[x.grad for x in leaves])
+            cgrad = carrier.grad if carrier.grad is not None else torch.zeros_like(carrier)
+            stat_new = gm.add_densification_stats(gstate, cgrad, out.radii, out.visibility)
         with torch.no_grad():
-            updates, opt_state = tx.update(grads, opt_state)
-            for x, f in zip(leaves, GAUSS_FIELDS):
-                x.add_(getattr(updates, f))
-                x.grad = None
-            carried = app if use_app else app_leaves(tp)
-            if carried:
-                app_upd, opt_state = tx.update_app(
-                    {k: x.grad if use_app else torch.zeros_like(x) for k, x in carried.items()},
-                    opt_state)
-                for k, x in carried.items():
-                    x.add_(app_upd[k])
+            if not live_inv:
+                updates, opt_state = tx.update(grads, opt_state)
+                for x, f in zip(leaves, GAUSS_FIELDS):
+                    x.add_(getattr(updates, f))
                     x.grad = None
+                carried = app if use_app else app_leaves(tp)
+                if carried:
+                    app_upd, opt_state = tx.update_app(
+                        {k: x.grad if use_app else torch.zeros_like(x)
+                         for k, x in carried.items()}, opt_state)
+                    for k, x in carried.items():
+                        x.add_(app_upd[k])
+                        x.grad = None
             psnr = losses.psnr(image, gt)
-            false = torch.zeros((), dtype=torch.bool, device=image.device)
             metrics = {"l1": l1.detach(), "ssim": ssim_val.detach(),
                        "distortion": distortion_loss.detach(),
                        "depth_normal": depth_normal_loss.detach(), "num_keys": out.num_keys,
@@ -409,27 +440,38 @@ def build_train_step(opt: config_lib.OptimizationParams, model_cfg: config_lib.M
                        "compact_overflow": out.compact_overflow, "loss": loss.detach(),
                        "step_next": int(step) + 1}
             fl = torch.float32
-            zero = torch.zeros((), dtype=fl, device=image.device)
             metrics["packed"] = torch.stack([
                 loss.detach(), psnr, out.num_keys.to(fl), out.overflow.to(fl),
                 out.compact_demand.to(fl), out.compact_overflow.to(fl),
-                gm.num_active(stat_new).to(fl), zero, zero, false.to(fl)])
+                gm.num_active(stat_new).to(fl), out.live_demand.to(fl),
+                out.live_overflow.to(fl), psnr.new_tensor(float(live_inv))])
+            if use_live:
+                # the next visit's bounds: the walked prefix plus margin;
+                # exponential growth where the bound proved stale
+                lim_c = torch.clamp_max(lim_cam.to(torch.int32), binning_lib.LIM_INF)
+                measured = out.live_counts + binning_lib.LIVE_MARGIN_CHUNKS
+                new_lim = torch.where(out.live_bad, lim_c * 2 + 4, measured)
+                if lim.shape[0] > new_lim.shape[0]:
+                    new_lim = torch.cat([new_lim, new_lim.new_full(
+                        (lim.shape[0] - new_lim.shape[0],), binning_lib.LIM_INF)])
+                metrics["live_new_lim"] = new_lim
         return tp, opt_state, stat_new, metrics
 
     return step_fn
 
 
 @torch.no_grad()
-def evaluate(sc, tp: TrainParams, gstate, model_cfg, bg, device):
+def evaluate(sc, tp: TrainParams, gstate, model_cfg, bg, device, backend: str = "pallas"):
     """PSNR over the test split (or the first 4 training views), as gof_tpu's
-    evaluate (train.py:1147-1158), building no autograd graph."""
+    evaluate (train.py:1147-1158), building no autograd graph, through the
+    render backend `backend`."""
     from .render_cli import render_eval
 
     cams = sc.test_cameras or sc.train_cameras[:4]
     psnrs = []
     for info in cams:
         camera, gt = sc.camera(info, device=device)
-        img = render_eval(tp.gauss, gstate, camera, model_cfg, bg).image
+        img = render_eval(tp.gauss, gstate, camera, model_cfg, bg, backend).image
         psnrs.append(float(losses.psnr(img[:3], torch.as_tensor(gt, device=device))))
     return {"psnr": round(float(np.mean(psnrs)), 3), "views": len(psnrs)}
 
@@ -474,6 +516,15 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
     reg_start = min(opt.distortion_from_iter, opt.depth_normal_from_iter)
     with_stats = first_iter + 1 <= opt.densify_until_iter
     with_reg = first_iter + 1 >= reg_start
+
+    # temporal liveness culling (binning.compact_live): a [n_cameras,
+    # ntiles_max] cache of per-tile live-prefix bounds in chunks, made at
+    # the first step past densify_until_iter on the pallas backend and
+    # indexed by the camera's index among the training cameras (a resume
+    # starts a fresh one, as gof_tpu's does)
+    ntiles_max = max(int(np.prod(binning_lib.tile_grid(*sc._scaled_size(c))))
+                     for c in sc.train_cameras)
+    live_cache = None
 
     def rebuild_step():
         return build_train_step(opt, model_cfg, pipe, tx, with_stats=with_stats,
@@ -530,10 +581,20 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
             if not with_reg and iteration >= reg_start:
                 with_reg = True
                 train_step = rebuild_step()
+            if (live_cache is None and pipe.backend == "pallas"
+                    and iteration > opt.densify_until_iter):
+                live_cache = torch.full((len(sc.train_cameras), ntiles_max), binning_lib.LIM_INF,
+                                        dtype=torch.int32, device=device)
+                if not quiet:
+                    print(f"[{iteration}] liveness culling on")
 
-            camera, gt = get_cam(sc.train_cameras[next_id()])
-            tp, opt_state, gstate, metrics = train_step(tp, opt_state, gstate, gt,
-                                                        iteration, camera, bg)
+            cam_id = next_id()
+            camera, gt = get_cam(sc.train_cameras[cam_id])
+            tp, opt_state, gstate, metrics = train_step(
+                tp, opt_state, gstate, gt, iteration, camera, bg,
+                lim=None if live_cache is None else live_cache[cam_id])
+            if live_cache is not None:
+                live_cache[cam_id] = metrics["live_new_lim"]
 
             # --- host control flow (train.py:921-943) ---
             if iteration < opt.densify_until_iter:
@@ -594,13 +655,13 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
                 from .render_cli import render_eval
                 from .utils import vis
 
-                img = render_eval(tp.gauss, gstate, camera, model_cfg, bg).image
+                img = render_eval(tp.gauss, gstate, camera, model_cfg, bg, pipe.backend).image
                 vis.save_debug_grid(os.path.join(model_cfg.model_path, "debug",
                                                  f"iter_{iteration:06d}.png"),
                                     img.cpu().numpy(), gt.cpu().numpy())
 
             if iteration in test_iterations:
-                report = evaluate(sc, tp, gstate, model_cfg, bg, device)
+                report = evaluate(sc, tp, gstate, model_cfg, bg, device, pipe.backend)
                 if not quiet:
                     print(f"[{iteration}] eval: {report}")
                 logf.write(json.dumps({"iter": iteration, "eval": report}) + "\n")
@@ -642,8 +703,8 @@ def _debug_dump(model_path: str, iteration: int, tp: TrainParams, gstate: gm.Gau
     path = os.path.join(model_path, "debug")
     os.makedirs(path, exist_ok=True)
     fn = os.path.join(path, f"snapshot_iter{int(iteration):06d}.npz")
-    arrs = {f"gauss_{f}": getattr(tp.gauss, f).detach().cpu().numpy() for f in GAUSS_FIELDS}
-    arrs.update({f"gstate_{f}": getattr(gstate, f).cpu().numpy() for f in STATE_FIELDS})
+    arrs = {f"gauss_{f}": hostio.device_get(getattr(tp.gauss, f)) for f in GAUSS_FIELDS}
+    arrs.update({f"gstate_{f}": hostio.device_get(getattr(gstate, f)) for f in STATE_FIELDS})
     adam = adam_to_numpy(opt_state)
     arrs.update(adam_count=np.asarray(adam.count, np.int32), adam_mu_flat=adam.mu_flat,
                 adam_nu_flat=adam.nu_flat, **extra)
@@ -661,8 +722,8 @@ def save_checkpoint(model_path: str, iteration: int, tp: TrainParams, opt_state:
     "app_emb" and, in "adam", "mu_app" / "nu_app" as gof_tpu's (tree,
     embeddings) pairs. Returns the path."""
     adam = adam_to_numpy(opt_state)
-    blob = {"gauss": {f: getattr(tp.gauss, f).detach().cpu().numpy() for f in GAUSS_FIELDS},
-            "gstate": {f: getattr(gstate, f).cpu().numpy() for f in STATE_FIELDS},
+    blob = {"gauss": {f: hostio.device_get(getattr(tp.gauss, f)) for f in GAUSS_FIELDS},
+            "gstate": {f: hostio.device_get(getattr(gstate, f)) for f in STATE_FIELDS},
             "adam": {"count": adam.count, "mu_flat": adam.mu_flat, "nu_flat": adam.nu_flat},
             "iter": int(iteration)}
     if tp.app_net is not None:

@@ -572,6 +572,82 @@ def test_train_step_cuda_matches_cpu(dev):
     assert torch.equal(gg.denom.cpu(), gw.denom)
 
 
+def test_warm_liveness_limits_keep_the_step_on_cuda(dev):
+    """Warm liveness limits (live_counts + 2) on the card: with a black
+    background the image channels 0-7 are bit-equal to the unlimited
+    render, T differs only where both are below 1e-4 (ROADMAP C21), and one
+    step leaves a bit-equal state (C20); with limits of 0 chunks every
+    non-empty tile is flagged and the step changes nothing."""
+    from gof_tpu_torch import config, train
+    from gof_tpu_torch.model import gaussians as gm
+    from gof_tpu_torch.ops import binning
+
+    (xyz, scales, rots, op, shs), cam = scene(6000, 200, 150, scale=(0.6, 1.5))
+    c = cameras.look_at_camera(**cam, device=dev)
+    gt = torch.rand((3, 150, 200), generator=torch.Generator().manual_seed(2)).to(dev)
+    opt = config.OptimizationParams(distortion_from_iter=0, depth_normal_from_iter=0)
+
+    def state():
+        n = xyz.shape[0]
+        z = torch.zeros(n, device=dev)
+        g = gm.GaussianParams(xyz=xyz.to(dev, copy=True), features_dc=shs[:, :1].to(dev, copy=True),
+                              features_rest=shs[:, 1:].to(dev, copy=True),
+                              scaling=torch.log(scales).to(dev),
+                              rotation=rots.to(dev, copy=True), opacity=torch.logit(op).to(dev))
+        s = gm.GaussianState(active=torch.ones(n, dtype=torch.bool, device=dev),
+                             filter_3d=z + 1e-4, max_radii2d=z.clone(), grad_accum=z.clone(),
+                             grad_abs_accum=z.clone(), denom=z.clone())
+        tx = train.make_optimizer(opt, 5.0)
+        tp = train.TrainParams(gauss=g)
+        return tx, (tp, tx.init(tp), s)
+
+    tx, (tp, _, s) = state()
+    bg = torch.zeros(3, device=dev)
+    args = (c, tp.gauss.xyz, gm.filtered_scaling(tp.gauss, s.filter_3d), tp.gauss.rotation,
+            gm.filtered_opacity(tp.gauss, s.filter_3d), train.masked_shs(tp.gauss, 0, 3), 3, 0.1,
+            bg)
+    with torch.no_grad():
+        full = render.render(*args, with_stats=False)
+        lim = full.live_counts + binning.LIVE_MARGIN_CHUNKS
+        comp = render.render(*args, with_stats=False, live_limit_chunks=lim)
+    assert int(comp.live_demand) < int(full.num_keys) and not comp.live_bad.any()
+    assert torch.equal(comp.image[:8], full.image[:8])
+    tf, tc = full.transmittance, comp.transmittance
+    assert bool(((tf == tc) | ((tf < 1e-4) & (tc < 1e-4))).all())
+    outs = []
+    for row in (None, lim, torch.zeros_like(lim)):
+        tx, st = state()
+        step = train.build_train_step(opt, config.ModelParams(sh_degree=3, kernel_size=0.1),
+                                      config.PipelineParams(), tx, with_stats=False)
+        outs.append(step(*st, gt, 20000, c, bg, lim=row))
+    (tp0, st0, s0, _), (tp1, st1, s1, m1), (tp2, st2, s2, m2) = outs
+    for f in train.GAUSS_FIELDS:
+        assert torch.equal(getattr(tp0.gauss, f), getattr(tp1.gauss, f)), f
+        assert torch.equal(getattr(st0.mu, f), getattr(st1.mu, f)), f
+        assert torch.equal(getattr(st0.nu, f), getattr(st1.nu, f)), f
+        assert torch.equal(getattr(tp2.gauss, f), getattr(state()[1][0].gauss, f)), f
+    assert st1.count == 1 and st2.count == 0 and bool(m2["packed"][9]) and not bool(m1["packed"][9])
+    for f in ("max_radii2d", "denom"):
+        assert torch.equal(getattr(s0, f), getattr(s1, f)), f
+
+
+def test_xla_backend_and_oracle_on_cuda_match_the_kernels(dev):
+    """The xla backend and the dense oracle on the card against the kernel
+    path, with tests/test_torch_oracle.py's tolerances."""
+    from gof_tpu_torch.ops import oracle
+
+    args, cam = scene(12, 96, 64, scale=(2.0, 4.0))
+    c = cameras.look_at_camera(**cam, device=dev)
+    a = [x.to(dev) for x in args]
+    bg = torch.tensor([0.2, 0.3, 0.4], device=dev)
+    ker = render.render(c, *a, 3, 0.1, bg)
+    xla = render.render(c, *a, 3, 0.1, bg, backend="xla")
+    orc = oracle.render_oracle(*a, 3, c, 0.1, bg)
+    torch.testing.assert_close(ker.image, xla.image, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(ker.image, orc.image, atol=2e-5, rtol=2e-4)
+    torch.testing.assert_close(ker.transmittance, orc.transmittance, atol=2e-6, rtol=2e-4)
+
+
 # ---------------------------------------------------------------------------
 # K5 integrate and the mesh path
 # ---------------------------------------------------------------------------
