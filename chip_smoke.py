@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build and drive gof_tpu_torch's serving, training and mesh-extraction
-paths, its DTU/TNT chain and its gather/scatter probes once on one CUDA
-GPU.
+paths, its DTU/TNT chain, its parallel paths and its gather/scatter probes
+once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -92,6 +92,27 @@ GPU.
    fuse_depth_maps on three of the chain's depth maps (blocks equal, tsdf
    within 1e-5 where the weights agree, at most 1e-4 of the samples with
    another weight);
+9b. parallel (gof_tpu_torch.parallel): (a) two data-parallel ranks
+   sharing the card over gloo (parallel.sharding.launch) at bench's point
+   in both bench phases: on two copies of bench's view, the state after
+   the step against the single-rank step (params within rtol 1e-4 / atol
+   1e-7, Adam's moments within 1e-4 of max, the statistics exactly 2x,
+   the radii equal; bit-equality printed), on two views against one
+   process's mean of their gradients and the same Adam step; the ranks'
+   states bit-equal, K1-K4 launched in every rank; the dp step's host
+   clock and views/s beside the single-rank step's, each rank's device
+   idle share; (c) a one-rank NCCL group's step bit-equal to the dp == 1
+   step; (b) train.training(dp=2) with both ranks on the card through the
+   densify run's schedule (densifying at 10, 20 and 30, the opacity reset
+   at 35): the replicas bit-equal (sha256 of every field), the log,
+   checkpoints and PLY written once, by rank 0, and the last checkpoint
+   resumed in a one-rank run; (d) the mesh model's opacity field at its
+   tetra points with the points split four ways on the card against
+   unsharded (rtol 1e-5 / atol 1e-6, K5 launched once per view in every
+   shard), and extract_level_set_mesh sharded and unsharded from the mesh
+   path's Delaunay: the same vertices and faces; (e) gof_tpu's lr-scaling
+   check at its own size (dp=2 at lr x1.41 for 16 steps against dp=1 for
+   32);
 10. probes: gof_tpu_torch.scripts.pallas_gather_probe.main and
    mxu_gather_probe.main at the scripts' shapes run K6-K13 (row gathers,
    one-hot bf16 and int8 products on the tensor cores, segment sums,
@@ -2429,6 +2450,407 @@ def check_rld_cases() -> None:
         raise RuntimeError("K12 disagrees with its plain version on the edge cases")
 
 
+# ---------------------------------------------------------------------------
+# The parallel phase: data parallelism, replicas, NCCL, the sharded field
+# ---------------------------------------------------------------------------
+
+DP_REPS = 10  # timed dp steps per bench phase, after 2 warm-up
+# the second view of the two-view dp steps: bench's look-at camera moved
+# along bench's orbit, its own seeded ground truth
+DP_EYE2 = (0.3, 0.1, 0.0)
+
+
+def dp_cases(phase: str, params, state, gts):
+    """Bench's point as parallel.steps cases for one bench phase: the
+    two-copies case (both ranks on bench's view) and the two-views case
+    (bench's view, then DP_EYE2's); the model and views are shared objects,
+    so they are pickled once."""
+    from gof_tpu_torch import cameras
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch.parallel import steps
+
+    with_stats, with_reg, step_i = BENCH_PHASES[phase]
+    cams = [cameras.look_at_camera(eye=e, target=(0, 0, 5.0), width=WIDTH, height=HEIGHT,
+                                   uid=i).numpy() for i, e in enumerate([(0, 0, 0), DP_EYE2])]
+    model_cfg = config_lib.ModelParams(sh_degree=3, kernel_size=0.1)
+    return [steps.train_case(params, state, gts, cams, ids,
+                             config_lib.OptimizationParams(), model_cfg,
+                             config_lib.PipelineParams(), 5.0, step_i, with_stats, with_reg)
+            for ids in ([[0, 0]], [[0, 1]])]
+
+
+BENCH_PHASES = {"densify": (True, False, 5000), "regularize": (False, True, 20000)}
+
+
+def dp_rank(group, cases, reps: int):
+    """One rank of the dp checks: each case's step from its own state
+    (parallel.steps.run, launches counted), then `reps` host-clocked steps
+    of every two-views case after 2 warm-up, the device idle share over 3
+    more (torch.profiler), and the host clock of the step's two collectives
+    alone on buffers of their sizes (median of `reps`)."""
+    from gof_tpu_torch import train
+    from gof_tpu_torch.parallel import steps
+
+    out = {"runs": [steps.run(c, group.device, group) for c in cases], "ms": [], "idle": [],
+           "collective_ms": []}
+    for c in cases[1::2]:
+        b = steps.build(c, group.device, group)
+        v = int(c["ids"][0][group.rank])
+        args = [b.tp, b.opt_state, b.gstate, b.gts[v], c["step"], b.cams[v], b.bg]
+        ms = []
+        for i in range(2 + reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            args[0], args[1], args[2], _ = b.step(*args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["ms"].append(ms[2:])
+        idle, _ = profile_steps(b.step, tuple(args))
+        out["idle"].append(idle)
+        P = b.tp.gauss.xyz.shape[0]
+        n_sum = sum(getattr(b.tp.gauss, f).numel() for f in train.GAUSS_FIELDS) + 6 + 3 * P
+        bufs = {"sum": torch.zeros(n_sum, device=group.device),
+                "max": torch.zeros(P + 6, dtype=torch.float64, device=group.device)}
+        coll = {}
+        for op, buf in bufs.items():
+            t = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                group.all_reduce(buf, op)
+                torch.cuda.synchronize()
+                t.append((time.perf_counter() - t0) * 1e3)
+            coll[op] = (buf.numel() * buf.element_size(), statistics.median(t))
+        out["collective_ms"].append(coll)
+    return out
+
+
+def dp_reference(case, device: str = "cuda"):
+    """The two-views dp step computed in one process from the case's state
+    on the card: each view's gradients (train.view_grad, as each rank
+    computes them), their sum divided by the view count (a device tensor),
+    the statistics rows summed and the radii's max over the views, then the
+    same Adam step. Returns train.checkpoint_blob."""
+    from gof_tpu_torch import train
+    from gof_tpu_torch.model import gaussians as gm
+    from gof_tpu_torch.parallel import steps
+
+    b = steps.build(case, device)
+    tx = train.make_optimizer(case["opt"], case["spatial_lr_scale"])
+    gsum = rows = radii = None
+    for v in case["ids"][0]:
+        vg = train.view_grad(b.tp, b.gstate, b.gts[v], case["step"], b.cams[v], b.bg,
+                             case["opt"], case["model_cfg"], case["pipe"].backend,
+                             case["with_stats"], case["with_reg"])
+        with torch.no_grad():
+            grads = [g.clone() for g in vg.grads]
+            for f in train.GAUSS_FIELDS:
+                getattr(b.tp.gauss, f).grad = None
+            vis = vg.out.visibility & b.gstate.active
+            zero = torch.zeros((), device=device)
+            cg = vg.carrier_grad
+            r = torch.stack([torch.where(vis, torch.linalg.norm(cg[:, :2], dim=-1), zero),
+                             torch.where(vis, cg[:, 2].abs(), zero), vis.float()])
+            rad = torch.where(vis, vg.out.radii, zero)
+            gsum = grads if gsum is None else [a + g for a, g in zip(gsum, grads)]
+            rows = r if rows is None else rows + r
+            radii = rad if radii is None else torch.maximum(radii, rad)
+    with torch.no_grad():
+        n = torch.tensor(float(len(case["ids"][0])), device=device)
+        upd, opt_state = tx.update(gm.GaussianParams(*[g / n for g in gsum]), b.opt_state)
+        for f in train.GAUSS_FIELDS:
+            getattr(b.tp.gauss, f).add_(getattr(upd, f))
+        s = b.gstate
+        vis_any = rows[2] > 0
+        gstate = gm.GaussianState(
+            active=s.active, filter_3d=s.filter_3d,
+            max_radii2d=torch.where(vis_any, torch.maximum(s.max_radii2d, radii), s.max_radii2d),
+            grad_accum=s.grad_accum + rows[0], grad_abs_accum=s.grad_abs_accum + rows[1],
+            denom=s.denom + rows[2])
+    return train.checkpoint_blob(b.tp, opt_state, gstate, case["step"])
+
+
+def dp_compare(label: str, got: dict, want: dict, stats: float) -> None:
+    """gof_tpu's dp tolerances (tests/test_sharding.py:88-100): every param
+    field within rtol 1e-4 / atol 1e-7, Adam's moments within 1e-4 of
+    their largest magnitude, the statistics `stats` x the reference's
+    (denom exactly, the gradient sums within rtol 1e-6), the radii equal;
+    and whether the params and moments are bit-equal."""
+    from gof_tpu_torch import train
+
+    fields = train.GAUSS_FIELDS
+    p_ok = all(np.allclose(got["gauss"][f], want["gauss"][f], rtol=1e-4, atol=1e-7)
+               for f in fields)
+    pdiff = max(float(np.abs(got["gauss"][f] - want["gauss"][f]).max()) for f in fields)
+    merr = max(float(np.abs(got["adam"][k] - want["adam"][k]).max()
+                     / max(np.abs(want["adam"][k]).max(), 1e-30)) for k in ("mu_flat", "nu_flat"))
+    g, w = got["gstate"], want["gstate"]
+    denom_ok = np.array_equal(g["denom"], stats * w["denom"])
+    s_ok = all(np.allclose(g[k], stats * w[k], rtol=1e-6, atol=0)
+               for k in ("grad_accum", "grad_abs_accum"))
+    rad_ok = np.array_equal(g["max_radii2d"], w["max_radii2d"])
+    bits = (all(np.array_equal(got["gauss"][f], want["gauss"][f]) for f in fields)
+            and all(np.array_equal(got["adam"][k], want["adam"][k]) for k in ("mu_flat", "nu_flat")))
+    print(f"  {label}: params within rtol 1e-4 / atol 1e-7 {p_ok} (max |d| {pdiff:.3e}), Adam "
+          f"moments {merr:.3e} of max (bound 1e-4), statistics {stats:g}x: denom exact "
+          f"{denom_ok}, gradient sums within rtol 1e-6 {s_ok}, radii equal {rad_ok}; params and "
+          f"moments bit-equal {bits}")
+    if not (p_ok and merr <= 1e-4 and denom_ok and s_ok and rad_ok):
+        raise RuntimeError(f"{label}: the dp step is outside gof_tpu's dp tolerances")
+
+
+def dp_phase(smi: str) -> None:
+    """(a) two ranks sharing cuda:0 over gloo at bench's point, both bench
+    phases: two copies of one view against the single-rank step, two views
+    against dp_reference; replicas bit-equal; the dp step's host-clock
+    median and views/s beside the single-rank step's, each rank's launches
+    and device idle share. (c) a one-rank NCCL group: bit-equal to the
+    dp == 1 step."""
+    from gof_tpu_torch import train
+    from gof_tpu_torch.parallel import sharding, steps
+
+    gts = np.stack([np.random.default_rng(s).uniform(0, 1, (3, HEIGHT, WIDTH))
+                    for s in (SEED, SEED + 1)]).astype(np.float32)  # bench's gt first
+    params, state = make_model(N_GAUSSIANS, SEED)
+    cases = [c for p in BENCH_PHASES for c in dp_cases(p, params, state, gts)]
+    t0 = time.perf_counter()
+    res = sharding.launch(dp_rank, 2, ["cuda:0", "cuda:0"], (cases, DP_REPS))
+    print(f"dp: 2 ranks on cuda:0 over {sharding.backend_for(['cuda:0'] * 2)}, 4 cases and "
+          f"{2 * (2 + DP_REPS + 3)} timed steps each, in {time.perf_counter() - t0:.1f} s")
+    for i, (phase, kind) in enumerate([(p, k) for p in BENCH_PHASES
+                                       for k in ("two copies of one view", "two views")]):
+        runs = [r["runs"][i] for r in res]
+        same = train.replica_digests(runs[0]["state"]) == train.replica_digests(runs[1]["state"])
+        print(f"  {phase} phase, {kind}: loss {runs[0]['metrics']['loss']:.6f}, key slots "
+              f"{int(runs[0]['metrics']['num_keys'])}; launches per rank "
+              f"{[r['launches'] for r in runs]}; replicas bit-equal {same} ({smi})")
+        if not same:
+            raise RuntimeError("the dp replicas differ after one step")
+        if any(v < 1 for r in runs for v in r["launches"].values()):
+            raise RuntimeError("a rank's dp step did not launch K1-K4")
+        if kind.startswith("two copies"):
+            one = steps.run(train_case_one(cases[i]), "cuda")
+            dp_compare(f"{phase}: dp=2 on two copies against the single-rank step",
+                       runs[0]["state"], one["state"], 2.0)
+        else:
+            dp_compare(f"{phase}: dp=2 on two views against one process's mean of their "
+                       "gradients", runs[0]["state"], dp_reference(cases[i]), 1.0)
+    for j, phase in enumerate(BENCH_PHASES):
+        c = train_case_one(cases[2 * j + 1])
+        b = steps.build(c, "cuda")
+        args = [b.tp, b.opt_state, b.gstate, b.gts[0], c["step"], b.cams[0], b.bg]
+        ms = []
+        for i in range(2 + DP_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            args[0], args[1], args[2], _ = b.step(*args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        one_ms = statistics.median(ms[2:])
+        dp_ms = [statistics.median(r["ms"][j]) for r in res]
+        print(f"  {phase} phase step ms (host clock, synchronised, median of {DP_REPS} after 2 "
+              f"warm-up): dp=2 rank 0 / 1 {dp_ms[0]:.3f} / {dp_ms[1]:.3f} ({2e3 / max(dp_ms):.2f} "
+              f"views/s), single rank {one_ms:.3f} ({1e3 / one_ms:.2f} views/s); device idle "
+              f"share per rank {[r['idle'][j] for r in res]} ({smi})")
+        print("    the step's collectives alone (host clock, median of "
+              f"{DP_REPS}): " + "; ".join(
+                  f"{op} {nb / 2**20:.2f} MiB {ms:.3f} ms" for op, (nb, ms) in
+                  res[0]["collective_ms"][j].items()))
+
+    # (c) NCCL: one rank with its own card
+    c = train_case_one(cases[0])
+    t0 = time.perf_counter()
+    ((nccl,),) = sharding.launch(steps.dp_steps, 1, ["cuda:0"], ([c],))
+    one = steps.run(c, "cuda")
+    same = train.replica_digests(nccl["state"]) == train.replica_digests(one["state"])
+    print(f"dp: one rank over {sharding.backend_for(['cuda:0'])} on cuda:0 "
+          f"({time.perf_counter() - t0:.1f} s): bit-equal to the dp == 1 step {same}; launches "
+          f"{nccl['launches']}")
+    if not same:
+        raise RuntimeError("the one-rank NCCL dp step differs from the dp == 1 step")
+
+
+def train_case_one(case: dict) -> dict:
+    """The case's first rank's view alone (dp == 1)."""
+    return {**case, "ids": case["ids"][:, :1]}
+
+
+def dp_training(src: str, root: str, smi: str) -> None:
+    """(b) train.training(dp=2) with both ranks on cuda:0, over the densify
+    phase's 100k-point scene and schedule (densifying at 10, 20 and 30,
+    the opacity reset at 35, 40 steps): the ranks' final states bit-equal
+    (training compares a sha256 of every field across the ranks and raises
+    on a difference), rank 0 alone wrote the log, checkpoints and PLY, and
+    the checkpoint resumes in a one-rank run."""
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch import train
+
+    out = os.path.join(root, "dp_trained")
+    o = config_lib.OptimizationParams(
+        iterations=DENSIFY_ITERS, densify_from_iter=9, densification_interval=10,
+        densify_until_iter=40, densify_grad_threshold=DENSIFY_GRAD, opacity_reset_interval=35,
+        distortion_from_iter=15, depth_normal_from_iter=15)
+    m = config_lib.ModelParams(source_path=src, model_path=out, sh_degree=3, kernel_size=0.1)
+    t0 = time.perf_counter()
+    tp, gs = train.training(m, o, config_lib.PipelineParams(), {DENSIFY_ITERS},
+                            {DENSIFY_ITERS}, {20, DENSIFY_ITERS}, device="cuda", dp=2,
+                            devices=["cuda:0", "cuda:0"])
+    wall = time.perf_counter() - t0
+    recs = [json.loads(line) for line in open(os.path.join(out, "train_log.jsonl"))]
+    iters = [r["iter"] for r in recs]
+    files = sorted(os.listdir(out))
+    print(f"dp training: train.training(dp=2) on cuda:0 x2, {DENSIFY_ITERS} steps of 2 views, "
+          f"densifying at {DENSIFY_AT}, in {wall:.1f} s; active {int(gs.active.sum())} of "
+          f"{gs.active.shape[0]}; log records {iters}; files {files} ({smi})")
+    if iters != [1, 10, 20, 30, 40, 40] or len(recs) != len(set(map(json.dumps, recs))):
+        raise RuntimeError(f"the dp run's log is not one rank's: {iters}")
+    ply = os.path.join(out, "point_cloud", f"iteration_{DENSIFY_ITERS}", "point_cloud.ply")
+    if not (os.path.exists(ply) and {"chkpnt20.pkl", "chkpnt40.pkl"} <= set(files)):
+        raise RuntimeError("the dp run did not write its checkpoints and PLY")
+    t0 = time.perf_counter()
+    tp2, _ = train.main(["-s", src, "-m", os.path.join(root, "dp_resumed"), "--sh_degree", "3",
+                         "--kernel_size", "0.1", "--start_checkpoint",
+                         os.path.join(out, "chkpnt40.pkl"), "--iterations", str(DENSIFY_ITERS + 2),
+                         "--test_iterations", "0", "--quiet"])
+    moved = float((tp2.gauss.xyz - tp.gauss.xyz).detach().abs().max())
+    print(f"  chkpnt40 resumed in a one-rank run for 2 steps in {time.perf_counter() - t0:.1f} s: "
+          f"max |xyz - dp run's| {moved:.3e}")
+    if not (moved > 0 and bool(torch.isfinite(tp2.gauss.xyz).all())):
+        raise RuntimeError("the dp checkpoint did not resume")
+
+
+def sharded_field(model: str, smi: str) -> None:
+    """(d) FieldEvaluator(devices=[cuda:0] x 4) against the unsharded one
+    at the model's tetra points (gof_tpu's bound rtol 1e-5 / atol 1e-6,
+    bit-equality printed), then extract_level_set_mesh sharded and
+    unsharded from the mesh path's cells.npy: the same vertices and faces.
+    K5's launches per shard."""
+    from gof_tpu_torch.mesh import extract
+    from gof_tpu_torch.ops import integrate
+    from gof_tpu_torch.utils import ply
+
+    cfg, g, s, cams, meta = load_model(model, "cuda")
+    pts, _ = extract.get_tetra_points(g, s, meta)
+    shards = [torch.device("cuda", 0)] * 4
+    t0 = time.perf_counter()
+    a1 = extract.FieldEvaluator(g, s, cams, cfg.sh_degree, cfg.kernel_size).alpha(pts)
+    t1 = time.perf_counter()
+    integrate.INTEGRATE.launches = 0
+    a4 = extract.FieldEvaluator(g, s, cams, cfg.sh_degree, cfg.kernel_size,
+                                devices=shards).alpha(pts)
+    t2 = time.perf_counter()
+    per_shard = integrate.INTEGRATE.launches / len(shards)
+    ok = bool(np.allclose(a4, a1, rtol=1e-5, atol=1e-6))
+    print(f"sharded field: {len(pts)} tetra points, {len(cams)} views: unsharded {t1 - t0:.2f} s, "
+          f"4 shards on cuda:0 {t2 - t1:.2f} s (K5 launches per shard {per_shard:g}); max |d| "
+          f"{float(np.abs(a4 - a1).max()):.3e}, within rtol 1e-5 / atol 1e-6 {ok}, bit-equal "
+          f"{bool(np.array_equal(a4, a1))} ({smi})")
+    if not ok or per_shard != len(cams):
+        raise RuntimeError("the sharded field disagrees with the unsharded one")
+    it = max(int(d.split("_")[1]) for d in os.listdir(os.path.join(model, "point_cloud")))
+    cells = os.path.join(model, "test", f"ours_{it}", "fusion", "cells.npy")
+    meshes = {}
+    for label, shard in (("unsharded", 0), ("4 shards", shards)):
+        out = os.path.join(model, "shard_check", label.replace(" ", "_"))
+        os.makedirs(out)
+        shutil.copy(cells, out)  # Delaunay once, on the mesh path
+        t0 = time.perf_counter()
+        res = extract.extract_level_set_mesh(g, s, cams, meta, out, cfg.sh_degree,
+                                             cfg.kernel_size, quiet=True, shard=shard)
+        meshes[label] = ply.read_ply(res["path"])
+        print(f"  extract_level_set_mesh {label}: {res['faces']} faces, {res['vertices']} "
+              f"vertices in {time.perf_counter() - t0:.2f} s (stages "
+              + ", ".join(f"{k} {v:.2f}" for k, v in res["seconds"].items()) + ")")
+    (v1, f1), (v4, f4) = meshes["unsharded"], meshes["4 shards"]
+    same = all(np.array_equal(v4[k], v1[k]) for k in ("x", "y", "z")) and np.array_equal(f4, f1)
+    print(f"  sharded and unsharded meshes: same vertices and faces {same}")
+    if not same:
+        raise RuntimeError("the sharded mesh differs from the unsharded one")
+
+
+def dp_lr_scaling(smi: str) -> None:
+    """(e) gof_tpu's semantics test (tests/test_sharding.py:120-201) at its
+    own size on the card: 128 points, 8 views of 48x48 rendered from a
+    target with perturbed colours; dp=2 (two ranks on cuda:0) at lr x1.41
+    for 16 steps against dp=1 for 32 steps: both below 0.6 of the starting
+    mean L1, and l_dp2 < 1.25 l_dp1."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from gof_tpu_torch import cameras
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch import train
+    from gof_tpu_torch.model import gaussians as gm
+    from gof_tpu_torch.ops import render as render_lib
+    from gof_tpu_torch.parallel import sharding, steps
+
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(128, 3)).astype(np.float32) * 0.5
+    cols = rng.random((128, 3)).astype(np.float32)
+    gauss, gstate = gm.init_from_points(pts, cols, 1, 256, device="cuda")
+    cams = [cameras.look_at_camera(eye=(3.0 * np.sin(t), 0.8, 3.0 * np.cos(t)), target=(0, 0, 0),
+                                   width=48, height=48, uid=i, device="cuda")
+            for i, t in enumerate(np.linspace(0, 2 * np.pi, 8, endpoint=False))]
+    tgt = dataclasses.replace(gauss, features_dc=gauss.features_dc + 0.6 * torch.from_numpy(
+        rng.standard_normal(gauss.features_dc.shape).astype(np.float32)).cuda())
+
+    @torch.no_grad()
+    def render_view(g, cam):
+        return render_lib.render(cam, g.xyz, gm.filtered_scaling(g, gstate.filter_3d),
+                                 g.rotation, gm.filtered_opacity(g, gstate.filter_3d),
+                                 gm.get_features(g), 1, 0.1, torch.zeros(3, device="cuda"),
+                                 active_mask=gstate.active, with_stats=False,
+                                 with_reg=False).image[:3]
+
+    gts = torch.stack([render_view(tgt, c) for c in cams])
+    host = lambda x: {f.name: getattr(x, f.name).cpu().numpy()  # noqa: E731
+                      for f in dataclasses.fields(x)}
+    params, state = SimpleNamespace(**host(gauss)), SimpleNamespace(**host(gstate))
+
+    def loss_of(blob):
+        g = train.state_from_blob(blob, "cuda")[0].gauss
+        return float(np.mean([float((render_view(g, c) - gts[j]).abs().mean())
+                              for j, c in enumerate(cams)]))
+
+    def case(dp, n_steps, lr_mult):
+        o = config_lib.OptimizationParams()
+        o = dataclasses.replace(
+            o, position_lr_init=o.position_lr_init * lr_mult,
+            position_lr_final=o.position_lr_final * lr_mult, feature_lr=o.feature_lr * lr_mult,
+            scaling_lr=o.scaling_lr * lr_mult, rotation_lr=o.rotation_lr * lr_mult,
+            opacity_lr=o.opacity_lr * lr_mult)
+        order = np.concatenate([np.random.default_rng(42).permutation(8)
+                                for _ in range(n_steps * dp // 8 + 1)])
+        return steps.train_case(params, state, gts.cpu().numpy(), [c.numpy() for c in cams],
+                                order[:n_steps * dp].reshape(n_steps, dp), o,
+                                config_lib.ModelParams(sh_degree=1, kernel_size=0.1),
+                                config_lib.PipelineParams(), 1.0, 0, with_reg=False)
+
+    t0 = time.perf_counter()
+    l_dp1 = loss_of(steps.run(case(1, 32, 1.0), "cuda")["state"])
+    res = sharding.launch(steps.dp_steps, 2, ["cuda:0", "cuda:0"], ([case(2, 16, 1.41)],))
+    l_dp2 = loss_of(res[0][0]["state"])
+    l0 = float(np.mean([float((render_view(gauss, c) - gts[j]).abs().mean())
+                        for j, c in enumerate(cams)]))
+    ok = l_dp1 < 0.6 * l0 and l_dp2 < 0.6 * l0 and l_dp2 < 1.25 * l_dp1
+    print(f"dp lr scaling ({time.perf_counter() - t0:.1f} s): mean L1 at start {l0:.6f}, dp=1 x32 "
+          f"steps {l_dp1:.6f}, dp=2 at lr x1.41 x16 steps {l_dp2:.6f} (gates: both < 0.6 x start, "
+          f"dp2 < 1.25 x dp1) {ok} ({smi})")
+    if not ok:
+        raise RuntimeError("dp=2 at sqrt(2) lr does not track single-camera SGD")
+
+
+def parallel_phase(src: str, root: str, mesh_model: str, smi: str) -> None:
+    """The parallel phase: (a) and (c) dp_phase, (b) dp_training, (d)
+    sharded_field, (e) dp_lr_scaling."""
+    t0 = time.perf_counter()
+    dp_phase(smi)
+    dp_training(src, root, smi)
+    sharded_field(mesh_model, smi)
+    dp_lr_scaling(smi)
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
+
+
 def bench_state():
     """bench.py's bench_config inputs on the card: make_state's model (seed
     1), the look-at camera, a seeded random ground truth."""
@@ -2852,6 +3274,7 @@ def main() -> None:
                              check_integrate(mesh_model, mesh_launches, "integrate (chain model)"
                                              if mesh_model == chain["model"] else
                                              "integrate (serving model)")]
+        parallel_phase(src, root, mesh_model, smi)
         check_small_mesh()
         dtu_geometry(chain["model"], chain["scene"], "marching tets and sparse TSDF", smi)
         dtu_geometry(chain["dense_model"], chain["scene"], "dense TSDF", smi)

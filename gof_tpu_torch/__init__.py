@@ -16,7 +16,10 @@ opacity-field mesh extraction (ops.integrate, mesh.{tetmesh,extract},
 extract_mesh) and the DTU/TNT chain after it (mesh.tsdf,
 extract_mesh_tsdf, metrics, utils.lpips, create_fused_ply,
 eval.{geometry,dtu,tnt}, scripts.{make_procedural_scene,
-eval_procedural_geometry}). This package never imports jax or gof_tpu.
+eval_procedural_geometry}) and the parallel paths (parallel.{sharding,
+steps}: camera-batch data parallelism over torch.distributed, scene
+parallelism, point-sharded field evaluation; scripts.run_benchmarks). This
+package never imports jax or gof_tpu.
 """
 
 __version__ = "0.1.0"

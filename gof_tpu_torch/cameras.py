@@ -7,7 +7,7 @@ both packages see bit-identical cameras.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -37,6 +37,20 @@ class Camera:
     @property
     def focal_y(self) -> torch.Tensor:
         return self.tan_fovy.new_tensor(float(self.height)) / (2.0 * self.tan_fovy)
+
+    def to(self, device: torch.device | str) -> Camera:
+        """This camera with its matrices on `device` (numpy arrays taken as
+        they are)."""
+        return replace(self, **{f: torch.as_tensor(getattr(self, f), device=device)
+                                for f in _TENSORS})
+
+    def numpy(self) -> Camera:
+        """This camera with its matrices as host numpy arrays, for a process
+        boundary; .to(device) turns it back."""
+        return replace(self, **{f: getattr(self, f).detach().cpu().numpy() for f in _TENSORS})
+
+
+_TENSORS = ("world_view", "full_proj", "cam_center", "tan_fovx", "tan_fovy")
 
 
 def make_camera(

@@ -6,8 +6,9 @@ Loads the trained model and its training cameras, runs marching tetrahedra
 with binary-search refinement over the opacity field, and writes
 {model}/test/ours_{iter}/fusion/mesh_binary_search_7.ply. Runs on CUDA
 (raises when CUDA is absent); `--cpu` selects the plain PyTorch path on the
-CPU. Returns the counts and stage seconds of
-mesh.extract.extract_level_set_mesh.
+CPU. `--shard N` splits the field's points over the first N CUDA devices
+(raising where fewer are visible; N CPU shards with --cpu). Returns the
+counts and stage seconds of mesh.extract.extract_level_set_mesh.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ def main(argv=None):
     parser.add_argument("--cpu", action="store_true",
                         help="run the plain PyTorch path on the CPU")
     parser.add_argument("--shard", type=int, default=0,
-                        help="shard field evaluation points across N devices (not ported)")
+                        help="shard field evaluation points across the first N CUDA devices "
+                             "(N CPU shards with --cpu)")
     parser.add_argument("--texture_mesh", action="store_true",
                         help="write vertex colors from the integrated color "
                              "field (reference extract_mesh.py:106-111)")
@@ -41,6 +43,11 @@ def main(argv=None):
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass --cpu for the CPU path")
         device = torch.device("cuda")
+    shard = ns.shard
+    if shard > 1:
+        from .parallel import sharding
+
+        shard = sharding.make_mesh(shard, device.type, f"--shard {shard}")
 
     from . import config as config_lib
     from .data import scene as scene_lib
@@ -71,7 +78,7 @@ def main(argv=None):
         gauss, gstate, cams, cam_meta, out_dir,
         sh_degree=model_cfg.sh_degree, kernel_size=model_cfg.kernel_size,
         n_binary_steps=ns.binary_steps, filter_faces=ns.filter_mesh, near=ns.near,
-        far=ns.far, shard=ns.shard, texture_mesh=ns.texture_mesh,
+        far=ns.far, shard=shard, texture_mesh=ns.texture_mesh,
         bg=[1.0, 1.0, 1.0] if model_cfg.white_background else [0.0, 0.0, 0.0],
     )
     print(f"mesh written to {result['path']}")

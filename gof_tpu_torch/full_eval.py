@@ -3,12 +3,12 @@ of gof_tpu/full_eval.py).
 
 Replaces full_eval.py: for each scene of the Mip-NeRF 360 and NeRF-synthetic
 lists, the port's chain with the reference's flags (run_mipnerf360.py:8-46,
-run_nerf_synthetic.py:8-24, as gof_tpu's scripts/run_benchmarks.py sets
-them): `python -m gof_tpu_torch.train`, `render_cli --skip_train`,
-`metrics` and `extract_mesh`, one subprocess each, scene after scene; a
-failed command ends its own scene's chain only. --skip_training,
---skip_rendering and --skip_metrics drop those commands; --cpu runs every
-command on the CPU.
+run_nerf_synthetic.py:8-24; lists and chains from
+gof_tpu_torch.scripts.run_benchmarks): `python -m gof_tpu_torch.train`,
+`render_cli --skip_train`, `metrics` and `extract_mesh`, one subprocess
+each, scene after scene; a failed command ends its own scene's chain only.
+--skip_training, --skip_rendering and --skip_metrics drop those commands;
+--cpu runs every command on the CPU.
 """
 
 from __future__ import annotations
@@ -18,24 +18,17 @@ import os
 import subprocess
 import sys
 
-MIPNERF360 = {
-    "scenes": ["bicycle", "bonsai", "counter", "flowers", "garden", "kitchen", "room", "stump",
-               "treehill"],
-    "factors": [4, 2, 2, 4, 4, 2, 2, 4, 4],
-}
-NERF_SYNTHETIC = ["chair", "drums", "ficus", "hotdog", "lego", "materials", "mic", "ship"]
+from .scripts import run_benchmarks
+from .scripts.run_benchmarks import MIPNERF360, NERF_SYNTHETIC
+
+STAGES = ("training", "rendering", "metrics", "mesh")
 
 
 def scene_job(source: str, model: str, extra: list, skip=(), cpu: bool = False) -> list:
-    """The command chain of one scene (train, render, metrics, mesh), each
-    stage named in `skip` left out."""
-    py = [sys.executable, "-m"]
-    dev = ["--cpu"] if cpu else []
-    cmds = {"training": py + ["gof_tpu_torch.train", "-s", source, "-m", model] + extra + dev,
-            "rendering": py + ["gof_tpu_torch.render_cli", "-m", model, "--skip_train"] + dev,
-            "metrics": py + ["gof_tpu_torch.metrics", "-m", model],
-            "mesh": py + ["gof_tpu_torch.extract_mesh", "-m", model] + dev}
-    return [c for k, c in cmds.items() if k not in skip]
+    """The command chain of one scene (train, render, metrics, mesh;
+    scripts.run_benchmarks.scene_job), each stage named in `skip` left out."""
+    return [c for k, c in zip(STAGES, run_benchmarks.scene_job(source, model, extra, cpu=cpu))
+            if k not in skip]
 
 
 def jobs(ns) -> list:

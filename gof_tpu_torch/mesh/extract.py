@@ -31,11 +31,10 @@ import torch
 from ..model import gaussians as gm
 from ..ops import binning, integrate, quadrics
 from ..ops import rasterize as rz
+from ..parallel import sharding
 from ..transforms import ndc_to_pixel, project_points, quat_to_rot
 from ..utils import ply
 from . import tetmesh
-
-SHARD_NOT_PORTED = "sharded field evaluation (extract_mesh --shard N) is not ported (ROADMAP A.18)"
 
 # the eight corners of the reference's trimesh box scaled x2: (+-1)^3
 _BOX = np.array(
@@ -109,16 +108,19 @@ class FieldEvaluator:
 
     Each view runs preprocess without opacities (so the screen radius is not
     opacity-tightened), tile binning (K2), the payload gather, point binning
-    and the integrate kernel (K5). `mesh` (gof_tpu's point sharding over
-    devices, `extract_mesh --shard N`) is not ported.
+    and the integrate kernel (K5). `devices` (gof_tpu's `mesh`,
+    `extract_mesh --shard N`): the model is replicated on each, the points
+    are split over them (parallel.sharding.sharded_min_transmittance) and
+    every shard runs each view's whole chain on its device; a device may
+    appear more than once. A point's value does not depend on the other
+    points of its launch, so the sharded field equals the unsharded one.
     """
 
     def __init__(self, params: gm.GaussianParams, state: gm.GaussianState, cameras: List,
-                 sh_degree: int, kernel_size: float, mesh=None, bg=None):
-        if mesh is not None:
-            raise NotImplementedError(SHARD_NOT_PORTED)
+                 sh_degree: int, kernel_size: float, devices=None, bg=None):
         self.cameras = cameras
         self.device = params.xyz.device
+        self.devices = [self.device] if devices is None else list(devices)
         self.sh_degree = sh_degree
         self.kernel_size = kernel_size
         self.bg = torch.as_tensor(np.zeros(3) if bg is None else bg, dtype=torch.float32,
@@ -129,12 +131,16 @@ class FieldEvaluator:
                 rot=params.rotation, op=gm.filtered_opacity(params, state.filter_3d),
                 active=state.active, shs=gm.get_features(params),
             )
+        self._replicas = {sharding.as_device(d): {k: v.to(d) for k, v in self.model.items()}
+                          for d in [self.device, *self.devices]}
 
     @torch.no_grad()
     def view_inputs(self, points: torch.Tensor, camera):
-        """The integrate kernel's inputs for `points` (on the model's device)
-        in one view: (payload [16, CAP], gaussian binning, point bins)."""
-        m = self.model
+        """The integrate kernel's inputs for `points` in one view, on the
+        points' device (the model's replica there): (payload [16, CAP],
+        gaussian binning, point bins)."""
+        m = self._replicas[sharding.as_device(points.device)]
+        camera = camera.to(points.device)
         ntx, nty = binning.tile_grid(camera.width, camera.height)
         pre = quadrics.preprocess(m["xyz"], m["scales"], m["rot"],
                                   m["xyz"].new_zeros((m["xyz"].shape[0], 1, 3)), 0, camera,
@@ -153,13 +159,17 @@ class FieldEvaluator:
     def alpha(self, points: np.ndarray, cameras=None) -> np.ndarray:
         """field(x) = 1 - min over views of (1 - T_view(x))
         (evaluage_alpha, extract_mesh.py:16-34), as a numpy array."""
-        pts = self._points(points)
-        n = pts.shape[0]
-        final_alpha = torch.ones(n, dtype=torch.float32, device=self.device)
-        for cam in (self.cameras if cameras is None else cameras):
-            T = integrate.integrate_transmittance(*self.view_inputs(pts, cam), n)
-            final_alpha = torch.minimum(final_alpha, 1.0 - T)
-        return (1.0 - final_alpha).cpu().numpy()
+        cams = self.cameras if cameras is None else cameras
+
+        def shard_alpha(pts: torch.Tensor) -> torch.Tensor:
+            n = pts.shape[0]
+            final_alpha = torch.ones(n, dtype=torch.float32, device=pts.device)
+            for cam in cams:
+                T = integrate.integrate_transmittance(*self.view_inputs(pts, cam), n)
+                final_alpha = torch.minimum(final_alpha, 1.0 - T)
+            return 1.0 - final_alpha
+
+        return sharding.sharded_min_transmittance(shard_alpha, self.devices)(points)
 
     @torch.no_grad()
     def _view_color(self, pts: torch.Tensor, camera):
@@ -206,19 +216,27 @@ class FieldEvaluator:
 def extract_level_set_mesh(
     params, state, cameras: List, cam_meta, out_dir: str, sh_degree: int,
     kernel_size: float, n_binary_steps: int = 8, filter_faces: bool = True,
-    near: float = 0.02, far: float = 1e6, quiet: bool = False, shard: int = 0,
+    near: float = 0.02, far: float = 1e6, quiet: bool = False, shard=0,
     texture_mesh: bool = False, bg=None,
 ) -> dict:
     """Write `mesh_binary_search_{n_binary_steps - 1}.ply` to out_dir from a
     model on its device (CUDA: the kernels; CPU: their plain versions).
+
+    shard: N > 1 splits the field's points over the first N devices of the
+    model's kind (parallel.sharding.make_mesh: N CUDA devices, raising where
+    fewer are visible, or N CPU shards); a list of devices splits them over
+    those (FieldEvaluator's `devices`).
 
     Returns {"path", "tetra_points", "tets", "crossing_edges", "faces",
     "vertices", "seconds"}: faces and vertices as written, and the host-clock
     seconds of each stage (each ends in a host read, which waits for the
     device).
     """
-    if shard and shard > 1:
-        raise NotImplementedError(SHARD_NOT_PORTED)
+    devices = None
+    if isinstance(shard, int) and shard > 1:
+        devices = sharding.make_mesh(shard, params.xyz.device.type, f"--shard {shard}")
+    elif not isinstance(shard, int):
+        devices = list(shard)
     seconds = {}
     t0 = time.perf_counter()
 
@@ -240,7 +258,9 @@ def extract_level_set_mesh(
     lap("delaunay")
     say(f"tets: {len(cells)}")
 
-    ev = FieldEvaluator(params, state, cameras, sh_degree, kernel_size, bg=bg)
+    if devices:
+        say(f"field evaluation sharded over {len(devices)} devices")
+    ev = FieldEvaluator(params, state, cameras, sh_degree, kernel_size, devices=devices, bg=bg)
     alpha = ev.alpha(points)
     lap("field")
     sdf = alpha - 0.5

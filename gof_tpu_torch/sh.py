@@ -68,10 +68,14 @@ def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 
 def sh_to_rgb(degree: int, sh: torch.Tensor, means: torch.Tensor, campos: torch.Tensor) -> torch.Tensor:
     """SH -> clamped RGB as the rasterizer does it:
-    dirs = normalize(mean - campos); color = max(eval + 0.5, 0)."""
+    dirs = normalize(mean - campos); color = max(eval + 0.5, 0). The max
+    is torch.maximum, whose gradient at a tie (a channel at exactly 0, as
+    init gives a point of colour 0) is halved, as jnp.maximum's is in
+    gof_tpu; clamp_min would pass all of it (ROADMAP C25)."""
     dirs = means - campos
     dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
-    return torch.clamp_min(eval_sh(degree, sh, dirs) + 0.5, 0.0)
+    c = eval_sh(degree, sh, dirs) + 0.5
+    return torch.maximum(c, torch.zeros_like(c))
 
 
 def rgb_to_sh_dc(rgb: torch.Tensor) -> torch.Tensor:

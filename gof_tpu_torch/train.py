@@ -36,14 +36,18 @@ of a device-resident cache bounds the keys each tile walks (its previous
 visit's walked chunks plus a margin); a step whose bound proved stale
 skips its update and grows the row (`build_train_step`).
 
-Not ported yet: --dp > 1 (A.18) raises NotImplementedError naming its
-ROADMAP item rather than being skipped. There are no capacity re-jits or
-overflow gates: the port sizes its render buffers from each view's demand.
+Camera-batch data parallelism (--dp N, gof_tpu train.py:224-287,
+603-615): N ranks, one process each over torch.distributed
+(parallel/sharding.py), each rendering its own view of every optimizer
+step; the gradients are averaged over the ranks and every replica takes the
+same Adam step. There are no capacity re-jits or overflow gates: the port
+sizes its render buffers from each view's demand.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import pickle
@@ -51,6 +55,7 @@ import random
 import time
 from collections import namedtuple
 from dataclasses import dataclass, fields, replace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -74,10 +79,6 @@ STATE_FIELDS = tuple(f.name for f in fields(gm.GaussianState))
 # flattened per slot); mu_app / nu_app hold the appearance network's moments
 FusedAdamState = namedtuple("FusedAdamState", "count mu_flat nu_flat mu_app nu_app",
                             defaults=(None, None))
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to gof_tpu_torch yet (ROADMAP {item})")
 
 
 @dataclass
@@ -348,10 +349,60 @@ def train_loss(image: torch.Tensor, gt: torch.Tensor, camera: cameras_lib.Camera
     return loss, l1, ssim_val, distortion, depth_normal
 
 
+class ViewGrad(NamedTuple):
+    """One view's render, loss terms and gradients (view_grad)."""
+
+    out: render_lib.RenderOut
+    terms: torch.Tensor  # [6]: loss, l1, ssim, distortion, depth_normal, psnr (detached)
+    grads: list | None  # per GAUSS_FIELDS; None when live_inv
+    app_grads: dict  # per stepped appearance leaf (app_leaves' keys)
+    carrier_grad: torch.Tensor | None
+    live_inv: bool
+
+
+def view_grad(tp: TrainParams, gstate: gm.GaussianState, gt: torch.Tensor, step: int,
+              camera: cameras_lib.Camera, bg: torch.Tensor, opt: config_lib.OptimizationParams,
+              model_cfg: config_lib.ModelParams, backend: str, with_stats: bool, with_reg: bool,
+              lim: torch.Tensor | None = None) -> ViewGrad:
+    """The per-view half of gof_tpu's step (view_loss and its
+    value_and_grad, train.py:343-397): render, loss and backward on one
+    view; the gradients are read off the leaves, which keep them until the
+    step clears them. With a liveness limit `lim` (this camera's row, cut to
+    its tiles) whose bound proved stale (`live_bad`, one host read) no
+    backward runs."""
+    g = tp.gauss
+    sh_degree = model_cfg.sh_degree
+    leaves = [getattr(g, f).requires_grad_(True) for f in GAUSS_FIELDS]
+    app = app_leaves(tp) if model_cfg.use_decoupled_appearance else {}
+    for x in app.values():
+        x.requires_grad_(True)
+    active_degree = min(int(step) // 1000, sh_degree)
+    carrier = torch.zeros((g.xyz.shape[0], 3), device=g.xyz.device, requires_grad=True)
+    scales_f = gm.filtered_scaling(g, gstate.filter_3d)
+    opac_f = gm.filtered_opacity(g, gstate.filter_3d)
+    shs = masked_shs(g, active_degree, sh_degree)
+    out = render_lib.render(camera, g.xyz, scales_f, g.rotation, opac_f, shs, sh_degree,
+                            model_cfg.kernel_size, bg, carrier=carrier,
+                            active_mask=gstate.active, with_stats=with_stats, with_reg=with_reg,
+                            backend=backend, live_limit_chunks=lim)
+    loss, l1, ssim_val, distortion_loss, depth_normal_loss = train_loss(
+        out.image, gt, camera, opt, step, with_reg, (tp.app_net, tp.app_emb) if app else None)
+    psnr = losses.psnr(out.image[:3].detach(), gt)
+    terms = torch.stack([loss, l1, ssim_val, distortion_loss, depth_normal_loss, psnr]).detach()
+    # a stale liveness bound cut an unsaturated tile: skip the update
+    live_inv = lim is not None and bool(out.live_bad.any())  # the one host read
+    if live_inv:
+        return ViewGrad(out, terms, None, {}, None, True)
+    loss.backward()
+    cgrad = carrier.grad if carrier.grad is not None else torch.zeros_like(carrier)
+    return ViewGrad(out, terms, [x.grad for x in leaves], {k: x.grad for k, x in app.items()},
+                    cgrad, False)
+
+
 def build_train_step(opt: config_lib.OptimizationParams, model_cfg: config_lib.ModelParams,
                      pipe: config_lib.PipelineParams, tx: Adam, with_stats: bool = True,
-                     with_reg: bool = True, dp: int = 1):
-    """One training step for one camera: gof_tpu's `step_body` for dp == 1
+                     with_reg: bool = True, dp: int = 1, group=None):
+    """One training step for one camera: gof_tpu's `step_body`
     (train.py:328-481). Returns step(tp, opt_state, gstate, gt, step, camera,
     bg, lim=None) -> (tp, opt_state, gstate, metrics), with gof_tpu's
     metrics dict.
@@ -376,76 +427,68 @@ def build_train_step(opt: config_lib.OptimizationParams, model_cfg: config_lib.M
     they were (gof_tpu's gate, train.py:421-439). Either way
     metrics["live_new_lim"] is the row's next value (train.py:460-480),
     padded with LIM_INF to lim's width.
+
+    group (a parallel.sharding.Group of dp ranks): gof_tpu's camera-batch
+    data parallelism (train.py:224-287, 397-407). Each rank passes its own
+    gt and camera, computes its view's loss and gradients as above, and
+    _dp_grad_step reduces them over the group; every rank then takes the
+    same Adam step on the same averaged gradients, so the replicas stay
+    bit-identical. Liveness culling needs dp == 1 (gof_tpu train.py:840).
     """
-    if dp != 1:
-        raise _not_ported(f"--dp {dp} (camera-batch data parallelism)", "A.18")
-    backend = pipe.backend
+    if (1 if group is None else group.world) != dp:
+        raise ValueError(f"dp={dp} needs a group of {dp} ranks (parallel.sharding.launch)")
     use_app = model_cfg.use_decoupled_appearance
-    sh_degree = model_cfg.sh_degree
-    kernel_size = model_cfg.kernel_size
 
     def step_fn(tp: TrainParams, opt_state: AdamState, gstate: gm.GaussianState,
                 gt: torch.Tensor, step: int, camera: cameras_lib.Camera, bg: torch.Tensor,
                 lim: torch.Tensor | None = None):
-        g = tp.gauss
-        use_live = lim is not None
+        if lim is not None and group is not None:
+            raise ValueError("liveness culling needs dp == 1")
         ntx, nty = binning_lib.tile_grid(camera.width, camera.height)
-        lim_cam = lim[:ntx * nty] if use_live else None
-        leaves = [getattr(g, f).requires_grad_(True) for f in GAUSS_FIELDS]
-        app = app_leaves(tp) if use_app else {}
-        for x in app.values():
-            x.requires_grad_(True)
-        active_degree = min(int(step) // 1000, sh_degree)
-        carrier = torch.zeros((g.xyz.shape[0], 3), device=g.xyz.device, requires_grad=True)
-        scales_f = gm.filtered_scaling(g, gstate.filter_3d)
-        opac_f = gm.filtered_opacity(g, gstate.filter_3d)
-        shs = masked_shs(g, active_degree, sh_degree)
-        out = render_lib.render(camera, g.xyz, scales_f, g.rotation, opac_f, shs, sh_degree,
-                                kernel_size, bg, carrier=carrier, active_mask=gstate.active,
-                                with_stats=with_stats, with_reg=with_reg, backend=backend,
-                                live_limit_chunks=lim_cam)
-        loss, l1, ssim_val, distortion_loss, depth_normal_loss = train_loss(
-            out.image, gt, camera, opt, step, with_reg,
-            (tp.app_net, tp.app_emb) if use_app else None)
-        image = out.image[:3]
-        # a stale liveness bound cut an unsaturated tile: skip the update
-        live_inv = use_live and bool(out.live_bad.any())  # the one host read
-        if live_inv:
-            stat_new = gstate
-        else:
-            loss.backward()
-            grads = gm.GaussianParams(*[x.grad for x in leaves])
-            cgrad = carrier.grad if carrier.grad is not None else torch.zeros_like(carrier)
-            stat_new = gm.add_densification_stats(gstate, cgrad, out.radii, out.visibility)
+        lim_cam = None if lim is None else lim[:ntx * nty]
+        v = view_grad(tp, gstate, gt, step, camera, bg, opt, model_cfg, pipe.backend,
+                      with_stats, with_reg, lim_cam)
+        out, terms, grads, app_grads = v.out, v.terms, v.grads, v.app_grads
+        counts = {"num_keys": out.num_keys, "compact_demand": out.compact_demand,
+                  "live_demand": out.live_demand, "key_overflow": out.overflow,
+                  "compact_overflow": out.compact_overflow, "live_overflow": out.live_overflow}
         with torch.no_grad():
-            if not live_inv:
-                updates, opt_state = tx.update(grads, opt_state)
-                for x, f in zip(leaves, GAUSS_FIELDS):
+            if v.live_inv:
+                stat_new = gstate
+            elif group is None:
+                stat_new = gm.add_densification_stats(gstate, v.carrier_grad, out.radii,
+                                                      out.visibility)
+            else:
+                grads, app_grads, terms, counts, stat_new = _dp_grad_step(
+                    group, grads, app_grads, terms, counts, v.carrier_grad, out, gstate)
+            if not v.live_inv:
+                updates, opt_state = tx.update(gm.GaussianParams(*grads), opt_state)
+                for f in GAUSS_FIELDS:
+                    x = getattr(tp.gauss, f)
                     x.add_(getattr(updates, f))
                     x.grad = None
-                carried = app if use_app else app_leaves(tp)
+                carried = app_leaves(tp)
                 if carried:
                     app_upd, opt_state = tx.update_app(
-                        {k: x.grad if use_app else torch.zeros_like(x)
+                        {k: app_grads[k] if use_app else torch.zeros_like(x)
                          for k, x in carried.items()}, opt_state)
                     for k, x in carried.items():
                         x.add_(app_upd[k])
                         x.grad = None
-            psnr = losses.psnr(image, gt)
-            metrics = {"l1": l1.detach(), "ssim": ssim_val.detach(),
-                       "distortion": distortion_loss.detach(),
-                       "depth_normal": depth_normal_loss.detach(), "num_keys": out.num_keys,
-                       "key_overflow": out.overflow, "psnr": psnr,
-                       "compact_demand": out.compact_demand,
-                       "compact_overflow": out.compact_overflow, "loss": loss.detach(),
+            loss, l1, ssim_val, distortion_loss, depth_normal_loss, psnr = terms.unbind()
+            metrics = {"l1": l1, "ssim": ssim_val, "distortion": distortion_loss,
+                       "depth_normal": depth_normal_loss, "num_keys": counts["num_keys"],
+                       "key_overflow": counts["key_overflow"], "psnr": psnr,
+                       "compact_demand": counts["compact_demand"],
+                       "compact_overflow": counts["compact_overflow"], "loss": loss,
                        "step_next": int(step) + 1}
             fl = torch.float32
             metrics["packed"] = torch.stack([
-                loss.detach(), psnr, out.num_keys.to(fl), out.overflow.to(fl),
-                out.compact_demand.to(fl), out.compact_overflow.to(fl),
-                gm.num_active(stat_new).to(fl), out.live_demand.to(fl),
-                out.live_overflow.to(fl), psnr.new_tensor(float(live_inv))])
-            if use_live:
+                loss, psnr, counts["num_keys"].to(fl), counts["key_overflow"].to(fl),
+                counts["compact_demand"].to(fl), counts["compact_overflow"].to(fl),
+                gm.num_active(stat_new).to(fl), counts["live_demand"].to(fl),
+                counts["live_overflow"].to(fl), psnr.new_tensor(float(v.live_inv))])
+            if lim is not None:
                 # the next visit's bounds: the walked prefix plus margin;
                 # exponential growth where the bound proved stale
                 lim_c = torch.clamp_max(lim_cam.to(torch.int32), binning_lib.LIM_INF)
@@ -458,6 +501,57 @@ def build_train_step(opt: config_lib.OptimizationParams, model_cfg: config_lib.M
         return tp, opt_state, stat_new, metrics
 
     return step_fn
+
+
+def _dp_grad_step(group, grads: list, app_grads: dict, terms: torch.Tensor, counts: dict,
+                  carrier_grad: torch.Tensor, out, gstate: gm.GaussianState):
+    """gof_tpu's per-device reductions (train.py:224-287) over `group`, in
+    two collectives (each a host synchronisation):
+
+    - one float32 SUM buffer: the gradients of the six gaussian fields and
+      of the stepped appearance leaves and the loss terms (loss, l1, ssim,
+      distortion, depth_normal, psnr), then divided by the world size
+      (pmean), and the statistics rows [|carrier_grad[:, :2]|,
+      |carrier_grad[:, 2]|, visibility] over vis = visibility & active,
+      which stay summed (psum: each view counts as one reference
+      iteration). The divisor is a device tensor: CUDA rounds a division by
+      a Python number as a product with its reciprocal (ROADMAP C16);
+    - one float64 MAX buffer (exact for every count): the radii over vis,
+      num_keys, compact_demand, live_demand (pmax) and the overflow flags
+      (any).
+
+    Returns the reduced (grads, app_grads, terms, counts) and the new
+    GaussianState (train.py:274-282)."""
+    vis = out.visibility & gstate.active
+    zero = torch.zeros((), device=carrier_grad.device)
+    rows = torch.stack([torch.where(vis, torch.linalg.norm(carrier_grad[:, :2], dim=-1), zero),
+                        torch.where(vis, torch.abs(carrier_grad[:, 2]), zero),
+                        vis.to(torch.float32)])
+    means = list(grads) + list(app_grads.values()) + [terms]
+    buf = group.all_reduce(torch.cat([x.reshape(-1) for x in means] + [rows.reshape(-1)]),
+                           "sum")
+    n_mean = buf.numel() - rows.numel()
+    world = torch.tensor(float(group.world), device=buf.device)
+    parts = iter((buf[:n_mean] / world).split([x.numel() for x in means]))
+    grads = [next(parts).view_as(x) for x in grads]
+    app_grads = {k: next(parts).view_as(x) for k, x in app_grads.items()}
+    terms = next(parts)
+    stat = buf[n_mean:].view(3, -1)
+
+    f64 = torch.float64
+    mx = group.all_reduce(torch.cat([torch.where(vis, out.radii, zero).to(f64),
+                                     torch.stack([c.to(f64).reshape(()) for c in counts.values()])]),
+                          "max")
+    P = vis.shape[0]
+    radii = mx[:P].to(gstate.max_radii2d.dtype)
+    counts = {k: mx[P + i].to(c.dtype) for i, (k, c) in enumerate(counts.items())}
+    vis_any = stat[2] > 0
+    return grads, app_grads, terms, counts, gm.GaussianState(
+        active=gstate.active, filter_3d=gstate.filter_3d,
+        max_radii2d=torch.where(vis_any, torch.maximum(gstate.max_radii2d, radii),
+                                gstate.max_radii2d),
+        grad_accum=gstate.grad_accum + stat[0], grad_abs_accum=gstate.grad_abs_accum + stat[1],
+        denom=gstate.denom + stat[2])
 
 
 @torch.no_grad()
@@ -480,18 +574,84 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
              pipe: config_lib.PipelineParams, test_iterations, save_iterations,
              checkpoint_iterations, start_checkpoint: str = "", quiet: bool = False,
              device: torch.device | str = "cuda", profile_dir: str = "",
-             debug_image_interval: int = 0, dp: int = 1):
+             debug_image_interval: int = 0, dp: int = 1, devices=None):
     """gof_tpu's host loop (train.py:599-1104) with one step per iteration.
-    Returns (TrainParams, GaussianState)."""
+    Returns (TrainParams, GaussianState).
+
+    dp > 1: camera-batch data parallelism (train.py:603-615, 868-877) over
+    dp ranks, rank r on devices[r] (default parallel.sharding.make_mesh:
+    the first dp CUDA devices, or dp CPU ranks where `device` is the CPU),
+    started by parallel.sharding.launch. Every rank runs this loop with the
+    same seeds, so each optimizer step draws the same dp views everywhere
+    and rank r renders the r-th; every rank densifies and grows its pool
+    alike, so the replicas stay bit-identical, which a sha256 of each field
+    across the ranks checks at the end (a difference raises). Rank 0 alone
+    writes the config, the log, TensorBoard scalars, evals, PLYs,
+    checkpoints (dp == 1's format: either resumes the other), debug images
+    and the profile, and prints; the other ranks wait at a barrier. Returns
+    rank 0's state on devices[0]."""
+    if dp == 1:
+        tp, _, gstate = _train_loop(None, torch.device(device), model_cfg, opt, pipe,
+                                    test_iterations, save_iterations, checkpoint_iterations,
+                                    start_checkpoint, quiet, profile_dir, debug_image_interval)
+        return tp, gstate
+    from .parallel import sharding
+
+    if devices is None:
+        devices = sharding.make_mesh(dp, torch.device(device).type, f"--dp {dp}")
+    results = sharding.launch(_training_rank, dp, devices, (
+        model_cfg, opt, pipe, test_iterations, save_iterations, checkpoint_iterations,
+        start_checkpoint, quiet, profile_dir, debug_image_interval))
+    digests = [r["digests"] for r in results]
+    diverged = sorted(k for k, v in digests[0].items() if any(d[k] != v for d in digests[1:]))
+    if diverged:
+        raise RuntimeError(f"the {dp} replicas diverged in {diverged}")
+    if not quiet:
+        print(f"replicas: sha256 of {len(digests[0])} fields equal on all {dp} ranks")
+    tp, _, gstate, _ = state_from_blob(results[0]["state"], devices[0])
+    return tp, gstate
+
+
+def replica_digests(blob: dict) -> dict:
+    """sha256 of each array of a checkpoint_blob, by its path in the blob."""
+    def leaves(obj, name):
+        if isinstance(obj, dict):
+            for k in sorted(obj):
+                yield from leaves(obj[k], f"{name}.{k}" if name else str(k))
+        elif isinstance(obj, (tuple, list)):
+            for i, x in enumerate(obj):
+                yield from leaves(x, f"{name}.{i}")
+        elif obj is not None:
+            yield name, hashlib.sha256(np.ascontiguousarray(obj).tobytes()).hexdigest()
+
+    return dict(leaves(blob, ""))
+
+
+def _training_rank(group, *loop_args) -> dict:
+    """One rank of training(dp > 1): the digests of its final state and, on
+    rank 0, the state itself (checkpoint_blob)."""
+    tp, opt_state, gstate = _train_loop(group, group.device, *loop_args)
+    blob = checkpoint_blob(tp, opt_state, gstate, 0)
+    return {"digests": replica_digests(blob), "state": blob if group.rank == 0 else None}
+
+
+def _train_loop(group, device: torch.device, model_cfg, opt, pipe, test_iterations,
+                save_iterations, checkpoint_iterations, start_checkpoint, quiet, profile_dir,
+                debug_image_interval):
+    """training's loop on one rank (group None: dp == 1). Returns (tp,
+    opt_state, gstate)."""
+    dp = 1 if group is None else group.world
+    rank0 = group is None or group.rank == 0
+    quiet = quiet or not rank0
     random.seed(0)
     np.random.seed(0)
-    device = torch.device(device)
 
-    sc = scene_lib.Scene(model_cfg.source_path, model_cfg.model_path, images=model_cfg.images,
-                         resolution=model_cfg.resolution,
+    sc = scene_lib.Scene(model_cfg.source_path, model_cfg.model_path if rank0 else "",
+                         images=model_cfg.images, resolution=model_cfg.resolution,
                          white_background=model_cfg.white_background, eval_split=model_cfg.eval,
                          load_allres=model_cfg.load_allres)
-    config_lib.save_cfg(model_cfg.model_path, model_cfg, pipe, opt)
+    if rank0:
+        config_lib.save_cfg(model_cfg.model_path, model_cfg, pipe, opt)
 
     tx = make_optimizer(opt, sc.cameras_extent)
     first_iter = 0
@@ -507,6 +667,11 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
         opt_state = tx.init(tp)
     if model_cfg.use_decoupled_appearance and tp.app_net is None:
         tp, opt_state = init_appearance(tp, opt_state, device)
+    if group is not None:  # every rank starts from rank 0's state
+        from .parallel import sharding
+
+        with torch.no_grad():
+            sharding.replicate(state_tensors(tp, opt_state, gstate), group)
 
     cam_meta = sc.all_cameras_meta(sc.train_cameras, device=device)
     gstate.filter_3d = gm.compute_3d_filter(tp.gauss.xyz, gstate.active, *cam_meta)
@@ -528,7 +693,7 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
 
     def rebuild_step():
         return build_train_step(opt, model_cfg, pipe, tx, with_stats=with_stats,
-                                with_reg=with_reg, dp=dp)
+                                with_reg=with_reg, dp=dp, group=group)
 
     train_step = rebuild_step()
     cam_cache = {}
@@ -559,18 +724,19 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
     noise_gen = torch.Generator(device=device)
     noise_gen.manual_seed(0)
     log_path = os.path.join(model_cfg.model_path, "train_log.jsonl")
-    tb = _make_tb_writer(model_cfg.model_path)
+    tb = _make_tb_writer(model_cfg.model_path) if rank0 else None
     ema_loss = None
     pending = []  # unread packed metrics, read every 10 iterations
     prof = contextlib.nullcontext()
-    if profile_dir:
+    if profile_dir and rank0:
         acts = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
     t_start = time.time()
     iteration = first_iter
-    with open(log_path, "a") as logf, prof, tb or contextlib.nullcontext():
+    with open(log_path if rank0 else os.devnull, "a") as logf, prof, \
+            tb or contextlib.nullcontext():
         while iteration < opt.iterations:
             iteration += 1
             # the statistics leave the backward after densification; the
@@ -581,14 +747,15 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
             if not with_reg and iteration >= reg_start:
                 with_reg = True
                 train_step = rebuild_step()
-            if (live_cache is None and pipe.backend == "pallas"
+            if (live_cache is None and dp == 1 and pipe.backend == "pallas"
                     and iteration > opt.densify_until_iter):
                 live_cache = torch.full((len(sc.train_cameras), ntiles_max), binning_lib.LIM_INF,
                                         dtype=torch.int32, device=device)
                 if not quiet:
                     print(f"[{iteration}] liveness culling on")
 
-            cam_id = next_id()
+            # one optimizer step draws dp views; rank r renders the r-th
+            cam_id = [next_id() for _ in range(dp)][0 if group is None else group.rank]
             camera, gt = get_cam(sc.train_cameras[cam_id])
             tp, opt_state, gstate, metrics = train_step(
                 tp, opt_state, gstate, gt, iteration, camera, bg,
@@ -629,8 +796,8 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
                 mp = torch.stack(pending).cpu().numpy()  # one host read
                 pending.clear()
                 if pipe.debug and not np.all(np.isfinite(mp[:, 0])):
-                    fn = _debug_dump(model_cfg.model_path, iteration, tp, gstate, opt_state,
-                                     {"packed_metrics": mp})
+                    fn = (_debug_dump(model_cfg.model_path, iteration, tp, gstate, opt_state,
+                                      {"packed_metrics": mp}) if rank0 else "rank 0's debug/")
                     raise FloatingPointError(
                         f"non-finite loss in the steps ending at iteration {iteration}; "
                         f"render inputs dumped to {fn}")
@@ -651,7 +818,10 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
                 if not quiet and iteration % 100 == 0:
                     print(rec)
 
-            if debug_image_interval and iteration % debug_image_interval == 0:
+            debug_image = bool(debug_image_interval) and iteration % debug_image_interval == 0
+            rank0_writes = (debug_image or iteration in test_iterations
+                            or iteration in save_iterations or iteration in checkpoint_iterations)
+            if rank0 and debug_image:
                 from .render_cli import render_eval
                 from .utils import vis
 
@@ -660,24 +830,26 @@ def training(model_cfg: config_lib.ModelParams, opt: config_lib.OptimizationPara
                                                  f"iter_{iteration:06d}.png"),
                                     img.cpu().numpy(), gt.cpu().numpy())
 
-            if iteration in test_iterations:
+            if rank0 and iteration in test_iterations:
                 report = evaluate(sc, tp, gstate, model_cfg, bg, device, pipe.backend)
                 if not quiet:
                     print(f"[{iteration}] eval: {report}")
                 logf.write(json.dumps({"iter": iteration, "eval": report}) + "\n")
                 logf.flush()
 
-            if iteration in save_iterations:
+            if rank0 and iteration in save_iterations:
                 path = os.path.join(model_cfg.model_path, "point_cloud",
                                     f"iteration_{iteration}", "point_cloud.ply")
                 scene_lib.save_gaussians_ply(path, tp.gauss, gstate, model_cfg.sh_degree)
 
-            if iteration in checkpoint_iterations:
+            if rank0 and iteration in checkpoint_iterations:
                 save_checkpoint(model_cfg.model_path, iteration, tp, opt_state, gstate)
-    if profile_dir:
+            if group is not None and rank0_writes:
+                group.barrier()
+    if profile_dir and rank0:
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-    return tp, gstate
+    return tp, opt_state, gstate
 
 
 def _make_tb_writer(model_path: str):
@@ -712,15 +884,14 @@ def _debug_dump(model_path: str, iteration: int, tp: TrainParams, gstate: gm.Gau
     return fn
 
 
-def save_checkpoint(model_path: str, iteration: int, tp: TrainParams, opt_state: AdamState,
-                    gstate: gm.GaussianState) -> str:
-    """Write chkpnt{iteration}.pkl into model_path (gof_tpu
-    train.py:1203-1213): a pickle of plain dicts of numpy arrays and ints,
-    {"gauss": {field: array}, "gstate": {field: array}, "adam": {"count",
-    "mu_flat", "nu_flat"} in adam_to_numpy's layout, "iter": iteration};
-    with the appearance network also "app_net" (gof_tpu's flax tree),
-    "app_emb" and, in "adam", "mu_app" / "nu_app" as gof_tpu's (tree,
-    embeddings) pairs. Returns the path."""
+def checkpoint_blob(tp: TrainParams, opt_state: AdamState, gstate: gm.GaussianState,
+                    iteration: int) -> dict:
+    """The state as a checkpoint holds it: plain dicts of numpy arrays and
+    ints, {"gauss": {field: array}, "gstate": {field: array}, "adam":
+    {"count", "mu_flat", "nu_flat"} in adam_to_numpy's layout, "iter":
+    iteration}; with the appearance network also "app_net" (gof_tpu's flax
+    tree), "app_emb" and, in "adam", "mu_app" / "nu_app" as gof_tpu's
+    (tree, embeddings) pairs."""
     adam = adam_to_numpy(opt_state)
     blob = {"gauss": {f: hostio.device_get(getattr(tp.gauss, f)) for f in GAUSS_FIELDS},
             "gstate": {f: hostio.device_get(getattr(gstate, f)) for f in STATE_FIELDS},
@@ -729,9 +900,29 @@ def save_checkpoint(model_path: str, iteration: int, tp: TrainParams, opt_state:
     if tp.app_net is not None:
         blob["app_net"], blob["app_emb"] = app_lib.app_to_numpy(tp.app_net, tp.app_emb)
         blob["adam"].update(mu_app=adam.mu_app, nu_app=adam.nu_app)
+    return blob
+
+
+def state_tensors(tp: TrainParams, opt_state: AdamState, gstate: gm.GaussianState) -> list:
+    """Every tensor of the training state: the params, the GaussianState,
+    Adam's moments and the appearance leaves and their moments."""
+    out = [getattr(tp.gauss, f) for f in GAUSS_FIELDS]
+    out += [getattr(gstate, f) for f in STATE_FIELDS]
+    out += [getattr(m, f) for m in (opt_state.mu, opt_state.nu) for f in GAUSS_FIELDS]
+    out += list(app_leaves(tp).values())
+    for m in (opt_state.mu_app, opt_state.nu_app):
+        out += list((m or {}).values())
+    return out
+
+
+def save_checkpoint(model_path: str, iteration: int, tp: TrainParams, opt_state: AdamState,
+                    gstate: gm.GaussianState) -> str:
+    """Write chkpnt{iteration}.pkl into model_path (gof_tpu
+    train.py:1203-1213): a pickle of checkpoint_blob. Returns the path."""
     path = os.path.join(model_path, f"chkpnt{iteration}.pkl")
     with open(path, "wb") as f:
-        pickle.dump(blob, f, protocol=pickle.HIGHEST_PROTOCOL)
+        pickle.dump(checkpoint_blob(tp, opt_state, gstate, iteration), f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
     return path
 
 
@@ -777,7 +968,13 @@ def load_checkpoint(path: str, device: torch.device | str = "cpu"):
     gof_tpu's legacy migration is not ported."""
     with open(path, "rb") as f:
         blob = _CheckpointUnpickler(f).load()
-    if "tp" in blob:  # gof_tpu's {"tp", "opt_state", "gstate", "iter"}
+    return state_from_blob(blob, device, path)
+
+
+def state_from_blob(blob: dict, device: torch.device | str = "cpu", path: str = "the state"):
+    """load_checkpoint from an unpickled checkpoint: checkpoint_blob's dict
+    or gof_tpu's {"tp", "opt_state", "gstate", "iter"}."""
+    if "tp" in blob:
         tp, gstate, adam = blob["tp"], blob["gstate"], blob["opt_state"]
         gauss, app_net, app_emb = tp.gauss, tp.app_net, tp.app_emb
         if not isinstance(adam.mu_flat, np.ndarray):
@@ -812,7 +1009,9 @@ def main(argv=None):
                         help="run the plain PyTorch path on the CPU")
     parser.add_argument("--profile_dir", type=str, default="")
     parser.add_argument("--debug_image_interval", type=int, default=0)
-    parser.add_argument("--dp", type=int, default=1)
+    parser.add_argument("--dp", type=int, default=1,
+                        help="camera-batch data parallelism over dp ranks, one per device "
+                             "(each optimizer step consumes dp views; gradients averaged)")
     ns = parser.parse_args(argv)
     if ns.cpu:
         device = torch.device("cpu")
@@ -820,6 +1019,11 @@ def main(argv=None):
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass --cpu for the CPU path")
         device = torch.device("cuda")
+    devices = None
+    if ns.dp > 1:
+        from .parallel import sharding
+
+        devices = sharding.make_mesh(ns.dp, device.type, f"--dp {ns.dp}")
     model_cfg = config_lib.extract(config_lib.ModelParams, ns)
     pipe = config_lib.extract(config_lib.PipelineParams, ns)
     opt = config_lib.extract(config_lib.OptimizationParams, ns)
@@ -827,7 +1031,7 @@ def main(argv=None):
     out = training(model_cfg, opt, pipe, set(ns.test_iterations), set(save_iters),
                    set(ns.checkpoint_iterations), ns.start_checkpoint, ns.quiet, device=device,
                    profile_dir=ns.profile_dir, debug_image_interval=ns.debug_image_interval,
-                   dp=ns.dp)
+                   dp=ns.dp, devices=devices)
     print("Training complete.")
     return out
 

@@ -29,7 +29,7 @@ from gof_tpu_torch import mesh_viewer as tviewer
 from gof_tpu_torch import native
 from gof_tpu_torch import network_gui as tgui
 from gof_tpu_torch.data import colmap as tcolmap
-from gof_tpu_torch.scripts import show_results, summarize_run
+from gof_tpu_torch.scripts import run_benchmarks, show_results, summarize_run
 from gof_tpu_torch.utils import hostio
 
 from test_data import write_colmap_binary
@@ -209,6 +209,67 @@ def test_full_eval_runs_the_ports_chain(tmp_path, monkeypatch):
     failures = full_eval.main(["--nerf_synthetic", "/d/syn"])
     assert len(failures) == 8 and all(rc == 3 for _, rc in failures)
     assert calls == ["gof_tpu_torch.train", "gof_tpu_torch.render_cli"] * 8
+
+
+# ---------------------------------------------------------------------------
+# scripts/run_benchmarks.py: the scene dispatcher
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dataset", ["mipnerf360", "dtu", "tnt", "nerf_synthetic"])
+def test_run_benchmarks_jobs_match_gof_tpu(tmp_path, monkeypatch, dataset):
+    """Every dataset's scene chains (lists, flags, TSDF, the DTU / TNT eval
+    tails) are gof_tpu's with the port's modules; --pin cpu adds the
+    CLIs' --cpu to the device commands only."""
+    bench = load_script("run_benchmarks")
+    data = tmp_path / "data"
+    os.makedirs(data / "Barn")
+    (data / "Barn" / "Barn_COLMAP_SfM.log").write_text("")  # one TNT trajectory
+    argv = [dataset, "--data_root", str(data), "--out_root", str(tmp_path / "out"),
+            "--dtu_eval_data", "/gt/dtu", "--tnt_eval_data", "/gt/tnt",
+            "--train_args", "--iterations 1000"]
+    got = []
+    monkeypatch.setattr(bench, "dispatch", lambda jobs, workers, pin: got.extend(jobs) or [])
+    monkeypatch.setattr(sys, "argv", ["run_benchmarks.py", *argv])
+    with pytest.raises(SystemExit) as e:
+        bench.main()
+    assert e.value.code == 0
+    want = [[[a.replace("gof_tpu.", "gof_tpu_torch.") for a in c] for c in job] for job in got]
+    ns = run_benchmarks.parse_args(argv)
+    assert run_benchmarks.jobs(ns) == want and len(want) == {
+        "mipnerf360": 9, "dtu": 15, "tnt": 6, "nerf_synthetic": 8}[dataset]
+    cpu = run_benchmarks.jobs(run_benchmarks.parse_args(argv + ["--pin", "cpu"]))
+    for job, job_cpu in zip(want, cpu):
+        for c, c_cpu in zip(job, job_cpu):
+            device_cli = c[2].split(".", 1)[1] in ("train", "render_cli", "metrics",
+                                                    "extract_mesh", "extract_mesh_tsdf")
+            assert c_cpu == (c + ["--cpu"] if device_cli else c)
+
+
+def test_run_benchmarks_pin_env():
+    assert run_benchmarks.pin_env(3, "cuda") == {"CUDA_VISIBLE_DEVICES": "3"}
+    assert run_benchmarks.pin_env(3, "cpu") == {"CUDA_VISIBLE_DEVICES": ""}
+    assert run_benchmarks.pin_env(3, "none") == {}
+
+
+def test_run_benchmarks_dispatch_ends_only_the_failed_chain(tmp_path):
+    """Two workers over python -c commands: dispatch returns exactly the
+    failed commands, a failure ends only its own scene's chain, and each
+    worker's commands see its CUDA_VISIBLE_DEVICES."""
+    def cmd(tag, rc=0):
+        return [sys.executable, "-c",
+                f"import os, sys; open(os.path.join({str(tmp_path)!r}, {tag!r} + '.' + "
+                f"os.environ['CUDA_VISIBLE_DEVICES']), 'w').close(); sys.exit({rc})"]
+
+    jobs = [[cmd("a0"), cmd("a1", 3), cmd("a2")], [cmd("b0"), cmd("b1")],
+            [cmd("c0", 5), cmd("c1")], [cmd("d0")]]
+    failures = run_benchmarks.dispatch(jobs, 2, "cuda")
+    assert sorted((c, rc) for _, c, rc in failures) == sorted([(jobs[0][1], 3), (jobs[2][0], 5)])
+    ran = {f.split(".")[0]: f.split(".")[1] for f in os.listdir(tmp_path)}
+    assert sorted(ran) == ["a0", "a1", "b0", "b1", "c0", "d0"]
+    assert set(ran.values()) <= {"0", "1"}
+    for scene in "abcd":  # a chain stays on its worker
+        assert len({w for t, w in ran.items() if t[0] == scene}) == 1
 
 
 # ---------------------------------------------------------------------------

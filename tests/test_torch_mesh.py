@@ -215,8 +215,9 @@ def test_field_alpha_matches_dense_min_over_views():
     assert got.dtype == np.float32 and got.shape == (len(pts),)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
     assert want.min() < 0.5 < want.max()
-    with pytest.raises(NotImplementedError, match="A.18"):
-        tex.FieldEvaluator(tp, ts, cams, 0, 0.1, mesh=object())
+    # the points split over three CPU shards (gof_tpu's `mesh`) give the same bits
+    np.testing.assert_array_equal(
+        tex.FieldEvaluator(tp, ts, cams, 0, 0.1, devices=["cpu"] * 3).alpha(pts), got)
 
 
 def test_field_jumps_to_one_at_the_image_border():
@@ -329,8 +330,26 @@ def test_extract_mesh_cli_cpu(tiny_model):
 
 
 def test_extract_mesh_cli_refusals(tiny_model, monkeypatch):
-    with pytest.raises(NotImplementedError, match="A.18"):
-        extract_mesh.main(["-m", tiny_model, "--cpu", "--shard", "2"])
+    """--shard N needs N CUDA devices (never shares a card or falls back to
+    the CPU on its own); without --cpu the CLI needs CUDA."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="--shard 2 needs 2 devices; only 1 visible"):
+        extract_mesh.main(["-m", tiny_model, "--shard", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         extract_mesh.main(["-m", tiny_model])
+
+
+def test_extract_mesh_cli_shards_the_field(tiny_model, tmp_path):
+    """--cpu --shard 2 splits the field's points over two CPU shards and
+    writes the unsharded mesh."""
+    path = os.path.join(tiny_model, "test", "ours_5", "fusion", "mesh_binary_search_7.ply")
+    res1 = extract_mesh.main(["-m", tiny_model, "--cpu"])
+    one = tply.read_ply(path)
+    res2 = extract_mesh.main(["-m", tiny_model, "--cpu", "--shard", "2"])
+    two = tply.read_ply(path)
+    assert res2["faces"] == res1["faces"] > 20
+    for k in ("x", "y", "z"):
+        np.testing.assert_array_equal(two[0][k], one[0][k])
+    np.testing.assert_array_equal(two[1], one[1])

@@ -376,13 +376,6 @@ def test_train_main_cpu_writes_log_and_ply(synth_scene, tmp_path):
     assert os.path.exists(os.path.join(out, "test", "ours_5", "renders", "00001.png"))
 
 
-@pytest.mark.parametrize("extra", [["--dp", "2"]], ids=["dp"])
-def test_train_unported_options_raise(synth_scene, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.main(["-s", synth_scene, "-m", str(tmp_path / "x"), "--cpu", "--iterations",
-                     "3", "--sh_degree", "0", "--quiet", *extra])
-
-
 def test_train_with_decoupled_appearance(synth_scene, tmp_path, monkeypatch):
     """--use_decoupled_appearance trains: every step's L1 goes through
     appearance_l1 at the camera's uid; the embeddings of the trained uids
@@ -833,8 +826,8 @@ def test_flags_match_gof_tpu():
 
 
 def test_train_step_never_imports_jax(tmp_path):
-    """A train step, and loading a checkpoint that gof_tpu wrote, import
-    neither jax nor gof_tpu."""
+    """A train step, loading a checkpoint that gof_tpu wrote and importing
+    the parallel package import neither jax nor gof_tpu."""
     params, state, adam, *_ = random_train_state(15)
     jtrain.save_checkpoint(str(tmp_path), 3, jtrain.TrainParams(
         gauss=params, app_net=None, app_emb=None), adam, state)
@@ -855,6 +848,8 @@ def test_train_step_never_imports_jax(tmp_path):
         "assert bool(torch.isfinite(m['loss'])) and st.count == 1\n"
         f"tp, st, s, it = train.load_checkpoint({str(tmp_path / 'chkpnt3.pkl')!r})\n"
         "assert it == 3 and st.count == 23 and tp.gauss.xyz.shape == (64, 3)\n"
+        "from gof_tpu_torch.parallel import sharding, steps\n"
+        "from gof_tpu_torch.scripts import run_benchmarks\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',"
         " 'gof_tpu')]\n"
         "print('BAD', bad)\n"
