@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build and drive gof_tpu_torch's serving, training and mesh-extraction
-paths, its DTU/TNT chain, its parallel paths and its gather/scatter probes
-once on one CUDA GPU.
+paths, its DTU/TNT chain, its parallel paths, its gather/scatter probes and
+its bench once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -151,10 +151,25 @@ once on one CUDA GPU.
    its bound (K3's counted per instance from this view's active pairs);
 12. profile single calls of K1, K3, K4 (both entries), K8, K9, K10, K11 and
    K13 (device time of each kernel they launch) in each phase;
+12b. the port's bench: gof_tpu_torch.bench.main([]) at bench.py's defaults
+   (the 100k point at 1237x822 with 20 reps, "late" at 1M gaussians,
+   "late3m" at 3M, the 8-camera orbit at 1M with liveness culling); after
+   each phase of each point, through bench's observe hook: the phase's
+   K1-K4 launches (K2 and K1 at least once per step, K3 and K4 once per
+   step not skipped), bench's mean step ms, device busy and idle share
+   over 3 more steps, the peak memory, and at the late and late3m points
+   K1-K4 held against their plain versions at that phase's shapes as in
+   11; on the orbit, after 3 more steps through bench's epoch loop, K1-K4
+   held the same way on camera 3's step through its cache row (the
+   liveness-compacted list under a bound n_cams - 1 steps stale, as the
+   orbit leaves it); then bench's JSON line: every key of bench.py's, the rates finite
+   and positive, the key counts positive, 0 < orbit_live_frac <= 1 and
+   0 <= orbit_skip_frac <= 1;
 13. print the kernels' JSON line (the four of the first bench phase, K1, K3
    and K4 of the second, the four on the grown pool of 7, K1, K3 and K4 on
    the compacted list of 7b, K1 at the serving
-   view, K5 at the chain model's first view and K6-K13, each with
+   view, K5 at the chain model's first view, K6-K13 and the four of each
+   phase of 12b's late and late3m points and of its orbit, each with
    its bound and library time),
    the card's name and power limit, and as the last line
    {"ok": true, "device": {...}}.
@@ -305,30 +320,11 @@ def build() -> None:
 
 
 def make_model(n: int, seed: int, sigma: float = -3.2):
-    """bench.py::make_state's recipe in numpy, as gof_tpu-format numpy fields."""
-    from gof_tpu_torch import sh
+    """bench.py::make_state's recipe (gof_tpu_torch.bench.make_state) from a
+    generator seeded `seed`, as gof_tpu-format numpy fields."""
+    from gof_tpu_torch import bench
 
-    rng = np.random.default_rng(seed)
-    z = rng.uniform(2, 12, n)
-    xyz = np.stack([rng.uniform(-1, 1, n) * z * 0.45,
-                    rng.uniform(-1, 1, n) * z * 0.3, z], -1)
-    q = rng.normal(size=(n, 4))
-    q /= np.linalg.norm(q, axis=-1, keepdims=True)
-    K = sh.num_sh_coeffs(3)
-    dc = sh.rgb_to_sh_dc(torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32)))
-    op = rng.uniform(0.3, 0.95, n)
-    from types import SimpleNamespace
-
-    params = SimpleNamespace(
-        xyz=xyz.astype(np.float32), features_dc=dc.numpy()[:, None, :],
-        features_rest=np.zeros((n, K - 1, 3), np.float32),
-        scaling=rng.normal(sigma, 0.5, (n, 3)).astype(np.float32),
-        rotation=q.astype(np.float32),
-        opacity=np.log(op / (1 - op)).astype(np.float32))
-    zf = np.zeros((n,), np.float32)
-    state = SimpleNamespace(active=np.ones((n,), bool), filter_3d=zf + 1e-4, max_radii2d=zf,
-                            grad_accum=zf, grad_abs_accum=zf, denom=zf)
-    return params, state
+    return bench.make_state(n, np.random.default_rng(seed), sigma=sigma)
 
 
 def orbit_c2w(n_views: int):
@@ -2854,13 +2850,12 @@ def parallel_phase(src: str, root: str, mesh_model: str, smi: str) -> None:
 def bench_state():
     """bench.py's bench_config inputs on the card: make_state's model (seed
     1), the look-at camera, a seeded random ground truth."""
-    from gof_tpu_torch import cameras
+    from gof_tpu_torch import bench
     from gof_tpu_torch.model import gaussians as gm
 
     params, state = make_model(N_GAUSSIANS, SEED)
     g, s = gm.from_numpy(params, state, "cuda")
-    cam = cameras.look_at_camera(eye=(0, 0, 0), target=(0, 0, 5.0), width=WIDTH, height=HEIGHT,
-                                 device="cuda")
+    cam = bench.headline_camera(WIDTH, HEIGHT, "cuda")
     gt = np.random.default_rng(SEED).uniform(0, 1, (3, HEIGHT, WIDTH)).astype(np.float32)
     return g, s, cam, torch.from_numpy(gt).cuda()
 
@@ -2968,23 +2963,22 @@ def step_layers(g, s, st, tx, gt, cam, opt, model_cfg, with_stats, with_reg, ste
     return {k: statistics.median(v) for k, v in times.items()}, ins, st, s
 
 
-def profile_steps(step, args, n: int = 3):
-    """torch.profiler over n steady train steps: host wall, device busy time
-    (kernels and copies), idle share, busiest device ops."""
+def profile_run(run, n: int):
+    """torch.profiler over one call of `run`, which takes n steady train
+    steps: host wall, device busy time (kernels and copies), idle share,
+    busiest device ops. Returns (idle share or None, what run returned)."""
     from torch.profiler import ProfilerActivity, profile
 
-    tp, st, s, gt, step_i, cam, bg = args
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n):
-            tp, st, s, _ = step(tp, st, s, gt, step_i, cam, bg)
+        out = run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         print("  profile: no device events recorded; idle share not measured")
-        return None, (tp, st, s)
+        return None, out
     busy = sum(e.self_device_time_total for e in dev) / 1e3
     idle = 1 - busy / wall
     print(f"  profile of {n} steady steps: {wall / n:.3f} ms/step host wall, device busy "
@@ -2993,7 +2987,21 @@ def profile_steps(step, args, n: int = 3):
     for e in sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
         print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms/step x{e.count // n:4d}  "
               f"{e.key[:80]}")
-    return idle, (tp, st, s)
+    return idle, out
+
+
+def profile_steps(step, args, n: int = 3):
+    """profile_run over n steps of `step` from args (tp, st, s, gt, step_i,
+    cam, bg). Returns (idle share or None, the state after them)."""
+    tp, st, s, gt, step_i, cam, bg = args
+
+    def run():
+        state = (tp, st, s)
+        for _ in range(n):
+            state = step(*state, gt, step_i, cam, bg)[:3]
+        return state
+
+    return profile_run(run, n)
 
 
 def check_bwd(ins, payload, with_stats: bool, with_reg: bool):
@@ -3230,6 +3238,100 @@ def train_kernels(ins, phase: str, with_stats, with_reg, launches) -> list:
     return kernels + check_backward_kernels(ins, phase, with_stats, with_reg, launches)
 
 
+# the port's bench (gof_tpu_torch.bench) at bench.py's defaults: the points
+# whose K1-K4 are held against their plain versions and timed in both phases
+BENCH_HELD = ("late", "late3m")
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline",
+              *(f"{p}_{k}" for p in ("late", "late3m", "orbit")
+                for k in ("iters_per_sec", "keys", "vs_baseline")),
+              "orbit_live_frac", "orbit_skip_frac")
+
+
+def port_bench_phase(smi: str) -> list:
+    """gof_tpu_torch.bench.main([]) at bench.py's defaults (100k gaussians at
+    1237x822 and 20 reps, late at 1M, late3m at 3M, an 8-camera orbit at
+    1M). After each phase of each point (bench's observe hook, after its
+    timing): the phase's K1-K4 launches (K2 and K1 at least once per step,
+    K3 and K4 once per step not skipped), its mean step ms, device busy
+    and idle share over 3 more steps (torch.profiler), the peak memory and,
+    at the BENCH_HELD points and on the orbit (camera 3 through its stale
+    cache row), K1-K4 held against their plain versions and timed at that
+    phase's shapes. The counters are restored after each
+    observation, so they count bench's own steps only. Then the JSON line's
+    keys and values are checked. Returns the held kernels' entries."""
+    from gof_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    counters = dict(zip(("expand", "rasterize_fwd", "rasterize_bwd", "reduce"), train_counters()))
+    kernels, seen = [], {}
+    for c in counters.values():
+        c.launches = 0
+
+    def observe(label: str, phase: str, ctx: dict) -> None:
+        now = {n: c.launches for n, c in counters.items()}
+        got = {n: now[n] - seen.get(n, 0) for n in now}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = ctx["steps"]
+        skipped = int(ctx["packed"][:, 9].sum()) if "packed" in ctx else 0
+        point = label if phase == "orbit" else f"{label} {phase}"
+        print(f"bench {point}: {ctx['ms']:.3f} ms/step (bench's mean over async reps), "
+              f"{steps} steps ({skipped} skipped), launches {got}, peak memory {peak:.3f} GiB "
+              f"({smi})")
+        if (got["expand"] < steps or got["rasterize_fwd"] < steps
+                or got["rasterize_bwd"] != steps - skipped or got["reduce"] != steps - skipped):
+            raise RuntimeError(f"bench {point}: K1-K4 launches {got} for {steps} steps "
+                               f"({skipped} skipped)")
+        setup = ctx["setup"]
+
+        def hold(tp, st, s, gt, cam, step_i, lim=None):
+            layers, ins, _, _ = step_layers(tp.gauss, s, st, setup.tx, gt, cam, setup.opt,
+                                            setup.model_cfg, ctx["with_stats"], ctx["with_reg"],
+                                            step_i, reps=3, lim=lim)
+            print(f"  layers (CUDA events, median of 3, ms): total {sum(layers.values()):.3f}; "
+                  + "; ".join(f"{n} {v:.3f}" for n, v in layers.items()))
+            print(f"  kernels against their plain versions at {point}'s shapes "
+                  f"({ins['keys']} keys, blended list {int(ins['b'].num_keys)}, "
+                  f"{ins['demand']} compact rows):")
+            held = train_kernels(ins, point, ctx["with_stats"], ctx["with_reg"], got)
+            held[0]["name"] = f"expand ({point})"
+            kernels.extend(held)
+
+        if phase == "orbit":
+            # 3 more steps (cameras 0-2) through bench's own epoch loop, then
+            # K1-K4 held on camera 3's step through its cache row, which is
+            # as stale as the orbit's main path leaves it (n_cams - 1 steps)
+            cams, gts, cache = ctx["cams"], ctx["gts"], ctx["cache"]
+            k = min(3, len(cams))
+            _, (state, step_i, _) = profile_run(
+                lambda: bench.orbit_epoch(ctx["step"], ctx["state"], cams[:k], gts[:k],
+                                          ctx["bg"], cache[:k], ctx["step_next"]), k)
+            i = k % len(cams)
+            hold(*state, gts[i], cams[i], step_i, lim=cache[i])
+        else:
+            profile_steps(ctx["step"], ctx["args"])
+            if label in BENCH_HELD:
+                tp, st, s, gt, step_i, cam, _ = ctx["args"]
+                hold(tp, st, s, gt, cam, step_i)
+        for n, c in counters.items():
+            c.launches = now[n]
+        seen.update(now)
+        torch.cuda.empty_cache()
+
+    rec = bench.main([], observe=observe)
+    missing = [k for k in BENCH_KEYS if k not in rec]
+    rates = [k for k in rec if k.endswith(("iters_per_sec", "vs_baseline")) or k == "value"]
+    bad = [k for k in rates if not (np.isfinite(rec[k]) and rec[k] > 0)]
+    bad += [k for k in rec if k.endswith("_keys") and not rec[k] > 0]
+    if not 0 < rec.get("orbit_live_frac", 0) <= 1 or not 0 <= rec.get("orbit_skip_frac", -1) <= 1:
+        bad.append("orbit_live_frac / orbit_skip_frac")
+    print(f"port bench: {json.dumps(rec)}; keys missing {missing}, values out of range {bad} "
+          f"({smi})")
+    if missing or bad or set(rec) != set(BENCH_KEYS):
+        raise RuntimeError("the port's bench line lacks bench.py's keys or has bad values")
+    print(f"port bench phase: {time.perf_counter() - t0:.1f} s")
+    return kernels
+
+
 def main() -> None:
     smi = preflight()
     build()
@@ -3289,11 +3391,13 @@ def main() -> None:
         print("  kernels against their plain versions at this view's shapes:")
         kernels += train_kernels(ins, "regularize", False, True, launches)[1:]
         profile_kernel_calls(ins, probes=False)
+        del ins
+        bench_kernels = port_bench_phase(smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"render ms per view: {[s['ms'] for s in stats]}")
     print(json.dumps({"kernels": kernels + grown_kernels + live_kernels
-                      + [serve_fwd, *integrate_kernels] + probe_kernels}))
+                      + [serve_fwd, *integrate_kernels] + probe_kernels + bench_kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,9 @@ otherwise).
 
 Weights format, gof_tpu's: an .npz with torchvision VGG16 conv weights under
 `features.{idx}.weight/bias` (OIHW, as F.conv2d takes them) and LPIPS heads
-under `lin{k}.model.1.weight`, as scripts/convert_lpips_weights.py writes
-it from the official checkpoints.
+under `lin{k}.model.1.weight`, as `python -m
+gof_tpu_torch.scripts.convert_lpips_weights` writes it from the official
+checkpoints.
 """
 
 from __future__ import annotations
