@@ -4,6 +4,7 @@ paths, its DTU/TNT chain, its parallel paths, its gather/scatter probes and
 its bench once on one CUDA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --full [DIR]   # the 30k-step run alone (full_main)
 
 1. preflight: torch, CUDA, the card's name and power limit, nvcc;
 2. build the CUDA kernels of gof_tpu_torch/csrc with nvcc (sm_90a, one nvcc
@@ -165,12 +166,28 @@ its bench once on one CUDA GPU.
    orbit leaves it); then bench's JSON line: every key of bench.py's, the rates finite
    and positive, the key counts positive, 0 < orbit_live_frac <= 1 and
    0 <= orbit_skip_frac <= 1;
+12c. full_run: the default schedule compressed to 4500 steps (SHORT_ARGS)
+   on the chain's procedural scene through train.main, spied on without a
+   synchronisation (RunRecorder): each 1000 steps' host it/s, active count,
+   keys, live fraction and skips; densify ms, pool growths, each opacity
+   reset and the prune after it; every transition at the iteration the
+   schedule gives (densify 600-3400, its size prune from 3100, the reset
+   and SH degree 3 at 3000, the regularizers from 3500, culling from 3501),
+   the loss finite every step, K2 and K1 launched every step, K3 and K4 on
+   every step not skipped, the evals at 3500 and 4500 logged and printed;
+   K1-K4 held at its shapes from chkpnt3500 (densify instance) and, through
+   the last step's cache row, from chkpnt4500; the mesh path's first field
+   evaluation (K5 launched per view) and K5 held at test view 0 with all
+   tetra points; on a seeded 1/16 of the gaussians and the centre quarter
+   of a view, one step on the card, the CPU path and the CPU path in
+   float64 from chkpnt4500 and, with the statistics, from chkpnt3500,
+   then densify_and_prune on both devices (trained_card_vs_cpu);
 13. print the kernels' JSON line (the four of the first bench phase, K1, K3
    and K4 of the second, the four on the grown pool of 7, K1, K3 and K4 on
    the compacted list of 7b, K1 at the serving
    view, K5 at the chain model's first view, K6-K13 and the four of each
-   phase of 12b's late and late3m points and of its orbit, each with
-   its bound and library time),
+   phase of 12b's late and late3m points and of its orbit, and the five
+   of 12c, each with its bound and library time),
    the card's name and power limit, and as the last line
    {"ok": true, "device": {...}}.
 
@@ -1727,14 +1744,16 @@ def dtu_tsdf(model: str, args: list, label: str, smi: str) -> dict:
     return res
 
 
-def dtu_geometry(model: str, scene: str, label: str, smi: str) -> dict:
+def dtu_geometry(model: str, scene: str, label: str, smi: str, iteration: int = DTU_ITERS,
+                 gate: bool = True) -> dict:
     """eval_procedural_geometry.main: each mesh under model/test/ours_N
-    against gt_mesh.ply; the TSDF mesh's cropped mean_d2s under D2S_GATE."""
+    against gt_mesh.ply; with `gate`, the TSDF mesh's cropped mean_d2s under
+    D2S_GATE."""
     from gof_tpu_torch.scripts import eval_procedural_geometry
 
     t0 = time.perf_counter()
     res = eval_procedural_geometry.main(["-m", model, "-s", scene, "--iteration",
-                                         str(DTU_ITERS)])
+                                         str(iteration)])
     print(f"dtu chain: eval_procedural_geometry ({label}) in {time.perf_counter() - t0:.2f} s "
           f"(host); card {smi}")
     for name, r in res.items():
@@ -1743,7 +1762,7 @@ def dtu_geometry(model: str, scene: str, label: str, smi: str) -> dict:
               f" (d2s {r['chamfer_mean_d2s']:.4f}, s2d {r['chamfer_mean_s2d']:.4f}); raw F "
               f"{r['raw_fscore']:.4f}, chamfer {r['raw_chamfer_overall']:.4f}; "
               f"{r['cropped_samples']} of {r['pred_samples']} samples in the crop")
-    if "tsdf" not in res or not res["tsdf"]["chamfer_mean_d2s"] < D2S_GATE:
+    if gate and ("tsdf" not in res or not res["tsdf"]["chamfer_mean_d2s"] < D2S_GATE):
         raise RuntimeError(f"the {label} TSDF mesh's mean_d2s fails the gate {D2S_GATE}")
     return res
 
@@ -2050,9 +2069,10 @@ def mesh_entry(model: str, device: str = "cuda"):
     return res, launches
 
 
-def check_integrate(model: str, launches, name: str) -> dict:
-    """K5 against its plain version at full size: one training view of the
-    model and all of its tetra points; the `kernels` entry is `name`."""
+def check_integrate(model: str, launches, name: str, camera=None) -> dict:
+    """K5 against its plain version at full size: one view of the model
+    (`camera`, by default training view 0) and all of its tetra points; the
+    `kernels` entry is `name`."""
     from gof_tpu_torch.mesh import extract
     from gof_tpu_torch.ops import integrate as ti
 
@@ -2060,7 +2080,7 @@ def check_integrate(model: str, launches, name: str) -> dict:
     pts, _ = extract.get_tetra_points(g, s, meta)
     ev = extract.FieldEvaluator(g, s, cams, cfg.sh_degree, cfg.kernel_size)
     p = torch.from_numpy(pts).cuda()
-    payload, b, pb = ev.view_inputs(p, cams[0])
+    payload, b, pb = ev.view_inputs(p, cams[0] if camera is None else camera)
     n = p.shape[0]
     got = ti.integrate_transmittance(payload, b, pb, n)
     again = ti.integrate_transmittance(payload, b, pb, n)
@@ -3332,7 +3352,820 @@ def port_bench_phase(smi: str) -> list:
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# The full-length run (A.20) and the default smoke's compressed run of its
+# schedule
+# ---------------------------------------------------------------------------
+
+# gof_tpu's validation run (VALIDATION.md:26-28) with the package swapped:
+# the default OptimizationParams (no appearance network, lambda_distortion
+# 100) for 30k steps on the procedural scene, with checkpoints at 15k, where
+# densification ends and the regularizers and culling begin, and at 30k
+FULL_ARGS = ["--eval", "--iterations", "30000", "--test_iterations", "7000", "15000", "30000",
+             "--save_iterations", "30000", "--checkpoint_iterations", "15000", "30000"]
+# the default smoke's full_run phase: the same schedule compressed so that
+# every transition of the 30k run happens (densify every 100 steps at
+# 600-3400, SH degree 3 and the opacity reset at 3000, the size prune from
+# 3100, the regularizers from 3500, culling from 3501)
+SHORT_ARGS = ["--eval", "--iterations", "4500", "--densify_until_iter", "3500",
+              "--distortion_from_iter", "3500", "--depth_normal_from_iter", "3500",
+              "--test_iterations", "3500", "4500", "--save_iterations", "4500",
+              "--checkpoint_iterations", "3500", "4500"]
+# the full_run phase holds the card against the CPU on a seeded 1/16 of its
+# trained gaussians: the CPU's plain blends took 508 s for one step of the
+# whole 157k-gaussian model at 1237x822 and 311 s at 309x205 on the 8 cores
+# of an H100 machine's host, and the witness takes six CPU steps
+FULL_RUN_CPU_KEEP = 16
+# the full run's TSDF: VALIDATION's 512x81x510 dense grid, depths 1-12 as in
+# the chain phase
+FULL_TSDF = ["--dense", "--max_dim", "512", "--depth_max", "12"]
+# the full run's quality bands around gof_tpu's numbers on the same scene
+# (VALIDATION.md: eval PSNR 38.68 at 30k, 152,557 gaussians, F@0.02 0.855
+# for TSDF and 0.456 for marching tets); the two runs part at the first
+# densification (C13), and the bands leave room for that
+FULL_GATES = {"eval PSNR at 30k": (38.18, None), "final active gaussians": (137_000, 168_000),
+              "TSDF F@0.02": (0.825, None), "marching-tets F@0.02": (0.406, 0.506)}
+# active-count bands for densify's host ms
+DENSIFY_BANDS = (50_000, 100_000, 150_000)
+
+
+def run_schedule(argv: list) -> dict:
+    """The iterations at which train.main with `argv` densifies (and uses
+    the size prune), resets the opacities, drops the statistics, adds the
+    regularizers, turns culling on and steps the SH degree (the loop's
+    host control flow, gof_tpu train.py:921-943; the step's
+    min(it // 1000, sh_degree)), and the test iterations."""
+    import argparse
+
+    from gof_tpu_torch import config as config_lib
+
+    parser = argparse.ArgumentParser()
+    for cls in (config_lib.ModelParams, config_lib.OptimizationParams):
+        config_lib.add_group(parser, cls)
+    parser.add_argument("--test_iterations", nargs="+", type=int, default=[7_000, 30_000])
+    ns, _ = parser.parse_known_args(["-s", "", "-m", "", *argv])
+    opt = config_lib.extract(config_lib.OptimizationParams, ns)
+    sh = config_lib.extract(config_lib.ModelParams, ns).sh_degree
+    its = range(1, opt.iterations + 1)
+    until = opt.densify_until_iter
+    dens = [i for i in its if opt.densify_from_iter < i < until
+            and i % opt.densification_interval == 0]
+    return {"iterations": opt.iterations, "until": until, "densify": dens,
+            "size_prune": [i for i in dens if i > opt.opacity_reset_interval],
+            "reset": [i for i in its if i < until and i % opt.opacity_reset_interval == 0],
+            "reg_on": min(opt.distortion_from_iter, opt.depth_normal_from_iter),
+            "sh_degree": sh, "tests": sorted(ns.test_iterations)}
+
+
+class Tee:
+    """A stdout that also keeps the lines written to it."""
+
+    def __init__(self, out):
+        self.out, self.lines, self.part = out, [], ""
+
+    def write(self, s: str) -> int:
+        self.out.write(s)
+        *done, self.part = (self.part + s).split("\n")
+        self.lines += done
+        return len(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+class RunRecorder:
+    """Spies on a train.main run without adding a synchronisation to its
+    steps. Per step: the iteration, the built step's flags, whether it got a
+    cache row, the SH degree its render used, K2/K1/K3/K4's launches and the
+    packed metrics, read in bulk every 1000 steps with the host clock and
+    the peak memory. Every densify_and_prune call (host ms between
+    synchronisations, its report, the size-prune flag, the active count
+    before and after, the pool), pool growth and opacity reset. `last` is
+    the last step's (camera, gt, cache row); the row is a view of the loop's
+    cache, so after the loop it holds that camera's next bound."""
+
+    def __init__(self):
+        self.counters = train_counters()
+        self.steps, self.windows, self.densify, self.grows, self.resets = [], [], [], [], []
+        self.pending, self.last, self.degree, self.t_last = [], None, None, None
+
+    def patches(self) -> list:
+        from unittest import mock
+
+        from gof_tpu_torch import train
+        from gof_tpu_torch.model import gaussians as gm
+
+        return [mock.patch.object(train, "build_train_step",
+                                  self.wrap_build(train.build_train_step)),
+                mock.patch.object(train, "masked_shs", self.wrap_shs(train.masked_shs)),
+                mock.patch.object(gm, "densify_and_prune", self.wrap_densify(gm.densify_and_prune)),
+                mock.patch.object(train, "grow_capacity", self.wrap_grow(train.grow_capacity)),
+                mock.patch.object(gm, "reset_opacity", self.wrap_reset(gm.reset_opacity))]
+
+    def wrap_build(self, build):
+        import inspect
+
+        sig = inspect.signature(build)
+
+        def built(*a, **k):
+            step = build(*a, **k)
+            bound = sig.bind(*a, **k)
+            bound.apply_defaults()
+            flags = {"stats": bound.arguments["with_stats"], "reg": bound.arguments["with_reg"]}
+
+            def recorded(tp, st, gs, gt, it, cam, bg, lim=None):
+                if self.t_last is None:
+                    self.t_last = time.perf_counter()
+                before = [c.launches for c in self.counters]
+                self.degree = None
+                res = step(tp, st, gs, gt, it, cam, bg, lim=lim)
+                self.steps.append({"iter": int(it), **flags, "culled": lim is not None,
+                                   "degree": self.degree, "cap": int(res[2].active.shape[0]),
+                                   "launches": [c.launches - b for c, b in
+                                                zip(self.counters, before)]})
+                self.pending.append(res[3]["packed"])
+                self.last = (cam, gt, lim)
+                if int(it) % 1000 == 0:
+                    self.flush()
+                return res
+
+            return recorded
+
+        return built
+
+    def wrap_shs(self, masked_shs):
+        def spy(params, degree, max_degree):
+            self.degree = int(degree)
+            return masked_shs(params, degree, max_degree)
+
+        return spy
+
+    def timed(self, fn, record):
+        """fn, timed between synchronisations; `record` gets its arguments
+        by name, its result and the ms."""
+        import inspect
+
+        sig = inspect.signature(fn)
+
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record(sig.bind(*args, **kwargs).arguments, res, (time.perf_counter() - t0) * 1e3)
+            return res
+
+        return wrapped
+
+    def wrap_densify(self, fn):
+        def record(args, res, ms):
+            self.densify.append({"iter": self.steps[-1]["iter"], "ms": ms,
+                                 "report": [int(x) for x in res.report],
+                                 "use_size": bool(args["use_size_prune"]),
+                                 "active": (int(args["state"].active.sum()),
+                                            int(res.state.active.sum())),
+                                 "cap": int(res.state.active.shape[0])})
+
+        return self.timed(fn, record)
+
+    def wrap_grow(self, fn):
+        def record(args, res, ms):
+            self.grows.append({"iter": self.steps[-1]["iter"], "from": args["old_cap"],
+                               "to": args["new_cap"], "ms": ms})
+
+        return self.timed(fn, record)
+
+    def wrap_reset(self, fn):
+        def record(args, res, ms):
+            self.resets.append(self.steps[-1]["iter"])
+
+        return self.timed(fn, record)
+
+    def flush(self) -> None:
+        """Read the pending steps' packed metrics (one host read) and print
+        the window's line."""
+        if not self.pending:
+            return
+        mp = torch.stack(self.pending).cpu().numpy()
+        now = time.perf_counter()
+        self.pending.clear()
+        recs = self.steps[-len(mp):]
+        for r, m in zip(recs, mp):
+            r.update(loss=float(m[0]), keys=int(m[2]), active=int(m[6]), live=int(m[7]),
+                     skipped=bool(m[9]))
+        culled = [r for r in recs if r["culled"]]
+        w = {"from": recs[0]["iter"], "to": recs[-1]["iter"],
+             "it_s": len(recs) / (now - self.t_last), "active": recs[-1]["active"],
+             "cap": recs[-1]["cap"], "keys_mean": float(np.mean([r["keys"] for r in recs])),
+             "keys_max": max(r["keys"] for r in recs), "culled": len(culled),
+             "live_frac": (float(np.mean([r["live"] / max(r["keys"], 1) for r in culled]))
+                           if culled else None),
+             "skipped": sum(r["skipped"] for r in recs),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        self.t_last = now
+        self.windows.append(w)
+        live = "" if w["live_frac"] is None else (
+            f", live fraction {w['live_frac']:.4f} over {w['culled']} culled steps, "
+            f"{w['skipped']} skipped")
+        print(f"  steps {w['from']}-{w['to']}: {w['it_s']:.3f} it/s (host clock), active "
+              f"{w['active']} of {w['cap']}, keys per step mean {w['keys_mean']:.0f} max "
+              f"{w['keys_max']}{live}; peak memory {w['peak_gib']:.3f} GiB", flush=True)
+
+
+def run_gates(rec: RunRecorder, lines: list, sched: dict, evals: dict) -> list:
+    """What a train.main run must show, from its recorded steps, the loop's
+    prints and its log; returns the failures. The schedule's transitions at
+    the iterations run_schedule gives (those past a resume point): densify
+    and its size prune, the opacity resets, the statistics on up to
+    densify_until_iter, the regularizers from their first iteration, a
+    cache row from densify_until_iter + 1 (and its print), the SH degree;
+    the loss finite at every step; K2 and K1 launched every step, K3 and K4
+    once on every step not skipped and never on a skipped one; an eval at
+    every test iteration, finite, logged and printed."""
+    import re
+
+    first = rec.steps[0]["iter"] - 1
+    iters = [r["iter"] for r in rec.steps]
+    until, bad = sched["until"], []
+
+    def want(name, got, expect):
+        ok = got == expect
+        at = f"{got[0]}-{got[-1]}" if len(got) > 3 else ", ".join(map(str, got))
+        print(f"  {name}: {'as scheduled' if ok else 'NOT as scheduled'} ({len(got)}"
+              f"{f': {at}' if got else ''})")
+        if not ok:
+            bad.append(f"{name}: got {got[:20]}, want {expect[:20]}")
+
+    want("steps", iters, list(range(first + 1, sched["iterations"] + 1)))
+    want("densify", [d["iter"] for d in rec.densify], [i for i in sched["densify"] if i > first])
+    want("size prune", [d["iter"] for d in rec.densify if d["use_size"]],
+         [i for i in sched["size_prune"] if i > first])
+    want("opacity resets", rec.resets, [i for i in sched["reset"] if i > first])
+    want("statistics in the step", [r["iter"] for r in rec.steps if r["stats"]],
+         [i for i in iters if i <= until])
+    want("regularizers in the step", [r["iter"] for r in rec.steps if r["reg"]],
+         [i for i in iters if i >= sched["reg_on"]])
+    want("culled steps", [r["iter"] for r in rec.steps if r["culled"]],
+         [i for i in iters if i > until])
+    for d in range(1, sched["sh_degree"] + 1):
+        want(f"SH degree {d}", [r["iter"] for r in rec.steps if r["degree"] == d],
+             [i for i in iters if min(i // 1000, sched["sh_degree"]) == d])
+    if until + 1 > first and until < sched["iterations"]:
+        want("culling print", [int(m.group(1)) for m in (re.match(r"^\[(\d+)\] liveness "
+                                                                  r"culling on$", x)
+                                                         for x in lines) if m], [until + 1])
+    want("non-finite losses", [r["iter"] for r in rec.steps if not np.isfinite(r["loss"])], [])
+    want("steps without K2 and K1", [r["iter"] for r in rec.steps if min(r["launches"][:2]) < 1],
+         [])
+    want("steps whose K3 / K4 launches differ from one per update",
+         [r["iter"] for r in rec.steps if r["launches"][2:] != [1 - r["skipped"]] * 2], [])
+    tests = [i for i in sched["tests"] if first < i <= sched["iterations"]]
+    printed = [int(m.group(1)) for m in (re.match(r"^\[(\d+)\] eval: ", x) for x in lines) if m]
+    want("evals logged, finite", sorted(i for i in evals if i > first
+                                        and np.isfinite(evals[i]["psnr"])), tests)
+    want("evals printed", printed, tests)
+    return bad
+
+
+def newest_checkpoint(run: str):
+    """(iteration, path) of the newest chkpnt<k>.pkl in `run`, or None."""
+    if not os.path.isdir(run):
+        return None
+    ks = [int(f[6:-4]) for f in os.listdir(run) if f.startswith("chkpnt") and f.endswith(".pkl")]
+    return (max(ks), os.path.join(run, f"chkpnt{max(ks)}.pkl")) if ks else None
+
+
+def full_train(scene: str, run: str, argv: list, smi: str, label: str, start=None,
+               strict: bool = True) -> dict:
+    """train.main(-s scene -m run argv [--start_checkpoint start]) through a
+    RunRecorder, its stdout kept, then run_gates and the run's records:
+    the windows, pool growths, densify ms by active-count band, each
+    opacity reset and the prune after it, the evals, the wall time. Raises
+    on a failed gate if `strict`. Returns {"rec", "launches", "evals", "wall",
+    "sched", "bad"}: "bad" lists the failed gates."""
+    import contextlib
+
+    from gof_tpu_torch import train
+
+    sched = run_schedule(argv)
+    rec = RunRecorder()
+    for c in rec.counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    tee = Tee(sys.stdout)
+    args = ["-s", scene, "-m", run, *argv] + (["--start_checkpoint", start] if start else [])
+    print(f"{label}: train.main {' '.join(args)} on {smi}")
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for p in rec.patches():
+            stack.enter_context(p)
+        stack.enter_context(contextlib.redirect_stdout(tee))
+        train.main(args)
+    rec.flush()
+    wall = time.perf_counter() - t0
+    launches = {c.name: c.launches for c in rec.counters}
+    recs = [json.loads(x) for x in open(os.path.join(run, "train_log.jsonl"))]
+    evals = {r["iter"]: r["eval"] for r in recs if "eval" in r}
+    n = len(rec.steps)
+    print(f"{label}: {n} steps ({rec.steps[0]['iter']}-{rec.steps[-1]['iter']}) in {wall:.2f} s "
+          f"({n / wall:.3f} it/s host clock, scene read, evals, checkpoints and PLY included); "
+          f"launches {launches}; card {smi}")
+    print(f"  peak max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for g in rec.grows:
+        print(f"  pool growth at step {g['iter']}: {g['from']} -> {g['to']} slots, "
+              f"{g['ms']:.3f} ms")
+    bands = {}
+    for d in rec.densify:
+        band = sum(d["active"][0] >= b for b in DENSIFY_BANDS)
+        bands.setdefault(band, []).append(d["ms"])
+    for band, ms in sorted(bands.items()):
+        lo = ([0] + list(DENSIFY_BANDS))[band]
+        hi = (list(DENSIFY_BANDS) + [None])[band]
+        print(f"  densify, active {lo}-{hi if hi else ''} before the call: {len(ms)} calls, ms "
+              f"(host clock, synchronised) min {min(ms):.3f} median {np.median(ms):.3f} max "
+              f"{max(ms):.3f}")
+    if rec.densify:
+        d0, d1 = rec.densify[0], rec.densify[-1]
+        peak = max(max(d["active"]) for d in rec.densify)
+        print(f"  densify calls {len(rec.densify)} ({d0['iter']}-{d1['iter']}): active "
+              f"{d0['active'][0]} -> {d1['active'][1]} (peak {peak}); cloned "
+              f"{sum(d['report'][0] for d in rec.densify)}, split "
+              f"{sum(d['report'][1] for d in rec.densify)}, pruned "
+              f"{sum(d['report'][2] for d in rec.densify)}, overflows "
+              f"{sum(d['report'][3] for d in rec.densify)}")
+    for r in rec.resets:
+        after = next((d for d in rec.densify if d["iter"] > r), None)
+        print(f"  opacity reset at step {r}; " + ("no densify after it" if after is None else
+              f"the next densify (step {after['iter']}, size prune {after['use_size']}) pruned "
+              f"{after['report'][2]}: active {after['active'][0]} -> {after['active'][1]}"))
+    for it, e in sorted(evals.items()):
+        print(f"  eval at {it}: PSNR {e['psnr']} over {e['views']} test views")
+    print(f"{label}: the run against its schedule:")
+    bad = run_gates(rec, tee.lines, sched, evals)
+    if bad and strict:
+        raise RuntimeError(f"{label}: the run missed its schedule: {bad}")
+    return {"rec": rec, "launches": launches, "evals": evals, "wall": wall, "sched": sched,
+            "bad": bad}
+
+
+def trained_kernels(run: str, trained: dict, label: str, smi: str) -> list:
+    """K2, K1, K3 and K4 held against their plain versions and timed at a
+    trained run's shapes: (densify) one step in the densify phase's instance
+    (statistics on, regularizers off) from the checkpoint at
+    densify_until_iter, on training view 0; (regularize) one step from the
+    last checkpoint on the last step's training view through its cache row
+    as the run left it (the liveness-compacted list). Returns their
+    kernels-line entries."""
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch import train
+    from gof_tpu_torch.data import scene as scene_lib
+    from gof_tpu_torch.ops import binning
+
+    cfg, _, opt = config_lib.load_cfg(run)
+    sc = scene_lib.Scene(cfg.source_path, "", shuffle=False)
+    tx = train.make_optimizer(opt, sc.cameras_extent)
+    sched, launches = trained["sched"], trained["launches"]
+    cam0, gt0 = sc.camera(sc.train_cameras[0], device="cuda")
+    last = trained["rec"].last if trained.get("rec") else None
+    cam, gt, lim = last if last and last[2] is not None else (cam0, None, None)
+    cases = [("densify", sched["until"], True, False, cam0, torch.from_numpy(gt0).cuda(), None),
+             ("regularize", sched["iterations"], False, True, cam,
+              gt if gt is not None else torch.from_numpy(gt0).cuda(), lim)]
+    kernels = []
+    for phase, it, with_stats, with_reg, c, g, row in cases:
+        tp, st, gs, _ = train.load_checkpoint(os.path.join(run, f"chkpnt{it}.pkl"), "cuda")
+        ntiles = int(np.prod(binning.tile_grid(c.width, c.height)))
+        if with_reg and row is None:  # no row from the run: one from a render
+            row = live_render((tp, st, gs), c).live_counts + binning.LIVE_MARGIN_CHUNKS
+            print(f"  {label} {phase}: the run left no cache row; bounds from a render")
+        point = f"{label} {phase}"
+        layers, ins, _, _ = step_layers(tp.gauss, gs, st, tx, g, c, opt, cfg, with_stats,
+                                        with_reg, it, reps=3,
+                                        lim=None if row is None else row[:ntiles])
+        print(f"{point} (chkpnt{it}, {int(gs.active.sum())} active of {gs.active.shape[0]}, "
+              f"{ins['keys']} keys, blended list {int(ins['b'].num_keys)}, {ins['demand']} "
+              f"compact rows; card {smi}): layers (CUDA events, median of 3, ms): total "
+              f"{sum(layers.values()):.3f}; " + "; ".join(f"{n} {v:.3f}" for n, v in layers.items()))
+        held = train_kernels(ins, point, with_stats, with_reg, launches)
+        held[0]["name"] = f"expand ({point})"
+        kernels += held
+        del tp, st, gs, ins
+        torch.cuda.empty_cache()
+    return kernels
+
+
+def trained_integrate(run: str, launches: dict, label: str) -> dict:
+    """K5 (check_integrate) at test view 0 with all the tetra points of the
+    run's last PLY."""
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch.data import scene as scene_lib
+
+    cfg, _, _ = config_lib.load_cfg(run)
+    sc = scene_lib.Scene(cfg.source_path, "", shuffle=False)
+    cam = sc.camera(sc.test_cameras[0], device="cuda")[0]
+    return check_integrate(run, launches, f"integrate ({label})", camera=cam)
+
+
+# the card against the CPU after one step at a trained state. The bounds of
+# tests/test_torch_train.py::test_train_step_matches_gof_tpu (the loss and
+# the params within rtol 1e-5, Adam's moments and the statistics within
+# GRAD_BOUND of their largest magnitude) hold at gof_tpu's gradient-test
+# scales (C9); at a trained state the f32 step's scales and rotations
+# gradients lie percents of their largest off float64, on the CPU as on the
+# card (C29). So both are held against the port's CPU path in float64 from
+# the same inputs, and the card passes a quantity where it lies within that
+# bound of float64, or no further from float64 than the plain f32 path up
+# to the spread of two f32 evaluations whose roundings cross the blend's
+# thresholds (T > 1e-4, alpha >= 1/255, the median) at different pixels:
+# FP64_RATIO times the CPU's distance in the L2 norm (set before the first
+# run), FP64_MAX_RATIO times at the largest slot, where one crossing sets
+# the reading (set after the first run, whose largest ratio was 2.52).
+STEP_BOUNDS = {"loss": 1e-5, "params": 1e-5, "mu": GRAD_BOUND, "nu": GRAD_BOUND,
+               "stats": GRAD_BOUND}
+FP64_RATIO = 2.0
+FP64_MAX_RATIO = 4.0
+# the card-against-CPU steps take the centre 1/CARD_CPU_CROP of each side
+# of a view; --full, on the whole model, 1/FULL_CARD_CPU_CROP (the float64
+# step took 1.8x the f32 one on the phase's state)
+CARD_CPU_CROP = 2
+FULL_CARD_CPU_CROP = 3
+
+
+def crop_view(cam, gt, div: int):
+    """The centre of a view, 1/div of each side (rounded so that the margins
+    are whole pixels): its camera, with the focal lengths and the principal
+    point at the centre kept, and its ground truth [3, h, w]."""
+    from dataclasses import replace
+
+    from gof_tpu_torch import transforms
+    from gof_tpu_torch.constants import CAMERA_ZFAR, CAMERA_ZNEAR
+
+    w = cam.width // div + (cam.width - cam.width // div) % 2
+    h = cam.height // div + (cam.height - cam.height // div) % 2
+    x0, y0 = (cam.width - w) // 2, (cam.height - h) // 2
+    tx = float(cam.tan_fovx) * w / cam.width
+    ty = float(cam.tan_fovy) * h / cam.height
+    proj = transforms.projection_matrix(CAMERA_ZNEAR, CAMERA_ZFAR, 2 * np.arctan(tx),
+                                        2 * np.arctan(ty))
+    full = (proj @ cam.world_view.double().cpu().numpy()).astype(np.float32)
+    dev = cam.world_view.device
+    crop = replace(cam, width=w, height=h, full_proj=torch.from_numpy(full).to(dev),
+                   tan_fovx=torch.tensor(tx, dtype=torch.float32, device=dev),
+                   tan_fovy=torch.tensor(ty, dtype=torch.float32, device=dev))
+    return crop, gt[:, y0:y0 + h, x0:x0 + w].contiguous()
+
+
+def witness_step(run: str, it: int, with_stats: bool, with_reg: bool, view, keep, smi: str,
+                 label: str):
+    """One build_train_step (this instance) from chkpnt<it> on the view
+    (camera, ground truth) three times: on the card, through the port's CPU
+    path (the plain versions) and through that path in float64, from the
+    same inputs; the active slots cut to `keep` where it is given. The
+    regularizers' instance gets the cache row of a render of the state on
+    the card (live_counts + LIVE_MARGIN_CHUNKS), as a late step does; the
+    statistics' instance none. Each quantity of step_diffs (with the
+    statistics in the statistics' instance) passes where the card lies no
+    further from float64 than STEP_BOUNDS or FP64_RATIO times the CPU's
+    distance; the skip flag, Adam's count, the active set, the 3D filter,
+    denom and max_radii2d equal on the card and the CPU. Returns (the
+    failures, the CPU's post-step state)."""
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch import train
+    from gof_tpu_torch.data import scene as scene_lib
+    from gof_tpu_torch.model import gaussians as gm
+    from gof_tpu_torch.ops import binning
+    from gof_tpu_torch.ops import render as render_lib
+
+    cfg, pipe, opt = config_lib.load_cfg(run)
+    sc = scene_lib.Scene(cfg.source_path, "", shuffle=False)
+    tx = train.make_optimizer(opt, sc.cameras_extent)
+    ckpt = os.path.join(run, f"chkpnt{it}.pkl")
+    cam, gt = view
+
+    def load(dev):
+        tp, st, gs, _ = train.load_checkpoint(ckpt, dev)
+        if keep is not None:
+            gs.active &= keep.to(dev)
+        return tp, st, gs
+
+    lim = None
+    if with_reg:
+        tp, _, gs = load("cuda")
+        g = tp.gauss
+        with torch.no_grad():
+            lim = render_lib.render(
+                cam, g.xyz, gm.filtered_scaling(g, gs.filter_3d), g.rotation,
+                gm.filtered_opacity(g, gs.filter_3d), train.masked_shs(g, cfg.sh_degree,
+                                                                       cfg.sh_degree),
+                cfg.sh_degree, cfg.kernel_size, torch.zeros(3, device="cuda"),
+                active_mask=gs.active, with_stats=False, with_reg=True
+            ).live_counts + binning.LIVE_MARGIN_CHUNKS
+        del tp, gs, g
+    runs = {}
+    for name, dev in (("card", "cuda"), ("CPU", "cpu"), ("float64", "cpu")):
+        tp, st, gs = load(dev)
+        c, g_t, bg = cam.to(dev), gt.to(dev), torch.zeros(3, device=dev)
+        if name == "float64":
+            tp, st, gs, c = train.as_float64(tp, st, gs, c)
+            g_t, bg = g_t.double(), bg.double()
+        step = train.build_train_step(opt, cfg, pipe, tx, with_stats=with_stats,
+                                      with_reg=with_reg)
+        t0 = time.perf_counter()
+        res = step(tp, st, gs, g_t, it + 1, c, bg, lim=None if lim is None else lim.to(dev))
+        runs[name] = (state_copy(*res[:3]), float(res[3]["loss"]), bool(res[3]["packed"][9]),
+                      time.perf_counter() - t0)
+        del tp, st, gs, res
+    _, st0, _ = load("cpu")
+    (card, c_loss, c_skip, c_s), (cpu, p_loss, p_skip, p_s), (f64, q_loss, q_skip, q_s) = (
+        runs["card"], runs["CPU"], runs["float64"])
+    act = cpu[2].active
+    row = "no cache row" if lim is None else "a render's cache row"
+    d_card = step_diffs(card, c_loss, f64, q_loss, st0, act, with_stats)
+    d_cpu = step_diffs(cpu, p_loss, f64, q_loss, st0, act, with_stats)
+    d_cc = step_diffs(card, c_loss, cpu, p_loss, st0, act, with_stats)
+    limit = {k: max(STEP_BOUNDS[k.split(".")[0]],
+                    (FP64_RATIO if k.endswith("(L2)") else FP64_MAX_RATIO) * d_cpu[k])
+             for k in d_card}
+    bad = [k for k in d_card if not d_card[k] <= limit[k]]
+    exact = ["active", "filter_3d", "denom", "max_radii2d"] + (
+        [] if with_stats else ["grad_accum", "grad_abs_accum"])
+    same = {f: torch.equal(getattr(card[2], f), getattr(cpu[2], f)) for f in exact}
+    print(f"{label}: card, CPU and CPU float64 at chkpnt{it} (one step {it + 1}, statistics "
+          f"{with_stats}, regularizers {with_reg}, at {cam.width}x{cam.height}, "
+          f"{row}, {int(act.sum())} "
+          f"active slots; card {smi}): loss {c_loss:.8f} / {p_loss:.8f} / {q_loss:.10f}; "
+          f"skipped {c_skip} / {p_skip} / {q_skip}; host s {c_s:.2f} / {p_s:.2f} / {q_s:.2f}; "
+          f"equal on the card and the CPU {same}; Adam count {card[1].count} / {cpu[1].count}")
+    print(f"  quantity: card against float64 / CPU against float64 / card against CPU "
+          f"(limit: the step test's bound or {FP64_MAX_RATIO}x the CPU's distance, "
+          f"{FP64_RATIO}x in the L2 norm)")
+    for k in d_card:
+        print(f"    {k}: {d_card[k]:.3e} / {d_cpu[k]:.3e} / {d_cc[k]:.3e} (limit "
+              f"{limit[k]:.3e}){'  OVER' if k in bad else ''}")
+    ids = torch.nonzero(act).flatten()
+    for k in [k for k in bad if k.split(".")[0] in ("mu", "nu", "stats")]:
+        part, f = k.split(" ")[0].split(".")
+
+        def field(r):
+            return (getattr(r[2], f) if part == "stats" else getattr(getattr(r[1], part), f)
+                    )[act].double().reshape(len(ids), -1)
+
+        want, got_card, got_cpu = field(f64), field(card), field(cpu)
+        j = int((got_card - want).abs().amax(1).argmax())
+        g, slot = cpu[0].gauss, int(ids[j])
+        print(f"  {k}: largest at slot {slot}: card "
+              f"{float((got_card - want)[j].abs().max()):.3e}, CPU "
+              f"{float((got_cpu - want)[j].abs().max()):.3e} from float64, whose max is "
+              f"{float(want.abs().max()):.3e}; its max scale "
+              f"{float(g.scaling[slot].exp().max()):.3e}, opacity "
+              f"{float(torch.sigmoid(g.opacity[slot])):.3f}")
+    fails = [f"{label}: {k} {d_card[k]:.3e} over {limit[k]:.3e}" for k in bad]
+    if c_skip != p_skip or card[1].count != cpu[1].count or not all(same.values()):
+        fails.append(f"{label}: skip {c_skip} / {p_skip}, count {card[1].count} / "
+                     f"{cpu[1].count}, equal {same}")
+    return fails, cpu
+
+
+def trained_card_vs_cpu(run: str, trained: dict, smi: str, keep_every: int = 1,
+                        crop: int = CARD_CPU_CROP) -> None:
+    """The card against the CPU and a float64 witness at a trained state
+    (witness_step) on the centre 1/crop of each side of a training view
+    (crop_view; the CPU's plain blends walk each 32x32 tile to saturation,
+    so the CPU's time goes with the tiles), with a seeded
+    1/keep_every of the active slots where keep_every > 1:
+    (regularize) one step from the last checkpoint on the last step's view;
+    (densify) one step with the statistics from the checkpoint at
+    densify_until_iter (its accumulators hold the steps since the last
+    densification) on training view 0, then densify_and_prune as the loop
+    calls it on the CPU's post-step state, on the card and the CPU with the
+    same noise (densify_both). Raises after both if either failed."""
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch.data import scene as scene_lib
+
+    cfg, _, opt = config_lib.load_cfg(run)
+    sc = scene_lib.Scene(cfg.source_path, "", shuffle=False)
+    sched = trained["sched"]
+    last = trained["rec"].last if trained.get("rec") else None
+    cam0, gt0 = sc.camera(sc.train_cameras[0], device="cuda")
+    gt0 = torch.from_numpy(gt0).cuda()
+    keep = None
+    if keep_every > 1:
+        from gof_tpu_torch import train
+
+        gs = train.load_checkpoint(os.path.join(run, f"chkpnt{sched['iterations']}.pkl"))[2]
+        keep = (torch.rand(gs.active.shape[0], generator=torch.Generator().manual_seed(SEED))
+                < 1 / keep_every)
+    fails, _ = witness_step(run, sched["iterations"], False, True,
+                            crop_view(*(last[:2] if last else (cam0, gt0)), crop), keep,
+                            smi, "regularize")
+    until = sched["until"]
+    more, cpu = witness_step(run, until, True, False, crop_view(cam0, gt0, crop), keep,
+                             smi, "densify")
+    fails += more
+    gen = torch.Generator().manual_seed(SEED)
+    noise = [torch.randn(cpu[0].gauss.xyz.shape, generator=gen) for _ in range(3)]
+    try:
+        densify_both(f"as the loop calls it after step {until + 1}", state_copy(*cpu, "cuda"),
+                     cpu, noise, (opt.densify_grad_threshold, 0.05, sc.cameras_extent,
+                                  opt.percent_dense, until + 1 > opt.opacity_reset_interval), smi)
+    except RuntimeError as e:
+        fails.append(str(e))
+    if fails:
+        raise RuntimeError(f"the card against the CPU at the trained state: {fails}")
+
+
+def step_diffs(a, a_loss, b, b_loss, st0, act, stats: bool = False) -> dict:
+    """How far step result `a` lies from `b` (both (TrainParams, AdamState,
+    GaussianState) on the CPU), over the active slots: the loss, relative;
+    each moment field, max |a - b| / max |b| and, as "(L2)", |a - b| / |b|;
+    each param field where b's step gradient ((mu - b1 mu0) / (1 - b1))
+    exceeds 1e-3 of its largest, max |a - b| / (|b| + max |b|) and the L2
+    form; with
+    `stats`, grad_accum and grad_abs_accum as the moments."""
+    from gof_tpu_torch import train
+
+    def rel(out, key, x, y):
+        out[key] = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+        out[f"{key} (L2)"] = float((x - y).norm()) / max(float(y.norm()), 1e-30)
+
+    out = {"loss": abs(a_loss - b_loss) / max(abs(b_loss), 1e-30)}
+    for f in train.GAUSS_FIELDS:
+        for m in ("mu", "nu"):
+            rel(out, f"{m}.{f}", getattr(getattr(a[1], m), f)[act].double(),
+                getattr(getattr(b[1], m), f)[act].double())
+        grad = (getattr(b[1].mu, f)[act].double() - 0.9 * getattr(st0.mu, f)[act].double()) / 0.1
+        sel = grad.abs() > 1e-3 * grad.abs().max()
+        if sel.any():
+            x = getattr(a[0].gauss, f)[act].double()[sel]
+            y = getattr(b[0].gauss, f)[act].double()[sel]
+            out[f"params.{f}"] = float(((x - y).abs() / (y.abs() + y.abs().max())).max())
+            out[f"params.{f} (L2)"] = float((x - y).norm()) / max(float(y.norm()), 1e-30)
+    if stats:
+        for f in ("grad_accum", "grad_abs_accum"):
+            rel(out, f"stats.{f}", getattr(a[2], f)[act].double(), getattr(b[2], f)[act].double())
+    return out
+
+
+def full_run_phase(scene: str, root: str, smi: str) -> list:
+    """The default schedule compressed (SHORT_ARGS) on the chain phase's
+    procedural scene through train.main, held to run_gates; then K2, K1,
+    K3 and K4 at its shapes (trained_kernels), the mesh path's first field
+    evaluation (the tetra points of its PLY over the 36 training views,
+    K5's launches counted), K5 at test view 0 and the card against the CPU
+    at its last checkpoint. Returns the kernels-line entries."""
+    from gof_tpu_torch.mesh import extract
+
+    t0 = time.perf_counter()
+    run = os.path.join(root, "full_run")
+    trained = full_train(scene, run, SHORT_ARGS, smi, "full_run")
+    kernels = trained_kernels(run, trained, "full_run", smi)
+    cfg, g, s, cams, meta = load_model(run, "cuda")
+    pts, _ = extract.get_tetra_points(g, s, meta)
+    ev = extract.FieldEvaluator(g, s, cams, cfg.sh_degree, cfg.kernel_size)
+    alpha, launches, secs = stage_launches(ev.alpha, pts)
+    print(f"full_run: field at {len(pts)} tetra points over {len(cams)} views in {secs:.2f} s; "
+          f"launches {launches}; alpha in [{alpha.min():.4f}, {alpha.max():.4f}]")
+    if launches["integrate"] < len(cams) or not np.isfinite(alpha).all():
+        raise RuntimeError("full_run: the field evaluation did not run through K5")
+    del g, s, ev
+    kernels.append(trained_integrate(run, launches, "full_run"))
+    trained_card_vs_cpu(run, trained, smi, keep_every=FULL_RUN_CPU_KEEP)
+    print(f"full_run phase: {time.perf_counter() - t0:.1f} s")
+    return kernels
+
+
+def full_chain(run: str, scene: str, smi: str) -> dict:
+    """The full run's chain, each stage through its CLI's main on the card:
+    render_cli --skip_train, metrics, extract_mesh (marching tets and an
+    8-step binary search), extract_mesh_tsdf FULL_TSDF, the geometry score of
+    both meshes, summarize_run. Returns the stage seconds, the file
+    metrics, the mesh and TSDF results, the scores and K5's launches."""
+    from gof_tpu_torch import extract_mesh, metrics, render_cli
+    from gof_tpu_torch.scripts import summarize_run
+
+    it = 30_000
+    secs = {}
+    stats, launches, secs["render_cli"] = stage_launches(render_cli.main,
+                                                         ["-m", run, "--skip_train"])
+    print(f"full run: render_cli {len(stats['test'])} test views in {secs['render_cli']:.2f} s, "
+          f"ms {[round(s['ms'], 2) for s in stats['test']]}; launches {launches}; card {smi}")
+    t0 = time.perf_counter()
+    metrics.main(["-m", run])
+    secs["metrics"] = time.perf_counter() - t0
+    res = json.load(open(os.path.join(run, "results.json")))[f"ours_{it}"]
+    print(f"full run: metrics in {secs['metrics']:.2f} s: {res}")
+    mesh, mesh_launches, secs["extract_mesh"] = stage_launches(extract_mesh.main, ["-m", run])
+    print(f"full run: extract_mesh in {secs['extract_mesh']:.2f} s: tetra points "
+          f"{mesh['tetra_points']}, tets {mesh['tets']}, crossing edges "
+          f"{mesh['crossing_edges']}, {mesh['vertices']} vertices, {mesh['faces']} faces; stage s "
+          + ", ".join(f"{k} {v:.3f}" for k, v in mesh["seconds"].items())
+          + f"; launches {mesh_launches}; card {smi}")
+    t0 = time.perf_counter()
+    tsdf = dtu_tsdf(run, FULL_TSDF, "full run dense", smi)
+    secs["extract_mesh_tsdf"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    geo = dtu_geometry(run, scene, "full run", smi, iteration=it, gate=False)
+    secs["eval_procedural_geometry"] = time.perf_counter() - t0
+    summarize_run.main([run])
+    print("full run: stage s " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    return {"secs": secs, "metrics": res, "mesh": mesh, "tsdf": tsdf, "geometry": geo,
+            "mesh_launches": mesh_launches}
+
+
+def stage(failed: list, name: str, fn, *args):
+    """fn(*args), or None with the traceback printed and `name` appended to
+    `failed` where it raises."""
+    import traceback
+
+    try:
+        return fn(*args)
+    except Exception as e:  # noqa: BLE001 -- reported, and the run fails at its end
+        traceback.print_exc()
+        failed.append(f"{name}: {e}")
+        return None
+
+
+def full_main(path: str | None) -> None:
+    """python3 chip_smoke.py --full [DIR]: the full-length run (A.20). The
+    procedural scene (DIR/scene, written if absent), train.main with
+    FULL_ARGS into DIR/run (resumed from the newest checkpoint there, if
+    any), the chain (full_chain), K1-K5 at the trained shapes, the card
+    against the CPU and float64 at chkpnt15000 and chkpnt30000, and
+    FULL_GATES. DIR defaults to a
+    temporary directory, removed at the end."""
+    smi = preflight()
+    build()
+    t_all, failed = time.perf_counter(), []
+    root = path or tempfile.mkdtemp(prefix="gof_full_run_")
+    os.makedirs(root, exist_ok=True)
+    try:
+        scene, run = os.path.join(root, "scene"), os.path.join(root, "run")
+        if not os.path.exists(os.path.join(scene, "gt_mesh.ply")):
+            from gof_tpu_torch.scripts import make_procedural_scene as mps
+
+            res = mps.main(["--out", scene])
+            print(f"full run: scene {res['train_views']} train + {res['test_views']} test views "
+                  f"at {res['width']}x{res['height']}, {res['points']} points, written in "
+                  f"{res['seconds']:.1f} s")
+        start = newest_checkpoint(run)
+        sched = run_schedule(FULL_ARGS)
+        if start and start[0] >= sched["iterations"]:
+            print(f"full run: {start[1]} exists; training skipped")
+            trained = {"sched": sched, "launches": {c.name: 0 for c in train_counters()},
+                       "evals": {}}
+        else:
+            if start:
+                print(f"full run: resuming from {start[1]} (a fresh densify noise stream and "
+                      "liveness cache: a split run is another run than an unsplit one)")
+            trained = full_train(scene, run, FULL_ARGS, smi, "full run",
+                                 start=start[1] if start else None, strict=False)
+            failed += [f"schedule: {b}" for b in trained["bad"]]
+        recs = [json.loads(x) for x in open(os.path.join(run, "train_log.jsonl"))]
+        evals = {r["iter"]: r["eval"] for r in recs if "eval" in r}
+        # each stage after training runs even where one before it failed, so
+        # that one run of 30k steps reports all it can
+        chain = stage(failed, "chain", full_chain, run, scene, smi) or {}
+        kernels = stage(failed, "K1-K4", trained_kernels, run, trained, "trained", smi) or []
+        if chain.get("mesh_launches"):
+            kernels.append(stage(failed, "K5", trained_integrate, run, chain["mesh_launches"],
+                                 "trained"))
+        stage(failed, "card against CPU", trained_card_vs_cpu, run, trained, smi, 1,
+              FULL_CARD_CPU_CROP)
+        geo = chain.get("geometry", {})
+        got = {"eval PSNR at 30k": evals.get(sched["iterations"], {}).get("psnr", float("nan")),
+               "final active gaussians": [r for r in recs if "loss" in r][-1]["points"],
+               "TSDF F@0.02": geo.get("tsdf", {}).get("fscore", float("nan")),
+               "marching-tets F@0.02": geo.get("marching_tets", {}).get("fscore", float("nan"))}
+        for name, (lo, hi) in FULL_GATES.items():
+            ok = got[name] >= lo and (hi is None or got[name] <= hi)
+            print(f"gate {name}: {got[name]} in [{lo}, {'inf' if hi is None else hi}]: {ok}")
+            if not ok:
+                failed.append(f"gate {name}")
+        print(f"full run: evals {evals}; file metrics {chain.get('metrics')}; wall "
+              f"{time.perf_counter() - t_all:.1f} s, build included ({smi})")
+    finally:
+        if path is None:
+            shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"kernels": [k for k in kernels if k]}))
+    print(smi)
+    if failed:
+        raise RuntimeError(f"full run: failed {failed}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
 def main() -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--full", nargs="?", const="", default=None, metavar="DIR",
+                        help="run only the full-length run (A.20) and its chain, in DIR "
+                             "(resumed from its newest checkpoint) or a temporary directory")
+    ns = parser.parse_args()
+    if ns.full is not None:
+        full_main(ns.full or None)
+        return
     smi = preflight()
     build()
     root = tempfile.mkdtemp(prefix="gof_chip_smoke_")
@@ -3381,6 +4214,7 @@ def main() -> None:
         dtu_geometry(chain["model"], chain["scene"], "marching tets and sparse TSDF", smi)
         dtu_geometry(chain["dense_model"], chain["scene"], "dense TSDF", smi)
         dtu_card_vs_cpu(chain, smi)
+        full_kernels = full_run_phase(chain["scene"], root, smi)
         del chain
         probe_kernels = probe_phase()
         ins = bench_phase("densify", True, False, 5000, launches)
@@ -3397,7 +4231,8 @@ def main() -> None:
         shutil.rmtree(root, ignore_errors=True)
     print(f"render ms per view: {[s['ms'] for s in stats]}")
     print(json.dumps({"kernels": kernels + grown_kernels + live_kernels
-                      + [serve_fwd, *integrate_kernels] + probe_kernels + bench_kernels}))
+                      + [serve_fwd, *integrate_kernels] + probe_kernels + bench_kernels
+                      + full_kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

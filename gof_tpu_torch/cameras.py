@@ -42,15 +42,15 @@ class Camera:
         """This camera with its matrices on `device` (numpy arrays taken as
         they are)."""
         return replace(self, **{f: torch.as_tensor(getattr(self, f), device=device)
-                                for f in _TENSORS})
+                                for f in TENSOR_FIELDS})
 
     def numpy(self) -> Camera:
         """This camera with its matrices as host numpy arrays, for a process
         boundary; .to(device) turns it back."""
-        return replace(self, **{f: getattr(self, f).detach().cpu().numpy() for f in _TENSORS})
+        return replace(self, **{f: getattr(self, f).detach().cpu().numpy() for f in TENSOR_FIELDS})
 
 
-_TENSORS = ("world_view", "full_proj", "cam_center", "tan_fovx", "tan_fovy")
+TENSOR_FIELDS = ("world_view", "full_proj", "cam_center", "tan_fovx", "tan_fovy")
 
 
 def make_camera(

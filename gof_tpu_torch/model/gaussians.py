@@ -217,6 +217,15 @@ class DensifyReport(NamedTuple):
     pool_overflow: torch.Tensor  # bool: ran out of capacity, the host should grow
 
 
+class Densified(NamedTuple):
+    """What densify_and_prune returns."""
+
+    params: GaussianParams
+    state: GaussianState
+    moments: object  # the AdamState given, its placed rows zeroed; or None
+    report: DensifyReport
+
+
 def _assign_free_slots(active: torch.Tensor, want: torch.Tensor):
     """For each source i with want[i], a distinct inactive slot: the k-th
     wanting source gets the k-th free slot. Returns (target [C] int64,
@@ -255,8 +264,8 @@ def densify_and_prune(params: GaussianParams, state: GaussianState, opt_moments,
                       max_grad: float, min_opacity: float, extent, percent_dense: float,
                       use_size_prune):
     """Functional densify_and_prune (gaussian_model.py:683-707), as gof_tpu
-    (gaussians.py:249-389). Returns (params, state, moments, DensifyReport),
-    all new tensors; reads nothing to the host.
+    (gaussians.py:249-389). Returns Densified(params, state, moments,
+    report), all new tensors; reads nothing to the host.
 
     noise: three [C, 3] f32 standard-normal tensors, the position offsets of
     the clones, the first and the second split children (gof_tpu draws them
@@ -345,7 +354,7 @@ def densify_and_prune(params: GaussianParams, state: GaussianState, opt_moments,
     report = DensifyReport(n_cloned=torch.sum(clone_mask) - drop1, n_split=torch.sum(split_mask),
                            n_pruned=n_before_prune - torch.sum(new_active),
                            pool_overflow=(drop1 + drop2 + drop3) > 0)
-    return new_params, new_state, moments, report
+    return Densified(new_params, new_state, moments, report)
 
 
 def reset_opacity(params: GaussianParams, filter_3d: torch.Tensor) -> GaussianParams:

@@ -104,7 +104,7 @@ def build_payload16(rgb, op_eff, M, u0, binning: Binning, conic=None, mean2d=Non
     cols = [rgb, op_eff[:, None], M.reshape(P, 9), u0]
     if conic is not None:
         cols += [conic, mean2d, rgb.new_zeros((P, PAYLOAD_STATS_COLS - 21))]
-    flat = torch.cat(cols, dim=1).to(torch.float32)
+    flat = torch.cat(cols, dim=1).to(rgb.dtype)
     flat = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))], dim=0)
     return flat[binning.slot_to_gaussian.long()].T.contiguous()
 
@@ -563,7 +563,13 @@ def quadric_chain(per_g, M, u0):
         H = [[2 s0, s1, s2], [s1, 2 s3, s4], [s2, s4, 2 s5]]
       b = M^T u0:     dM_ab += u0_a db_b,   du0 += M db
       uu = u0 . u0:   du0 += 2 duu u0
-    per_g: [P, 16] reduced rows. Returns (dM [P, 3, 3], du0 [P, 3])."""
+    per_g: [P, 16] reduced rows. Returns (dM [P, 3, 3], du0 [P, 3]) in M's
+    dtype, computed in float64: M H + u0 db cancels, and for a near-isotropic
+    gaussian the rotation's gradient is a small residual of dM, which the
+    chain's own f32 rounding moved by 1e-2 of its largest magnitude at
+    trained scales (ROADMAP C30)."""
+    dt = M.dtype
+    per_g, M, u0 = per_g.double(), M.double(), u0.double()
     sp = [per_g[:, 4 + i] for i in range(6)]
     db = [per_g[:, 10 + i] for i in range(3)]
     duu = per_g[:, 13]
@@ -577,7 +583,7 @@ def quadric_chain(per_g, M, u0):
          for a in range(3)], dim=-2)
     du0 = torch.stack([Mc[a][0] * db[0] + Mc[a][1] * db[1] + Mc[a][2] * db[2]
                        + 2.0 * duu * u0[:, a] for a in range(3)], dim=-1)
-    return dM, du0
+    return dM.to(dt), du0.to(dt)
 
 
 class RasterMeta(NamedTuple):
@@ -600,6 +606,12 @@ class RasterizeFn(torch.autograd.Function):
     receives the densification statistics (gx, gy, |gx|+|gy|) and conic,
     mean2d, the focal lengths and bg get zero cotangent. The compact buffer
     is sized to the forward's compact demand, read to the host once.
+
+    The zero cotangents are returned as None, so autograd does not carry
+    them into the preprocess: a gaussian in the camera's plane has an
+    inf / NaN conic, and a materialized zero times its partials would give
+    its xyz, scaling and rotation NaN gradients, which Adam keeps for good
+    (ROADMAP C26; gof_tpu's step leaves them 0).
     """
 
     @staticmethod
@@ -629,10 +641,8 @@ class RasterizeFn(torch.autograd.Function):
             with_reg=meta.with_reg, compact_cap=max(demand, CHUNK_SIZE))
         per_g, per_s = reduce_compact_rows(rows, gidc, P)
         dM, du0 = quadric_chain(per_g, M, u0)
-        dev = M.device
-        dcarrier = per_s if per_s is not None else torch.zeros((P, 3), device=dev)
-        return (None, per_g[:, 0:3], per_g[:, 3], dM, du0,
-                torch.zeros((P, 3), device=dev), torch.zeros((P, 2), device=dev), dcarrier,
+        dcarrier = per_s if per_s is not None else torch.zeros((P, 3), device=M.device)
+        return (None, per_g[:, 0:3], per_g[:, 3], dM, du0, None, None, dcarrier,
                 None, None, None, None)
 
 

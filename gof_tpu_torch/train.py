@@ -265,6 +265,24 @@ def adam_to_numpy(state: AdamState) -> FusedAdamState:
                           nu_app=app_moments_to_numpy(state.nu_app))
 
 
+def as_float64(tp: TrainParams, opt_state: AdamState, gstate: gm.GaussianState,
+               camera: cameras_lib.Camera):
+    """Float64 copies of a step's gaussian state and camera, for the plain
+    CPU path in float64: the witness that a float32 step (on the CPU or the
+    card) is held against where the step test's bounds do not apply
+    (ROADMAP C29, C30). The appearance network is not carried."""
+    def dbl(g):
+        return gm.GaussianParams(*[getattr(g, f).detach().double() for f in GAUSS_FIELDS])
+
+    gstate = gm.GaussianState(*[x.double() if x.is_floating_point() else x
+                                for x in (getattr(gstate, f) for f in STATE_FIELDS)])
+    camera = replace(camera, **{f: getattr(camera, f).double()
+                                for f in cameras_lib.TENSOR_FIELDS})
+    return (TrainParams(gauss=dbl(tp.gauss)),
+            AdamState(count=opt_state.count, mu=dbl(opt_state.mu), nu=dbl(opt_state.nu)),
+            gstate, camera)
+
+
 @torch.no_grad()
 def grow_capacity(tp: TrainParams, gstate: gm.GaussianState, opt_state: AdamState,
                   old_cap: int, new_cap: int):
@@ -300,7 +318,7 @@ def depth_to_normal(camera: cameras_lib.Camera, depth: torch.Tensor) -> torch.Te
     (utils/depth_utils.py:6-35). Returns [3, H, W] with a zero border."""
     H, W = camera.height, camera.width
     rx, ry = pixel_rays(W, H, camera.focal_x, camera.focal_y)
-    dirs_view = torch.stack([rx, ry, torch.ones_like(rx)], dim=-1)  # [H, W, 3]
+    dirs_view = torch.stack([rx, ry, torch.ones_like(rx)], dim=-1).to(depth.dtype)  # [H, W, 3]
     R_c2w = camera.world_view[:3, :3].T
     rays_world = dirs_view @ R_c2w.T
     points = depth[..., None] * rays_world + camera.cam_center  # [H, W, 3]
