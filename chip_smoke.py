@@ -5,6 +5,7 @@ its bench once on one CUDA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --full [DIR]   # the 30k-step run alone (full_main)
+    python3 chip_smoke.py --ladder DIR   # the C27 ladder's card runs (ladder_main)
 
 1. preflight: torch, CUDA, the card's name and power limit, nvcc;
 2. build the CUDA kernels of gof_tpu_torch/csrc with nvcc (sm_90a, one nvcc
@@ -181,7 +182,15 @@ its bench once on one CUDA GPU.
    tetra points; on a seeded 1/16 of the gaussians and the centre quarter
    of a view, one step on the card, the CPU path and the CPU path in
    float64 from chkpnt4500 and, with the statistics, from chkpnt3500,
-   then densify_and_prune on both devices (trained_card_vs_cpu);
+   then densify_and_prune on both devices (trained_card_vs_cpu); every
+   densify call's record (densify_breakdown) and their totals;
+12d. trajectory: the C27 ladder's rung 0 (RUNGS: the procedural scene at
+   96x64, 8 views, 300 steps) started on the host's CPU in a process of its
+   own right after the build (python3 chip_smoke.py --trajectory-cpu DIR)
+   and run on the card at once, both drawing the CPU's densify noise, with
+   the same camera order; at the end every densify call's active counts
+   and breakdown on the card within TRAJECTORY_RTOL of the CPU's (Q within
+   TRAJECTORY_Q_RTOL), the same calls and resets;
 13. print the kernels' JSON line (the four of the first bench phase, K1, K3
    and K4 of the second, the four on the grown pool of 7, K1, K3 and K4 on
    the compacted list of 7b, K1 at the serving
@@ -197,6 +206,7 @@ kernel fails to build or launch, or if any check fails. Needs no network.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -3387,6 +3397,42 @@ FULL_GATES = {"eval PSNR at 30k": (38.18, None), "final active gaussians": (137_
               "TSDF F@0.02": (0.825, None), "marching-tets F@0.02": (0.406, 0.506)}
 # active-count bands for densify's host ms
 DENSIFY_BANDS = (50_000, 100_000, 150_000)
+# the ladder of whole trajectories (ROADMAP C27): the procedural scene from
+# the port's writer, cut to size, and a schedule. Rung 0 is
+# tests/test_torch_full_run.py's slow test (PARITY): 300 steps at 96x64, 8
+# training views, densify every 25 steps in (50, 260), the reset at 200 and
+# the size prune after it. Rungs 1 and 2 have the scene's 36 training views
+# and SHORT_ARGS's schedule compressed: rung 1 at 96x64 to 600 steps
+# (densify every 25 in (100, 500), the reset at 400, the regularizers from
+# 500), rung 2 at 128x85 to 2250 (every 50 in (250, 1750), the reset at
+# 1500, the regularizers from 1750). Their key capacity, above every run's
+# demand, cuts gof_tpu's interpret step at 96x64 from ~7 s (its default 2M)
+# to under a second. The port's plain blends on the CPU set the sizes (~2 s
+# a step at 6k gaussians, over 30 s at 309x205), so rung 2 runs gof_tpu and
+# the card only.
+RUNG_SCHEDULE = ["--test_iterations", "99999", "--quiet"]
+RUNGS = {
+    0: {"scene": ["--width", "96", "--height", "64", "--views", "8", "--test-views", "2",
+                  "--points", "1000"],
+        "argv": ["--iterations", "300", "--densify_from_iter", "50",
+                 "--densification_interval", "25", "--densify_until_iter", "260",
+                 "--opacity_reset_interval", "200", "--distortion_from_iter", "260",
+                 "--depth_normal_from_iter", "260", *RUNG_SCHEDULE]},
+    1: {"scene": ["--width", "96", "--height", "64", "--views", "36", "--test-views", "6",
+                  "--points", "1000"],
+        "argv": ["--iterations", "600", "--densify_from_iter", "100",
+                 "--densification_interval", "25", "--densify_until_iter", "500",
+                 "--opacity_reset_interval", "400", "--distortion_from_iter", "500",
+                 "--depth_normal_from_iter", "500", "--key_capacity", "131072",
+                 *RUNG_SCHEDULE]},
+    2: {"scene": ["--width", "128", "--height", "85", "--views", "36", "--test-views", "6",
+                  "--points", "2000"],
+        "argv": ["--iterations", "2250", "--densify_from_iter", "250",
+                 "--densification_interval", "50", "--densify_until_iter", "1750",
+                 "--opacity_reset_interval", "1500", "--distortion_from_iter", "1750",
+                 "--depth_normal_from_iter", "1750", "--key_capacity", "131072",
+                 *RUNG_SCHEDULE]},
+}
 
 
 def run_schedule(argv: list) -> dict:
@@ -3433,6 +3479,83 @@ class Tee:
         self.out.flush()
 
 
+BREAKDOWN = ("before", "after", "classic", "quantile only", "clones", "splits", "dropped",
+             "pruned", "pruned opacity", "pruned size", "pruned non-finite")
+
+
+def densify_breakdown(params, state, new_params, new_state, report, max_grad: float,
+                      min_opacity: float, extent: float, percent_dense: float,
+                      use_size) -> dict:
+    """What one densify_and_prune call did, recomputed in plain torch (on
+    the CPU, in float32 as densify computes it) from the call's inputs and
+    result; the arguments are either package's (numpy, JAX or torch arrays
+    under gof_tpu's field names). The active count before and after; the
+    gaussians the classic threshold selects (mean view-space gradient >=
+    max_grad) and those only the abs-gradient quantile half of the hybrid
+    criterion adds (>= Q, the quantile at 1 - the classic share); Q; the
+    report's clones (placed) and splits; the placements a full pool dropped;
+    the report's pruned count and, over the gaussians alive before the
+    prune (overlapping), those under min_opacity, over 0.1 * extent with
+    the size prune on, and non-finite. "accounted" is False where the
+    recomputed splits or the three criteria disagree with the report."""
+
+    def t(x):
+        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+        return x.detach().cpu()
+
+    f32 = torch.float32
+    active, denom = t(state.active).bool(), t(state.denom).to(f32)
+    safe = torch.clamp_min(denom, 1e-12)
+    zero = torch.zeros_like(denom)
+    grads = torch.where(denom > 0, t(state.grad_accum).to(f32) / safe, zero)
+    grads_abs = torch.where(denom > 0, t(state.grad_abs_accum).to(f32) / safe, zero)
+    n_act = max(int(active.sum()), 1)
+    classic = (grads >= max_grad) & active
+    # the linear-interpolation quantile over the active gaussians
+    # (torch.quantile's rule, as the hybrid criterion takes it)
+    xs = torch.sort(grads_abs[active]).values
+    pos = (torch.tensor(1.0, dtype=f32) - int(classic.sum()) / torch.tensor(n_act, dtype=f32)
+           ).clamp(0, 1) * max(len(xs) - 1, 0)
+    lo, hi = int(torch.floor(pos)), int(torch.ceil(pos))
+    frac = pos - lo
+    q = float(xs[lo] * (1 - frac) + xs[hi] * frac) if len(xs) else 0.0
+    quantile = (grads_abs >= q) & active
+    maxscale = torch.amax(torch.exp(t(params.scaling).to(f32)), dim=-1)
+    split = (classic | quantile) & (maxscale > percent_dense * extent)
+    clone = (classic | quantile) & ~split
+    new_active = t(new_state.active).bool()
+    n_cloned, n_split, n_pruned = (int(t(x)) for x in report[:3])
+    before, after = int(active.sum()), int(new_active.sum())
+    placed = after + n_pruned - before + n_split
+
+    def same_rows(a, b):
+        a, b = t(a).reshape(a.shape[0], -1), t(b).reshape(b.shape[0], -1)
+        return ((a == b) | (torch.isnan(a) & torch.isnan(b))).all(dim=1)
+
+    kept = torch.ones_like(active)
+    for f in ("xyz", "scaling", "rotation", "opacity", "features_dc", "features_rest"):
+        kept &= same_rows(getattr(params, f), getattr(new_params, f))
+    # alive before the prune: the old gaussians but the split originals, and
+    # every slot a placement wrote (an inactive slot whose row changed)
+    alive = (active & ~split) | (~active & ~kept) | new_active
+    new_scaling = torch.exp(t(new_params.scaling).to(f32))
+    opacity = alive & (torch.sigmoid(t(new_params.opacity).to(f32)) < min_opacity)
+    size = alive & (torch.amax(new_scaling, dim=-1) > 0.1 * extent) & bool(t(use_size))
+    finite = torch.ones_like(active)
+    for f in ("xyz", "scaling", "rotation", "opacity"):
+        x = t(getattr(new_params, f))
+        finite &= torch.isfinite(x.reshape(x.shape[0], -1)).all(dim=1)
+    nonfinite = alive & ~finite
+    out = dict(zip(BREAKDOWN, (before, after, int(classic.sum()), int((quantile & ~classic).sum()),
+                               n_cloned, n_split,
+                               int(clone.sum()) + 2 * n_split - placed, n_pruned,
+                               int(opacity.sum()), int(size.sum()), int(nonfinite.sum()))))
+    out["Q"] = q
+    out["accounted"] = (int((opacity | size | nonfinite).sum()) == n_pruned
+                        and int(split.sum()) == n_split and out["dropped"] >= 0)
+    return out
+
+
 class RunRecorder:
     """Spies on a train.main run without adding a synchronisation to its
     steps. Per step: the iteration, the built step's flags, whether it got a
@@ -3440,14 +3563,19 @@ class RunRecorder:
     packed metrics, read in bulk every 1000 steps with the host clock and
     the peak memory. Every densify_and_prune call (host ms between
     synchronisations, its report, the size-prune flag, the active count
-    before and after, the pool), pool growth and opacity reset. `last` is
-    the last step's (camera, gt, cache row); the row is a view of the loop's
-    cache, so after the loop it holds that camera's next bound."""
+    before and after, the pool, densify_breakdown's record), pool growth and
+    opacity reset. `last` is the last
+    step's (camera, gt, cache row); the row is a view of the loop's cache,
+    so after the loop it holds that camera's next bound. With `cpu_noise`
+    the densify calls take their offsets from a CPU generator seeded as the
+    loop seeds its own, so that a run on the card draws the noise of the
+    same run on the CPU."""
 
-    def __init__(self):
+    def __init__(self, cpu_noise: bool = False):
         self.counters = train_counters()
         self.steps, self.windows, self.densify, self.grows, self.resets = [], [], [], [], []
         self.pending, self.last, self.degree, self.t_last = [], None, None, None
+        self.noise = torch.Generator().manual_seed(0) if cpu_noise else None
 
     def patches(self) -> list:
         from unittest import mock
@@ -3518,15 +3646,35 @@ class RunRecorder:
         return wrapped
 
     def wrap_densify(self, fn):
+        import inspect
+
+        sig = inspect.signature(fn)
+
         def record(args, res, ms):
             self.densify.append({"iter": self.steps[-1]["iter"], "ms": ms,
                                  "report": [int(x) for x in res.report],
                                  "use_size": bool(args["use_size_prune"]),
                                  "active": (int(args["state"].active.sum()),
                                             int(res.state.active.sum())),
-                                 "cap": int(res.state.active.shape[0])})
+                                 "cap": int(res.state.active.shape[0]),
+                                 "breakdown": densify_breakdown(
+                                     args["params"], args["state"], res.params, res.state,
+                                     res.report, args["max_grad"], args["min_opacity"],
+                                     args["extent"], args["percent_dense"],
+                                     args["use_size_prune"])})
 
-        return self.timed(fn, record)
+        timed = self.timed(fn, record)
+
+        def call(*a, **k):
+            if self.noise is None:
+                return timed(*a, **k)
+            args = sig.bind(*a, **k).arguments
+            xyz = args["params"].xyz
+            args["noise"] = tuple(torch.randn((xyz.shape[0], 3), generator=self.noise).to(
+                xyz.device) for _ in range(3))
+            return timed(**args)
+
+        return call
 
     def wrap_grow(self, fn):
         def record(args, res, ms):
@@ -3570,6 +3718,22 @@ class RunRecorder:
         print(f"  steps {w['from']}-{w['to']}: {w['it_s']:.3f} it/s (host clock), active "
               f"{w['active']} of {w['cap']}, keys per step mean {w['keys_mean']:.0f} max "
               f"{w['keys_max']}{live}; peak memory {w['peak_gib']:.3f} GiB", flush=True)
+
+
+def print_breakdown(label: str, densify: list) -> list:
+    """One line per densify call of a RunRecorder (densify_breakdown's
+    record) and one of their totals; returns the iterations whose record
+    does not account for its call's report."""
+    if not densify:
+        return []
+    for d in densify:
+        b = d["breakdown"]
+        print(f"  {label} densify {d['iter']}: " + ", ".join(f"{k} {b[k]}" for k in BREAKDOWN)
+              + f", Q {b['Q']:.6e}")
+    tot = {k: sum(d["breakdown"][k] for d in densify) for k in BREAKDOWN[2:]}
+    print(f"  {label} densify totals over {len(densify)} calls: "
+          + ", ".join(f"{k} {v}" for k, v in tot.items()))
+    return [d["iter"] for d in densify if not d["breakdown"]["accounted"]]
 
 
 def run_gates(rec: RunRecorder, lines: list, sched: dict, evals: dict) -> list:
@@ -3636,10 +3800,11 @@ def newest_checkpoint(run: str):
 
 
 def full_train(scene: str, run: str, argv: list, smi: str, label: str, start=None,
-               strict: bool = True) -> dict:
+               strict: bool = True, cpu_noise: bool = False) -> dict:
     """train.main(-s scene -m run argv [--start_checkpoint start]) through a
-    RunRecorder, its stdout kept, then run_gates and the run's records:
-    the windows, pool growths, densify ms by active-count band, each
+    RunRecorder (`cpu_noise` passed on), its stdout kept, then run_gates and
+    the run's records: the windows, pool growths, densify ms by
+    active-count band, every densify call's breakdown and their totals, each
     opacity reset and the prune after it, the evals, the wall time. Raises
     on a failed gate if `strict`. Returns {"rec", "launches", "evals", "wall",
     "sched", "bad"}: "bad" lists the failed gates."""
@@ -3648,7 +3813,7 @@ def full_train(scene: str, run: str, argv: list, smi: str, label: str, start=Non
     from gof_tpu_torch import train
 
     sched = run_schedule(argv)
-    rec = RunRecorder()
+    rec = RunRecorder(cpu_noise)
     for c in rec.counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -3684,6 +3849,7 @@ def full_train(scene: str, run: str, argv: list, smi: str, label: str, start=Non
         print(f"  densify, active {lo}-{hi if hi else ''} before the call: {len(ms)} calls, ms "
               f"(host clock, synchronised) min {min(ms):.3f} median {np.median(ms):.3f} max "
               f"{max(ms):.3f}")
+    unaccounted = print_breakdown(label, rec.densify)
     if rec.densify:
         d0, d1 = rec.densify[0], rec.densify[-1]
         peak = max(max(d["active"]) for d in rec.densify)
@@ -3702,6 +3868,8 @@ def full_train(scene: str, run: str, argv: list, smi: str, label: str, start=Non
         print(f"  eval at {it}: PSNR {e['psnr']} over {e['views']} test views")
     print(f"{label}: the run against its schedule:")
     bad = run_gates(rec, tee.lines, sched, evals)
+    if unaccounted:
+        bad.append(f"densify_breakdown does not account for the calls at {unaccounted}")
     if bad and strict:
         raise RuntimeError(f"{label}: the run missed its schedule: {bad}")
     return {"rec": rec, "launches": launches, "evals": evals, "wall": wall, "sched": sched,
@@ -3813,6 +3981,124 @@ def crop_view(cam, gt, div: int):
                    tan_fovx=torch.tensor(tx, dtype=torch.float32, device=dev),
                    tan_fovy=torch.tensor(ty, dtype=torch.float32, device=dev))
     return crop, gt[:, y0:y0 + h, x0:x0 + w].contiguous()
+
+
+# the stages of the step that stage_in_float64 can compute in float64
+F64_STAGES = ("preprocess", "preprocess backward", "blend forward", "blend backward", "reduce",
+              "loss")
+
+
+@contextlib.contextmanager
+def stage_in_float64(*stages):
+    """The port's float32 step with the named F64_STAGES computed in float64
+    on the CPU path (ROADMAP C29): "preprocess" gives quadrics.preprocess's
+    outputs float64's values with its float32 graph's gradients,
+    "preprocess backward" the reverse; "blend forward" and "blend backward"
+    run the plain versions of K1 (rasterize_fwd) and K3 (bwd_rows),
+    "reduce" K4's (reduce_compact_rows), "loss" train.train_loss and its
+    backward (L1, SSIM, the regularizers), on float64 copies of their
+    inputs; each rounds its results back to the inputs' dtype."""
+    import dataclasses
+    from unittest import mock
+
+    from gof_tpu_torch import cameras as cameras_lib
+    from gof_tpu_torch import train
+    from gof_tpu_torch.ops import quadrics, rasterize
+
+    def f64(x):
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return x.double()
+        if isinstance(x, cameras_lib.Camera):
+            return dataclasses.replace(x, **{f: getattr(x, f).double()
+                                             for f in cameras_lib.TENSOR_FIELDS
+                                             if getattr(x, f).is_floating_point()})
+        return x
+
+    patches = []
+    pre, fwd, bwd, red, loss = (quadrics.preprocess, rasterize.rasterize_fwd, rasterize.bwd_rows,
+                                rasterize.reduce_compact_rows, train.train_loss)
+    if "preprocess" in stages or "preprocess backward" in stages:
+        values, grads = "preprocess" in stages, "preprocess backward" in stages
+
+        def preprocess(*a, **k):
+            out32 = pre(*a, **k)
+            out64 = pre(*map(f64, a), **{n: f64(v) for n, v in k.items()})
+            rep = {}
+            for f in dataclasses.fields(out32):
+                x, y = getattr(out32, f.name), getattr(out64, f.name)
+                if isinstance(x, torch.Tensor) and x.is_floating_point():
+                    g = y.to(x.dtype) if grads else x
+                    rep[f.name] = (y if values else x).detach().to(x.dtype) + (g - g.detach())
+            return dataclasses.replace(out32, **rep)
+
+        patches.append(mock.patch.object(quadrics, "preprocess", preprocess))
+    if "blend forward" in stages:
+        def rasterize_fwd(payload, binning, mv, *a, **k):
+            return fwd(payload.double(), binning, mv.double(), *a, **k).to(payload.dtype)
+
+        patches.append(mock.patch.object(rasterize, "rasterize_fwd", rasterize_fwd))
+    if "blend backward" in stages:
+        def bwd_rows(payload, fout, gout, binning, mv, *a, **k):
+            rows, gid = bwd(payload.double(), fout.double(), gout.double(), binning,
+                            mv.double(), *a, **k)
+            return rows.to(payload.dtype), gid
+
+        patches.append(mock.patch.object(rasterize, "bwd_rows", bwd_rows))
+    if "reduce" in stages:
+        def reduce_compact_rows(rows, gid, P):
+            per_g, per_s = red(rows.double(), gid, P)
+            return per_g.to(rows.dtype), None if per_s is None else per_s.to(rows.dtype)
+
+        patches.append(mock.patch.object(rasterize, "reduce_compact_rows", reduce_compact_rows))
+    if "loss" in stages:
+        def train_loss(image, gt, camera, *a, **k):
+            return tuple(x.to(image.dtype) for x in loss(image.double(), gt.double(),
+                                                         f64(camera), *a, **k))
+
+        patches.append(mock.patch.object(train, "train_loss", train_loss))
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        yield
+
+
+def stage_gaps(run: str, it: int, view, keep, label: str) -> None:
+    """ROADMAP C29 at a trained state: one regularizers' step from
+    chkpnt<it> on the CPU in float64, in float32, and in float32 with each
+    of F64_STAGES in float64 (stage_in_float64), on the view (camera,
+    ground truth) with the active slots cut to `keep`; prints the scaling's
+    and rotation's first moments' distances from float64."""
+    from gof_tpu_torch import config as config_lib
+    from gof_tpu_torch import train
+    from gof_tpu_torch.data import scene as scene_lib
+
+    cfg, pipe, opt = config_lib.load_cfg(run)
+    sc = scene_lib.Scene(cfg.source_path, "", shuffle=False)
+    step = train.build_train_step(opt, cfg, pipe, train.make_optimizer(opt, sc.cameras_extent),
+                                  with_stats=False, with_reg=True)
+    cam, gt = view[0].to("cpu"), view[1].cpu()
+
+    def load():
+        tp, st, gs, _ = train.load_checkpoint(os.path.join(run, f"chkpnt{it}.pkl"), "cpu")
+        gs.active &= keep
+        return tp, st, gs
+
+    st0 = load()[1]
+    tp, st, gs, c = train.as_float64(*load(), cam)
+    t0 = time.perf_counter()
+    res64 = step(tp, st, gs, gt.double(), it + 1, c, torch.zeros(3, dtype=torch.float64))
+    act = gs.active
+    print(f"{label}: float64 step from chkpnt{it} ({int(act.sum())} active slots, "
+          f"{cam.width}x{cam.height}) in {time.perf_counter() - t0:.2f} s (host CPU)")
+    for stages in [()] + [(s,) for s in F64_STAGES] + [F64_STAGES]:
+        t0 = time.perf_counter()
+        with stage_in_float64(*stages):
+            res32 = step(*load(), gt, it + 1, cam, torch.zeros(3))
+        gap = step_diffs(res32[:3], 0.0, res64[:3], 0.0, st0, act)
+        print(f"  {label}: float32 step, in float64 {' + '.join(stages) or 'nothing'} "
+              f"({time.perf_counter() - t0:.2f} s): " + ", ".join(
+                  f"{k} {gap[k]:.3e} / {gap[k + ' (L2)']:.3e}"
+                  for k in ("mu.xyz", "mu.scaling", "mu.rotation", "mu.opacity")) + " (max / L2)")
 
 
 def witness_step(run: str, it: int, with_stats: bool, with_reg: bool, view, keep, smi: str,
@@ -4006,6 +4292,176 @@ def step_diffs(a, a_loss, b, b_loss, st0, act, stats: bool = False) -> dict:
     return out
 
 
+# the trajectory phase: rung 0 on the card against the port on the host's
+# CPU, both drawing the CPU's densify noise, with the same camera order.
+# Set before the phase's first run: at every densify call the active count
+# before and after lies within TRAJECTORY_RTOL of the CPU's (the slow
+# test's PARITY_RTOL, which the port and gof_tpu met at 0.98% on this rung),
+# each other count of the breakdown within TRAJECTORY_RTOL of the CPU's
+# active count before the call, and Q within TRAJECTORY_Q_RTOL of the CPU's
+TRAJECTORY_RTOL = 0.05
+TRAJECTORY_Q_RTOL = 0.25
+# the CPU run's threads, beside the card's phases that run meanwhile
+TRAJECTORY_THREADS = 4
+
+
+def rung_argv(rung: int) -> list:
+    """A ladder rung's train argv for a run through full_train: --quiet
+    dropped, since run_gates reads the loop's culling print."""
+    return [a for a in RUNGS[rung]["argv"] if a != "--quiet"]
+
+
+def rung_scene(rung: int, root: str) -> str:
+    """The rung's procedural scene in root/scene_r<rung> (written if absent)."""
+    from gof_tpu_torch.scripts import make_procedural_scene as mps
+
+    scene = os.path.join(root, f"scene_r{rung}")
+    if not os.path.exists(os.path.join(scene, "gt_mesh.ply")):
+        mps.main(["--out", scene, *RUNGS[rung]["scene"]])
+    return scene
+
+
+def trajectory_record(rec: RunRecorder, wall: float) -> dict:
+    """A recorded run's densify calls (iteration, size-prune flag,
+    breakdown), opacity resets and wall time, as JSON."""
+    return {"wall": wall, "resets": rec.resets,
+            "densify": [{"iter": d["iter"], "use_size": d["use_size"], **d["breakdown"]}
+                        for d in rec.densify]}
+
+
+def trajectory_cpu(out: str) -> None:
+    """python3 chip_smoke.py --trajectory-cpu OUT: rung 0 (OUT/scene_r0,
+    written by the caller) through train.main --cpu with a RunRecorder and
+    the loop's own noise, on TRAJECTORY_THREADS threads; writes
+    OUT/cpu.json (trajectory_record)."""
+    from gof_tpu_torch import train
+
+    torch.set_num_threads(TRAJECTORY_THREADS)
+    rec = RunRecorder()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for p in rec.patches():
+            stack.enter_context(p)
+        train.main(["-s", os.path.join(out, "scene_r0"), "-m", os.path.join(out, "cpu"),
+                    *RUNGS[0]["argv"], "--cpu"])
+    with open(os.path.join(out, "cpu.json"), "w") as f:
+        json.dump(trajectory_record(rec, time.perf_counter() - t0), f)
+
+
+def trajectory_start(root: str) -> dict:
+    """The trajectory phase's first half: rung 0's scene and the CPU run
+    (trajectory_cpu) started in a process of its own; the card's phases go
+    on meanwhile."""
+    t0 = time.perf_counter()
+    out = os.path.join(root, "trajectory")
+    os.makedirs(out, exist_ok=True)
+    rung_scene(0, out)
+    with open(os.path.join(out, "cpu.log"), "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--trajectory-cpu",
+                                 out], stdout=log, stderr=subprocess.STDOUT)
+    return {"out": out, "proc": proc, "secs": time.perf_counter() - t0}
+
+
+def trajectory_card(traj: dict, smi: str) -> None:
+    """Rung 0 on the card through full_train (the schedule's gates), drawing
+    the CPU's densify noise (RunRecorder's cpu_noise)."""
+    t0 = time.perf_counter()
+    trained = full_train(os.path.join(traj["out"], "scene_r0"), os.path.join(traj["out"], "card"),
+                         rung_argv(0), smi, "trajectory", cpu_noise=True)
+    traj["card"] = trajectory_record(trained["rec"], trained["wall"])
+    traj["secs"] += time.perf_counter() - t0
+
+
+def trajectory_finish(traj: dict, smi: str, timeout: float = 600.0) -> None:
+    """The trajectory phase's second half: waits for the CPU run and holds
+    the card's densify calls to it: the same iterations and size-prune
+    flags, each count within the bounds above (TRAJECTORY_RTOL,
+    TRAJECTORY_Q_RTOL)."""
+    t0 = time.perf_counter()
+    proc = traj["proc"]
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    path = os.path.join(traj["out"], "cpu.json")
+    if rc != 0 or not os.path.exists(path):
+        with open(os.path.join(traj["out"], "cpu.log")) as f:
+            log = f.read()[-4000:]
+        raise RuntimeError(f"trajectory: the CPU run failed (rc {rc}):\n{log}")
+    with open(path) as f:
+        cpu = json.load(f)
+    card = traj["card"]
+    bad = []
+    if [(d["iter"], d["use_size"]) for d in card["densify"]] != [
+            (d["iter"], d["use_size"]) for d in cpu["densify"]] or card["resets"] != cpu["resets"]:
+        bad.append("the densify calls or resets differ")
+    worst = {}
+    for a, b in zip(card["densify"], cpu["densify"]):
+        for k in BREAKDOWN + ("Q",):
+            scale = (b[k] if k in ("before", "after", "Q") else b["before"])
+            rtol = TRAJECTORY_Q_RTOL if k == "Q" else TRAJECTORY_RTOL
+            share = abs(a[k] - b[k]) / max(rtol * abs(scale), 1e-30)
+            worst[k] = max(worst.get(k, 0.0), share)
+            if share > 1 or not a["accounted"] or not b["accounted"]:
+                bad.append(f"densify {b['iter']}: {k} card {a[k]}, CPU {b[k]}")
+        print(f"  trajectory densify {b['iter']}: card / CPU " + ", ".join(
+            f"{k} {a[k]} / {b[k]}" for k in BREAKDOWN) + f", Q {a['Q']:.6e} / {b['Q']:.6e}")
+    final = [r["densify"][-1]["after"] if r["densify"] else None for r in (card, cpu)]
+    print(f"trajectory: rung 0 (96x64, 8 views, 300 steps) on the card ({card['wall']:.2f} s) "
+          f"against the port on the CPU ({cpu['wall']:.2f} s, {TRAJECTORY_THREADS} threads, "
+          f"alongside the card's phases), {len(cpu['densify'])} densify calls, resets "
+          f"{cpu['resets']}; final active card {final[0]} / CPU {final[1]}; largest share of "
+          f"its bound per quantity "
+          + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()) + f"; card {smi}")
+    traj["secs"] += time.perf_counter() - t0
+    print(f"trajectory phase: {traj['secs']:.1f} s on the main path (the CPU run overlapped)")
+    if bad:
+        raise RuntimeError(f"trajectory: the card parts from the CPU: {bad[:20]}")
+
+
+def ladder_main(path: str) -> None:
+    """python3 chip_smoke.py --ladder DIR: the ladder's card runs (ROADMAP
+    C27): each rung through full_train on the card drawing the CPU's densify
+    noise (the same noise as the port's CPU runs of the rung), then the
+    full-size procedural scene through SHORT_ARGS (the full_run phase's
+    training, the card's own noise, and stage_gaps at its last checkpoint),
+    in a temporary directory; DIR/ladder_card.json holds each run's
+    trajectory_record."""
+    smi = preflight()
+    build()
+    os.makedirs(path, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="gof_ladder_")
+    out = {"card": smi}
+    try:
+        for rung in RUNGS:
+            trained = full_train(rung_scene(rung, root), os.path.join(root, f"card_r{rung}"),
+                                 rung_argv(rung), smi, f"ladder rung {rung}", cpu_noise=True)
+            out[f"r{rung}"] = trajectory_record(trained["rec"], trained["wall"])
+        scene, _ = dtu_scene(root, smi)
+        run = os.path.join(root, "full_run")
+        trained = full_train(scene, run, SHORT_ARGS, smi, "ladder full_run")
+        out["full_run"] = trajectory_record(trained["rec"], trained["wall"])
+        # C29 on the witness's crop and seeded share of the gaussians
+        from gof_tpu_torch import train
+
+        it = trained["sched"]["iterations"]
+        cap = train.load_checkpoint(os.path.join(run, f"chkpnt{it}.pkl"))[2].active.shape[0]
+        keep = (torch.rand(cap, generator=torch.Generator().manual_seed(SEED))
+                < 1 / FULL_RUN_CPU_KEEP)
+        stage_gaps(run, it, crop_view(*trained["rec"].last[:2], CARD_CPU_CROP), keep,
+                   "C29 at the full_run state")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    with open(os.path.join(path, "ladder_card.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
 def full_run_phase(scene: str, root: str, smi: str) -> list:
     """The default schedule compressed (SHORT_ARGS) on the chain phase's
     procedural scene through train.main, held to run_gates; then K2, K1,
@@ -4162,14 +4618,26 @@ def main() -> None:
     parser.add_argument("--full", nargs="?", const="", default=None, metavar="DIR",
                         help="run only the full-length run (A.20) and its chain, in DIR "
                              "(resumed from its newest checkpoint) or a temporary directory")
+    parser.add_argument("--ladder", metavar="DIR",
+                        help="run only the C27 ladder's card runs (ladder_main), in DIR")
+    parser.add_argument("--trajectory-cpu", metavar="DIR", help=argparse.SUPPRESS)
     ns = parser.parse_args()
+    if ns.trajectory_cpu:
+        trajectory_cpu(ns.trajectory_cpu)
+        return
     if ns.full is not None:
         full_main(ns.full or None)
+        return
+    if ns.ladder:
+        ladder_main(ns.ladder)
         return
     smi = preflight()
     build()
     root = tempfile.mkdtemp(prefix="gof_chip_smoke_")
+    traj = None
     try:
+        traj = trajectory_start(root)
+        trajectory_card(traj, smi)
         t0 = time.perf_counter()
         model = write_inputs(root, N_GAUSSIANS, WIDTH, HEIGHT, N_VIEWS)
         print(f"model: {N_GAUSSIANS} gaussians, {N_VIEWS} views at {WIDTH}x{HEIGHT} "
@@ -4227,7 +4695,11 @@ def main() -> None:
         profile_kernel_calls(ins, probes=False)
         del ins
         bench_kernels = port_bench_phase(smi)
+        trajectory_finish(traj, smi)
     finally:
+        if traj is not None and traj["proc"].poll() is None:
+            traj["proc"].kill()
+            traj["proc"].wait()
         shutil.rmtree(root, ignore_errors=True)
     print(f"render ms per view: {[s['ms'] for s in stats]}")
     print(json.dumps({"kernels": kernels + grown_kernels + live_kernels

@@ -200,8 +200,11 @@ def jax_moments(rng, params):
         nu_flat=rng.uniform(1e-9, 1e-6, (ncol, C)).astype(np.float32))
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_densify_and_prune_matches(name):
+def densify_case(name):
+    """CASES[name] through gof_tpu's jitted densify_and_prune and the port's
+    (with gof_tpu's draws): (params, state, kw, use_size, with_moments, C,
+    noise, jmom, gof_tpu's result, the port's inputs (tp_, ts), the port's
+    result)."""
     rng = np.random.default_rng(10 + list(CASES).index(name))
     params, state, kw, use_size, with_moments = CASES[name](rng)
     if name != "ratio0":
@@ -215,15 +218,20 @@ def test_densify_and_prune_matches(name):
     f = jax.jit(lambda p, s, o, k: jgm.densify_and_prune(
         p, s, o, k, kw["max_grad"], kw["min_opacity"], kw["extent"], kw["percent_dense"],
         use_size))
-    jp, js, jm, jrep = jax.device_get(f(jax.tree.map(jnp.asarray, params),
-                                        jax.tree.map(jnp.asarray, state),
-                                        jax.tree.map(jnp.asarray, jmom), key))
+    jres = jax.device_get(f(jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, state),
+                            jax.tree.map(jnp.asarray, jmom), key))
 
     tp_, ts = tgm.from_numpy(params, state)
     tmom = ttrain.from_numpy(jmom, tp_) if with_moments else None
-    gp, gs, gm_, rep = tgm.densify_and_prune(tp_, ts, tmom, noise, kw["max_grad"],
-                                             kw["min_opacity"], kw["extent"],
-                                             kw["percent_dense"], use_size)
+    res = tgm.densify_and_prune(tp_, ts, tmom, noise, kw["max_grad"], kw["min_opacity"],
+                                kw["extent"], kw["percent_dense"], use_size)
+    return (params, state, kw, use_size, with_moments, C, noise, jmom, jres, (tp_, ts), res)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_densify_and_prune_matches(name):
+    (params, state, kw, use_size, with_moments, C, noise, jmom, (jp, js, jm, jrep), (tp_, ts),
+     (gp, gs, gm_, rep)) = densify_case(name)
 
     assert [int(x) for x in rep] == [int(x) for x in jrep], (rep, jrep)
     np.testing.assert_array_equal(gs.active.numpy(), np.asarray(js.active))
@@ -336,3 +344,35 @@ def test_adam_to_numpy_inverts_from_numpy():
     for m in ("mu", "nu"):
         for f in ttrain.GAUSS_FIELDS:
             assert torch.equal(getattr(getattr(again, m), f), getattr(getattr(port, m), f))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_densify_breakdown_accounts_for_the_call(name):
+    """chip_smoke.densify_breakdown, the record of a densify call that the
+    C27 ladder and the smoke's RunRecorder keep, recomputed from each
+    case's inputs and result: the same record from gof_tpu's call and the
+    port's; it accounts for the report (the recomputed splits and the
+    three prune criteria); without drops the counts add up (a clone adds
+    one, a split one net, a prune takes one away); and each case shows
+    what it is there to show: dropped placements on overflow, size prunes
+    with the size prune on, non-finite prunes, the classic threshold
+    selecting nothing at ratio 0 (only the quantile half)."""
+    import chip_smoke
+
+    (params, state, kw, use_size, _, _, _, _, (jp, js, _, jrep), (tp_, ts),
+     (gp, gs, _, rep)) = densify_case(name)
+    consts = (kw["max_grad"], kw["min_opacity"], kw["extent"], kw["percent_dense"], use_size)
+    got = chip_smoke.densify_breakdown(tp_, ts, gp, gs, rep, *consts)
+    want = chip_smoke.densify_breakdown(params, state, jp, js, jrep, *consts)
+    assert got == want, (got, want)
+    assert got["accounted"]
+    if not got["dropped"]:  # a split replaces its original by two children
+        assert got["after"] == got["before"] + got["clones"] + got["splits"] - got["pruned"]
+    assert got["pruned"] <= got["pruned opacity"] + got["pruned size"] + got["pruned non-finite"]
+    assert (got["dropped"] > 0) == bool(rep.pool_overflow)
+    assert (got["pruned size"] > 0) == (name == "size_prune")
+    assert (got["pruned non-finite"] > 0) == (name == "nonfinite")
+    if name == "ratio0":
+        assert got["classic"] == 0 and got["quantile only"] == 1
+    else:
+        assert got["classic"] > 0 and got["quantile only"] > 0

@@ -28,6 +28,7 @@ few hundred steps on the procedural scene (C27).
 import inspect
 import os
 import pickle
+from dataclasses import replace
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from gof_tpu import train as jtrain
 from gof_tpu.model import gaussians as jgm
 from gof_tpu_torch import train as ttrain
@@ -58,14 +60,16 @@ SH_CALLS = (999, 1000, 1999, 2000)
 class Spy:
     """Records, per loop step, the iteration, the built step's flags, the
     cache row it got, the SH degree its render used; every densify call's
-    iteration, size-prune flag and active count after it; every opacity
-    reset's iteration. Keeps the first step built and the arguments of its
-    first call. With `gof_noise` the port's densify calls take gof_tpu's
-    draws instead of the loop's own."""
+    iteration, size-prune flag, active count after it and
+    chip_smoke.densify_breakdown's record of it; every opacity reset's
+    iteration. Keeps the first step built and the arguments of its first
+    call. With `gof_noise` the port's densify calls take gof_tpu's draws
+    instead of the loop's own."""
 
     def __init__(self, gof_noise: bool = False):
         self.steps, self.densify, self.resets, self.degrees = [], [], [], []
         self.step, self.args, self.counts, self.gof_noise = None, None, [], gof_noise
+        self.breakdown, self.consts = [], None
 
     @property
     def iteration(self):
@@ -117,6 +121,9 @@ def port_spies(mp, spy: Spy):
                                   for k in jax.random.split(sub, 3))
         res = densify(**args)
         spy.counts.append(int(res.state.active.sum()))
+        spy.breakdown.append(chip_smoke.densify_breakdown(
+            args["params"], args["state"], res.params, res.state, res.report, args["max_grad"],
+            args["min_opacity"], args["extent"], args["percent_dense"], args["use_size_prune"]))
         return res
 
     def reset_op(*a):
@@ -136,10 +143,12 @@ def port_spies(mp, spy: Spy):
 def gof_spies(mp, spy: Spy):
     """gof_tpu's loop jits densify_and_prune and reset_opacity itself; the
     densify call goes through train._densify, the reset through the jit of
-    gm.reset_opacity (wrapped where jax.jit makes it); the SH degree is
+    gm.reset_opacity (wrapped where jax.jit makes it); densify's thresholds
+    are read where the jit traces gm.densify_and_prune; the SH degree is
     traced, so its masked_shs reports it through jax.debug.callback."""
     build, densify, jit, shs = jtrain.build_train_step, jtrain._densify, jax.jit, \
         jtrain.masked_shs
+    densify_and_prune = jgm.densify_and_prune
 
     def built(*a, **k):
         step = build(*a, **k)
@@ -160,10 +169,17 @@ def gof_spies(mp, spy: Spy):
 
         return recorded
 
+    def traced(p, s, o, k, max_grad, min_opacity, extent, percent_dense, use_size):
+        spy.consts = (max_grad, min_opacity, float(extent), percent_dense)
+        return densify_and_prune(p, s, o, k, max_grad, min_opacity, extent, percent_dense,
+                                 use_size)
+
     def densified(fn, tp, gstate, opt_state, key, use_size):
         spy.densify.append((spy.iteration, bool(use_size)))
         res = densify(fn, tp, gstate, opt_state, key, use_size)
         spy.counts.append(int(np.asarray(res[1].active).sum()))
+        spy.breakdown.append(chip_smoke.densify_breakdown(
+            tp.gauss, gstate, res[0].gauss, res[1], res[3], *spy.consts, use_size))
         return res
 
     def jit_spy(fun, *a, **kw):
@@ -183,6 +199,7 @@ def gof_spies(mp, spy: Spy):
 
     mp.setattr(jtrain, "build_train_step", built)
     mp.setattr(jtrain, "_densify", densified)
+    mp.setattr(jgm, "densify_and_prune", traced)
     mp.setattr(jax, "jit", jit_spy)
     mp.setattr(jtrain, "masked_shs", masked)
 
@@ -241,6 +258,74 @@ def test_densification_follows_gof_tpu_given_its_noise(runs):
     port, gof = spies["port"], spies["gof"]
     assert port.counts == gof.counts
     assert port.counts[-1] > 16 and len(set(port.counts)) > 1
+
+
+def test_densify_breakdown_matches_gof_tpu(runs):
+    """Given gof_tpu's noise, every densify call of the scaled schedule does
+    the same in both loops by chip_smoke.densify_breakdown's record of it
+    (the C27 ladder's): the counts before and after, the selection, the
+    clones, splits, dropped placements and each prune criterion equal; the
+    classic threshold's share of the selection within 2 gaussians and Q
+    within 1% (the two loops' statistics part in their last bits: one
+    gaussian at the threshold falls to the quantile half in one package
+    and Q moves by 0.4%); each record accounts for its call's report."""
+    _, _, spies = runs
+    port, gof = spies["port"], spies["gof"]
+    assert len(port.breakdown) == len(gof.breakdown) == 4
+    split = ("classic", "quantile only")
+    for a, b in zip(port.breakdown, gof.breakdown):
+        assert a["accounted"] and b["accounted"]
+        assert ({k: a[k] for k in chip_smoke.BREAKDOWN if k not in split}
+                == {k: b[k] for k in chip_smoke.BREAKDOWN if k not in split}), (a, b)
+        assert a["classic"] + a["quantile only"] == b["classic"] + b["quantile only"], (a, b)
+        assert abs(a["classic"] - b["classic"]) <= 2, (a, b)
+        assert a["Q"] == pytest.approx(b["Q"], rel=1e-2), (a, b)
+    assert sum(b["clones"] + b["splits"] for b in gof.breakdown) > 0
+
+
+def test_ladder_rung0_is_the_slow_tests_run():
+    """The C27 ladder's rung 0 (chip_smoke.RUNGS, also the smoke's
+    trajectory phase) is test_procedural_scene_densifies_as_gof_tpu's run:
+    its scene and PARITY's schedule; every rung's schedule densifies,
+    resets the opacities once, prunes by size after the reset and turns the
+    regularizers on where densification ends."""
+    assert chip_smoke.RUNGS[0]["argv"] + ["--cpu"] == PARITY
+    assert chip_smoke.RUNGS[0]["scene"] == ["--width", "96", "--height", "64", "--views", "8",
+                                            "--test-views", "2", "--points", "1000"]
+    for rung in chip_smoke.RUNGS:
+        sched = chip_smoke.run_schedule(chip_smoke.rung_argv(rung))
+        assert len(sched["densify"]) >= 8 and len(sched["reset"]) == 1, rung
+        assert sched["size_prune"] and sched["size_prune"][0] > sched["reset"][0], rung
+        assert sched["reg_on"] == sched["until"] < sched["iterations"], rung
+
+
+def test_ladder_table_reports_how_far_runs_part(tmp_path):
+    """ladder_table (the ladder's table, PERF.md §5) pairs the runs of one
+    rung, its calls at the same iterations, by the largest relative
+    parting of their active counts, and no runs of two rungs; the card's
+    ladder_card.json holds one run per rung."""
+    import json
+
+    def rec(afters, step=25):
+        return [dict({k: 1 for k in chip_smoke.BREAKDOWN}, iter=step * (i + 1), use_size=False,
+                     before=100, after=a, Q=1e-3, accounted=True) for i, a in enumerate(afters)]
+
+    here = os.path.dirname(jtrain.__file__)
+    for name, afters in (("a", [100, 200, 400]), ("b", [100, 210, 404])):
+        with open(tmp_path / f"{name}.json", "w") as f:
+            json.dump({"rung": 0, "run": "gof" if name == "a" else "port", "gof_tpu": here,
+                       "wall": 1.0, "densify": rec(afters)}, f)
+    with open(tmp_path / "card.json", "w") as f:
+        json.dump({"card": "a card", "r0": {"wall": 2.0, "densify": rec([100, 200, 396])},
+                   "r1": {"wall": 3.0, "densify": rec([50, 60], step=50)}}, f)
+    rows = ladder_table([str(tmp_path / n) for n in ("a.json", "b.json", "card.json")])
+    pairs = [r for r in rows if " against " in r]
+    assert len(pairs) == 3, pairs
+    assert pairs[0].startswith("rung 0 gof (gof_tpu at HEAD) against rung 0 port: active after "
+                               "each call parts by at most 0.0476 (call 2 of 3, step 50: 200 / "
+                               "210), at the last by 0.0099"), pairs[0]
+    assert not any("r1 card" in r for r in pairs)
+    assert sum(" calls; active after calls " in r for r in rows) == 4
 
 
 def relabel(src: str, dst: str, iteration: int, rescale: bool = True) -> str:
@@ -395,8 +480,6 @@ def test_trained_scales_against_float64(trained_scales):
     of its loss; (3) every moment of the port's f32 step lies within BOUND
     of it, or within FP64_RATIO times gof_tpu's distance, at its largest and
     in the L2 norm."""
-    from dataclasses import replace
-
     from gof_tpu_torch import config as tconfig
 
     root, ckpt, spy = trained_scales
@@ -454,6 +537,191 @@ def test_trained_scales_against_float64(trained_scales):
             bad += [(m, f, k, dist) for k in (0, 1)
                     if not dist["port"][k] <= max(BOUND, FP64_RATIO * dist["gof"][k])]
     assert not bad, bad
+
+
+def cotangent_image(g, gs, cam, sh_degree: int, active_degree: int, kernel_size: float, bg,
+                    frozen=None, normalized: bool = False):
+    """The [9, H, W] render of the port's dense oracle (ops/oracle.py) with
+    gof_tpu's documented cotangent choices (gof_tpu/ops/rasterize_pallas.py:
+    46-53) made part of the function: the quantities a choice detaches are
+    taken from `frozen`, the same render's record at the base point (this
+    function's second result, given frozen=None), so that central
+    differences of a loss of it follow that backward. Frozen: the depth
+    order, the validity, the dilation's coef, the pairs the step's binning
+    visits (each gaussian's tiles), each pair's alpha and transmittance
+    masks, the 0.99 clamp as an additive correction (its
+    gradient ignored), the median depth's contributing visit, and the
+    distortion's blend weights and normalization. The distortion's
+    gradient flows through the mapped depth m only, and without its
+    (1 - T)^2 + 1e-7 normalization (gof_tpu's dL_dm, rasterize_pallas.py:
+    659, which omits it as the reference's backward does), or with it as a
+    constant where `normalized`."""
+    from gof_tpu_torch.constants import (ALPHA_MAX, ALPHA_MIN, MEDIAN_THRESHOLD, NEAR_PLANE,
+                                         TRANSMITTANCE_EPS)
+    from gof_tpu_torch.ops import blend, quadrics
+
+    base = frozen is None
+    opac = tgm.filtered_opacity(g, gs.filter_3d)
+    pre = quadrics.preprocess(g.xyz, tgm.filtered_scaling(g, gs.filter_3d), g.rotation,
+                              ttrain.masked_shs(g, active_degree, sh_degree), sh_degree, cam,
+                              kernel_size, gs.active, opacities=opac)
+    if base:
+        inf = torch.full_like(pre.depth, float("inf"))
+        order = torch.argsort(torch.where(pre.valid, pre.depth, inf).detach(), stable=True)
+        order = order[:int(pre.valid.sum())]  # the others have no alpha anywhere
+        frozen = {"order": order, "valid": pre.valid[order], "coef": pre.coef[order].detach()}
+    order, valid = frozen["order"], frozen["valid"]
+    op = opac[order] * torch.where(valid, frozen["coef"], torch.zeros_like(frozen["coef"]))
+    M, u0 = pre.v2g_M[order], pre.v2g_u0[order]
+    rx, ry = blend.pixel_rays(cam.width, cam.height, cam.focal_x, cam.focal_y)
+    rx, ry = rx.reshape(1, -1).to(M.dtype), ry.reshape(1, -1).to(M.dtype)
+    d = [M[:, i, 0, None] * rx + M[:, i, 1, None] * ry + M[:, i, 2, None] for i in range(3)]
+    dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    t = -sum(u0[:, i, None] * d[i] for i in range(3)) / (dd + 1e-12)
+    mv = sum((u0[:, i, None] + t * d[i]) ** 2 for i in range(3))
+    raw = op[:, None] * torch.exp(-0.5 * mv)
+    nrm = [sum(M[:, j, i, None] * d[j] for j in range(3)) for i in range(3)]
+    inv_len = 1.0 / torch.sqrt(nrm[0] ** 2 + nrm[1] ** 2 + nrm[2] ** 2 + 1e-7)
+    if base:
+        # the pairs the step's binning visits: each gaussian's tiles
+        ntx, nty = tb.tile_grid(cam.width, cam.height)
+        with torch.no_grad():
+            rects = tb.gaussian_rects(pre.mean2d, pre.radius, pre.valid, ntx, nty,
+                                      radius_xy=pre.radius_xy)
+            b = tb.bin_gaussians(pre.depth, rects, ntx, nty, mean2d=pre.mean2d,
+                                 radius=pre.radius)
+        n = int(b.num_keys)
+        tile = torch.searchsorted(b.bounds.long(), torch.arange(n), right=True) - 1
+        member = torch.zeros((pre.depth.shape[0] + 1, ntx * nty), dtype=torch.bool)
+        member[b.slot_to_gaussian[:n].long(), tile] = True
+        py, px = torch.meshgrid(torch.arange(cam.height), torch.arange(cam.width), indexing="ij")
+        pix_tile = ((py // 32) * ntx + px // 32).reshape(-1)
+        clamped = torch.clamp_max(raw, ALPHA_MAX)
+        frozen["mask"] = ((t > NEAR_PLANE) & (clamped >= ALPHA_MIN)
+                          & member[order][:, pix_tile]).detach()
+        frozen["clamp"] = (clamped - raw).detach()
+    a = torch.where(frozen["mask"], raw + frozen["clamp"], torch.zeros_like(raw))
+    prod = torch.cumprod(1.0 - a, dim=0)
+    T = torch.cat([torch.ones_like(prod[:1]), prod[:-1]], dim=0)
+    if base:
+        frozen["tmask"] = (T > TRANSMITTANCE_EPS).detach()
+        med = (a > 0) & (T > MEDIAN_THRESHOLD)
+        idx = torch.arange(a.shape[0])[:, None]
+        last = torch.where(med, idx, -1).amax(dim=0)
+        frozen["median"] = ((idx == last[None]) & med).detach()
+    w = a * T * frozen["tmask"]
+    m = blend.ndc_depth(t)
+    if base:
+        frozen["w"] = w.detach()
+        frozen["norm"] = ((1.0 - prod[-1]) ** 2 + 1e-7).detach()
+    W = frozen["w"]
+    acc, d1, d2 = W.sum(0), (W * m).sum(0), (W * m * m).sum(0)
+    dist = acc * d2 - d1 * d1
+    if base:
+        frozen["dist"] = (dist / frozen["norm"]).detach()
+    dist = (dist / frozen["norm"] if normalized
+            else dist + (frozen["dist"] - dist).detach())
+    rgb = pre.rgb[order].transpose(0, 1) @ w + prod[-1][None] * bg[:, None]
+    normal = torch.stack([(-n * inv_len * w).sum(0) for n in nrm])
+    depth = (torch.where(frozen["median"], t, torch.zeros_like(t))).sum(0)
+    image = torch.cat([rgb, normal, depth[None], w.sum(0)[None], dist[None]])
+    return image.reshape(9, cam.height, cam.width), frozen
+
+
+def test_regularizer_gradients_follow_gof_tpus_cotangents(trained_scales):
+    """ROADMAP C30's regularizers' half. At test_trained_scales_against_
+    float64's state, in the regularizers' instance as the loop builds it
+    (statistics off, kernel_size 0.1), the port's float64 step gradient of
+    the xyz, scaling, rotation and opacity of the four gaussians with the
+    largest rotation gradient agrees within FD_RTOL of the field's largest
+    with central differences of train_loss over cotangent_image, the dense
+    oracle with gof_tpu's documented cotangent choices: the distortion
+    through m only, its weights and normalization left out of the gradient
+    (gof_tpu/ops/rasterize_pallas.py:659), the median depth at its visit,
+    the 0.99 clamp ignored, coef detached. The loss itself matches the
+    step's within 1e-6. With the normalization kept as a constant factor
+    (the choice as rasterize_pallas.py:46-48 words it) the xyz gradient
+    differs by more than FD_RTOL: the omission is gof_tpu's and the
+    reference's, and the port keeps it."""
+    root, ckpt, spy = trained_scales
+    _, st0, gs0, _ = ttrain.load_checkpoint(ckpt)
+    act = gs0.active
+    head, (gt, step_i, cam, bg) = spy.args
+    from gof_tpu_torch import config as tconfig
+
+    cfg, pipe, opt = tconfig.load_cfg(str(root / "port_trained"))
+    step = ttrain.build_train_step(opt, cfg, pipe, ttrain.make_optimizer(opt, 1.0),
+                                   with_stats=False, with_reg=True)
+    tp, st, gs, c = ttrain.as_float64(*head, cam)
+    _, st64, _, m64 = step(tp, st, gs, gt.double(), step_i, c, bg.double())
+    grad = {f: (getattr(st64.mu, f) - 0.9 * getattr(st0.mu, f).double()) / 0.1
+            for f in ("xyz", "scaling", "rotation", "opacity")}
+    degree = min(int(step_i) // 1000, cfg.sh_degree)
+
+    def loss(g, frozen, normalized=False):
+        image, frozen = cotangent_image(g, gs, c, cfg.sh_degree, degree, cfg.kernel_size,
+                                        bg.double(), frozen, normalized)
+        return float(ttrain.train_loss(image, gt.double(), c, opt, step_i, True)[0]), frozen
+
+    g0 = ttrain.as_float64(*head, cam)[0].gauss  # the step updated tp's params in place
+    with torch.no_grad():
+        base, frozen = loss(g0, None)
+    assert abs(base - float(m64["loss"])) <= 1e-6 * float(m64["loss"]), (base, float(m64["loss"]))
+    top = torch.topk(torch.where(act, grad["rotation"].norm(dim=1), 0.0), 4).indices.tolist()
+    worst = {True: 0.0, False: 0.0}
+    for f in grad:
+        scale = float(grad[f][act].abs().max())
+        for i in top:
+            for j in range(grad[f][i].numel()):
+                fd = {True: float("nan")}
+                for normalized in (False, True) if f == "xyz" else (False,):
+                    ends = []
+                    for h in (-FD_STEP, FD_STEP):
+                        g = replace(g0, **{f: getattr(g0, f).clone()})
+                        getattr(g, f).view(g.xyz.shape[0], -1)[i, j] += h
+                        with torch.no_grad():
+                            ends.append(loss(g, frozen, normalized)[0])
+                    fd[normalized] = (ends[1] - ends[0]) / (2 * FD_STEP)
+                    err = abs(fd[normalized] - float(grad[f].view(grad[f].shape[0], -1)[i, j]))
+                    worst[normalized] = max(worst[normalized], err / scale)
+                print(f"{f}[{i}, {j}]: step {float(grad[f].view(grad[f].shape[0], -1)[i, j]):.6e}"
+                      f", central differences {fd[False]:.6e}, with the normalization "
+                      f"{fd[True]:.6e}")
+    print(f"largest error over the field's largest: {worst[False]:.3e}, with the "
+          f"normalization kept {worst[True]:.3e}")
+    assert worst[False] <= FD_RTOL, worst
+    assert worst[True] > FD_RTOL, worst
+
+
+def test_float32_gap_by_stage(trained_scales):
+    """ROADMAP C29 traced at test_trained_scales_against_float64's state:
+    the loop's step (the regularizers' instance) in float32, with each of
+    chip_smoke.F64_STAGES in float64 (chip_smoke.stage_in_float64), held
+    against the step in float64. The blend backward (K3's plain version:
+    its suffix sums come by subtraction from the forward's totals) is the
+    stage behind the largest share of the scaling's and the rotation's
+    first-moment gap: alone in float64 it takes each to under 2/3 of the
+    float32 step's (the rotation's to under half), further than any other
+    stage alone; the reduce and the preprocess backward move neither by 2%."""
+    root, ckpt, spy = trained_scales
+    _, st0, gs0, _ = ttrain.load_checkpoint(ckpt)
+    act = gs0.active
+    head, (gt, step_i, cam, bg) = spy.args
+    lim = spy.steps[0]["lim"]
+    tp, st, gs, c = ttrain.as_float64(*head, cam)
+    res64 = spy.step(tp, st, gs, gt.double(), step_i, c, bg.double(), lim=lim.clone())
+    gaps = {}
+    for stage in ("float32",) + chip_smoke.F64_STAGES:
+        with chip_smoke.stage_in_float64(*() if stage == "float32" else (stage,)):
+            res32 = spy.step(*port_copy(*head), gt, step_i, cam, bg, lim=lim.clone())
+        gaps[stage] = chip_smoke.step_diffs(res32[:3], 0.0, res64[:3], 0.0, st0, act)
+        print(f"{stage}: " + ", ".join(f"{k} {v:.3e}" for k, v in gaps[stage].items()))
+    for f, share in (("mu.scaling", 2 / 3), ("mu.rotation", 0.5)):
+        gap = {s: gaps[s][f] for s in gaps}
+        assert min(chip_smoke.F64_STAGES, key=gap.get) == "blend backward", (f, gap)
+        assert gap["blend backward"] < share * gap["float32"], (f, gap)
+        for s in ("reduce", "preprocess backward"):
+            assert abs(gap[s] - gap["float32"]) < 0.02 * gap["float32"], (f, s, gap)
 
 
 def test_gaussian_in_the_camera_plane_keeps_finite_moments():
@@ -566,3 +834,117 @@ def test_procedural_scene_densifies_as_gof_tpu(tmp_path):
     assert gof.counts[-1] > 1.2 * gof.counts[0]
     for got, want in zip(port.counts, gof.counts):
         assert abs(got - want) <= PARITY_RTOL * want, (port.counts, gof.counts)
+
+
+def ladder_run(rung: int, run: str, out: str, extra: tuple = ()) -> dict:
+    """One CPU run of the ladder of whole trajectories (ROADMAP C27):
+    chip_smoke.RUNGS[rung]'s procedural scene (the port's writer, written
+    into OUT/scene if absent) and schedule through gof_tpu's loop ("gof":
+    the gof_tpu this process imports, HEAD, or an older commit's extract put
+    first on PYTHONPATH), or the port's drawing gof_tpu's densify noise
+    ("port_gof_noise") or its own ("port"), spied on; `extra` train
+    arguments follow the rung's (a later flag overrides an earlier one: a
+    shorter run, checkpoints, a resume). Writes and returns
+    OUT/ladder.json: the wall time, the gof_tpu imported, and per densify
+    call its iteration, size-prune flag and chip_smoke.densify_breakdown's
+    record; the opacity resets."""
+    import json
+    import time
+
+    from gof_tpu_torch.scripts import make_procedural_scene as mps
+
+    spec = chip_smoke.RUNGS[rung]
+    scene = os.path.join(out, "scene")
+    if not os.path.exists(os.path.join(scene, "gt_mesh.ply")):
+        mps.main(["--out", scene, *spec["scene"]])
+    spy = Spy(gof_noise=run == "port_gof_noise")
+    lib, spy_on = (jtrain, gof_spies) if run == "gof" else (ttrain, port_spies)
+    t0 = time.time()
+    with pytest.MonkeyPatch.context() as mp:
+        spy_on(mp, spy)
+        lib.main(["-s", scene, "-m", os.path.join(out, "model"), *spec["argv"], "--cpu",
+                  *extra])
+    rec = {"rung": rung, "run": run, "gof_tpu": os.path.dirname(jtrain.__file__),
+           "wall": time.time() - t0, "steps": len(spy.steps), "resets": spy.resets,
+           "densify": [{"iter": it, "use_size": size, **b}
+                       for (it, size), b in zip(spy.densify, spy.breakdown)]}
+    with open(os.path.join(out, "ladder.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    return rec
+
+
+def ladder_table(paths: list) -> list:
+    """The ladder's table from ladder.json files (one run each) and
+    chip_smoke.py --ladder's ladder_card.json (the card's runs): per run,
+    the active count after the densify calls at 1/4, 1/2, 3/4 and the last,
+    the breakdown's totals, the classic and the quantile-only selections as
+    shares of the active counts before the calls, and the wall time; and
+    for each two runs of one rung, how far their active counts part.
+    Returns the rows (also printed)."""
+    import itertools
+    import json
+
+    runs = []
+    for path in paths:
+        with open(path) as f:
+            rec = json.load(f)
+        if "densify" in rec:
+            here = os.path.join(os.path.dirname(os.path.abspath(chip_smoke.__file__)), "gof_tpu")
+            which = "at HEAD" if os.path.samefile(rec["gof_tpu"], here) else (
+                f"from {os.path.dirname(rec['gof_tpu'])}")
+            runs.append((f"rung {rec['rung']} {rec['run']}" + (
+                f" (gof_tpu {which})" if rec["run"] == "gof" else ""), rec))
+        else:
+            runs += [(f"{k} card ({rec['card']})", v) for k, v in rec.items() if k != "card"]
+    rows = []
+    for (name, rec), (other, want) in itertools.combinations(runs, 2):
+        a, b = rec["densify"], want["densify"]
+        if [c["iter"] for c in a] != [c["iter"] for c in b]:
+            continue  # another rung
+        part = [abs(x["after"] - y["after"]) / y["after"] for x, y in zip(a, b)]
+        worst = int(np.argmax(part))
+        row = (f"{name} against {other}: active after each call parts by at most "
+               f"{part[worst]:.4f} (call {worst + 1} of {len(a)}, step {a[worst]['iter']}: "
+               f"{a[worst]['after']} / {b[worst]['after']}), at the last by {part[-1]:.4f}")
+        print(row)
+        rows.append(row)
+    for name, rec in runs:
+        d = rec["densify"]
+        n = len(d)
+        at = [d[max(int(round(n * q)) - 1, 0)] for q in (0.25, 0.5, 0.75, 1.0)]
+        tot = {k: sum(c[k] for c in d) for k in chip_smoke.BREAKDOWN[2:]}
+        before = sum(c["before"] for c in d)
+        row = (f"{name}: {n} calls; active after calls " + ", ".join(
+            f"{c['iter']}: {c['after']}" for c in at) + "; totals " + ", ".join(
+            f"{k} {v}" for k, v in tot.items()) + f"; classic {tot['classic'] / before:.4f}, "
+            f"quantile only {tot['quantile only'] / before:.4f} of the active before; "
+            f"all accounted {all(c['accounted'] for c in d)}; wall {rec['wall']:.1f} s")
+        print(row)
+        rows.append(row)
+    return rows
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu PYTHONPATH=<repo> python tests/test_torch_full_run.py
+    #     --rung N --run gof|port_gof_noise|port --out DIR [--threads T]
+    #     [--train_args ARG ...]
+    # or --table LADDER_JSON [...]: the ladder's table (ladder_table)
+    import argparse
+
+    jax.config.update("jax_platforms", "cpu")
+    parser = argparse.ArgumentParser(description="one CPU run of the C27 ladder, or its table")
+    parser.add_argument("--rung", type=int)
+    parser.add_argument("--run", choices=("gof", "port_gof_noise", "port"))
+    parser.add_argument("--out")
+    parser.add_argument("--threads", type=int, default=2, help="the port's torch threads")
+    parser.add_argument("--table", nargs="+", metavar="LADDER_JSON")
+    parser.add_argument("--train_args", nargs=argparse.REMAINDER, default=[],
+                        help="train arguments after the rung's (last)")
+    ns = parser.parse_args()
+    if ns.table:
+        ladder_table(ns.table)
+    else:
+        if ns.rung is None or ns.run is None or ns.out is None:
+            parser.error("--rung, --run and --out are required without --table")
+        torch.set_num_threads(ns.threads)
+        ladder_run(ns.rung, ns.run, ns.out, tuple(ns.train_args))
