@@ -37,7 +37,9 @@ its bench once on one CUDA GPU.
    each densify call's report, active count, capacity and host ms, any pool
    growth and the checkpoint writes; render_cli serves the final PLY;
    load_checkpoint(chkpnt20) equals the state the loop saved bit for bit
-   (its read timed) and train.main --start_checkpoint runs steps 21-40; the
+   (its read timed), and so does load_checkpoint of that state written in
+   an older gof_tpu's legacy layout (moments as TrainParams trees), and
+   train.main --start_checkpoint runs steps 21-40; the
    loop's densify inputs of step 30 go through densify_and_prune with the
    world-size prune on, on the card and on CPU copies with the same noise
    (report, masks and values equal, xyz and scaling within 1e-6 of their
@@ -88,9 +90,13 @@ its bench once on one CUDA GPU.
    scripts.eval_procedural_geometry scores the marching-tets mesh and both
    TSDF meshes against gt_mesh.ply (F@0.02, precision, recall, chamfer;
    each TSDF mesh's cropped mean_d2s under 0.05), and the card is held
-   against the port's CPU path: the appearance network at full width
-   (multiplier within 1e-5, appearance_l1 within rtol 1e-5, gradients
-   within 1e-4 x max |CPU|) and discover_blocks / fuse_blocks /
+   against the port's CPU path: the appearance step at full width at the
+   chain's steps 500 and 1000 (DTU_HOLD_ITERS), each on three views,
+   against float64 (multiplier within 1e-5, appearance_l1 within rtol
+   1e-5, gradients within 1e-4 x max |float64| at the reference's L1 signs
+   and ReLU masks, each ReLU entry that flips within 64 ulps of its
+   layer's largest pre-activation; C31's trace op by op at step 1000's
+   first view) and discover_blocks / fuse_blocks /
    fuse_depth_maps on three of the chain's depth maps (blocks equal, tsdf
    within 1e-5 where the weights agree, at most 1e-4 of the samples with
    another weight);
@@ -267,6 +273,9 @@ BENCH_REPS = 10
 DTU_ITERS = 1000
 DTU_REG_FROM = 800
 DTU_DENSIFY_FROM, DTU_DENSIFY_EVERY = 500, 100
+# the chain states whose appearance step is held on the card (checkpointed:
+# a checkpoint only writes, and moves no bit of the trajectory)
+DTU_HOLD_ITERS = (500, DTU_ITERS)
 # TSDF for a scene about 9 units across whose camera ring (radius 4.2-5.4)
 # sees the ground plane out to about 12 units: the dense layout at max_dim
 # 512 (voxel ~0.027 over the gaussians' bounds) with a 0.1 truncation; the
@@ -1062,9 +1071,54 @@ def densify_entry(src: str, out: str, smi: str):
     return held["state"], held["densify"]
 
 
+def write_legacy_checkpoint(path: str, tp, opt_state, gstate, iteration: int) -> str:
+    """The state as an older gof_tpu pickled it, without importing gof_tpu:
+    {"tp", "opt_state", "gstate", "iter"} under gof_tpu's class names, with
+    Adam's moments as TrainParams trees in a 3-field FusedAdamState (the
+    layout gof_tpu/train.py:1231-1244 migrates). Returns the path."""
+    import pickle
+    from collections import namedtuple
+
+    from gof_tpu_torch import train
+
+    names = {cls: key for key, cls in train._GOF_CLASSES.items()}
+    legacy_adam = namedtuple("FusedAdamState", "count mu_flat nu_flat")
+    names[legacy_adam] = ("gof_tpu.train", "FusedAdamState")
+    trees = train._GOF_CLASSES[("gof_tpu.train", "TrainParams")]
+    gauss = train._GOF_CLASSES[("gof_tpu.model.gaussians", "GaussianParams")]
+
+    def tree(g):
+        return trees(gauss(*[getattr(g, f).detach().cpu().numpy() for f in train.GAUSS_FIELDS]),
+                     None, None)
+
+    blob = {"tp": tree(tp.gauss),
+            "opt_state": legacy_adam(np.int32(opt_state.count), tree(opt_state.mu),
+                                     tree(opt_state.nu)),
+            "gstate": train._GOF_CLASSES[("gof_tpu.model.gaussians", "GaussianState")](
+                *[getattr(gstate, f).cpu().numpy() for f in train.STATE_FIELDS]),
+            "iter": int(iteration)}
+
+    class LegacyPickler(pickle._Pickler):
+        """Names the stand-ins by gof_tpu's module and class."""
+
+        def save_global(self, obj, name=None):
+            if obj not in names:
+                return super().save_global(obj, name)
+            for part in names[obj]:
+                self.save(part)
+            self.write(pickle.STACK_GLOBAL)
+            self.memoize(obj)
+
+    with open(path, "wb") as f:
+        LegacyPickler(f, protocol=4).dump(blob)
+    return path
+
+
 def resume_entry(src: str, out: str, held) -> None:
     """load_checkpoint(chkpnt20) equals the state the loop saved at step 20
-    bit for bit; train.main --start_checkpoint runs steps 21-40."""
+    bit for bit, and so does load_checkpoint of that state written in an
+    older gof_tpu's legacy layout (write_legacy_checkpoint); train.main
+    --start_checkpoint runs steps 21-40."""
     from gof_tpu_torch import train
 
     ckpt = os.path.join(out, "chkpnt20.pkl")
@@ -1078,6 +1132,15 @@ def resume_entry(src: str, out: str, held) -> None:
           f"fields differing from the state saved: {bad or 'none'}")
     if bad or it != 20:
         raise RuntimeError(f"checkpoint round trip: iteration {it}, {bad}")
+    legacy = write_legacy_checkpoint(os.path.join(out, "legacy20.pkl"), *held, 20)
+    tp, st, gs, it = train.load_checkpoint(legacy, "cuda")
+    diff = state_diff(state_copy(tp, st, gs), held)
+    bad = {k: v for k, v in diff.items() if v}
+    print(f"  the same state in gof_tpu's legacy layout (moments as TrainParams trees, "
+          f"{os.path.getsize(legacy) / 2**20:.1f} MiB): load_checkpoint to the card, iteration "
+          f"{it}, on {gs.active.device}; fields differing from the state saved: {bad or 'none'}")
+    if bad or it != 20 or gs.active.device.type != "cuda":
+        raise RuntimeError(f"legacy checkpoint: iteration {it}, {bad}")
     resumed = os.path.join(os.path.dirname(out), "resumed")
     t0 = time.perf_counter()
     train.main(["-s", src, "-m", resumed, "--sh_degree", "3", "--kernel_size", "0.1", "--quiet",
@@ -1598,8 +1661,8 @@ def dtu_train_args() -> list:
             "--densification_interval", str(DTU_DENSIFY_EVERY),
             "--distortion_from_iter", str(DTU_REG_FROM),
             "--depth_normal_from_iter", str(DTU_REG_FROM), "--test_iterations", str(DTU_ITERS),
-            "--save_iterations", str(DTU_ITERS), "--checkpoint_iterations", str(DTU_ITERS),
-            "--quiet"]
+            "--save_iterations", str(DTU_ITERS), "--checkpoint_iterations",
+            *map(str, DTU_HOLD_ITERS), "--quiet"]
 
 
 def dtu_train(scene: str, model: str, smi: str):
@@ -1797,21 +1860,218 @@ def dtu_chain(root: str, smi: str) -> dict:
             "gstate": gstate, "dense": dense, "sparse": sparse}
 
 
-def dtu_card_vs_cpu(chain: dict, smi: str) -> None:
-    """The chain's two new device paths held against the port's own CPU
-    path on the same inputs: the appearance network at full width (1237x822,
-    crop 1216x800) with the trained weights, against the CPU in float64
-    (the CPU in float32 and the card through cuDNN, which the package turns
-    off, are printed beside it, with the kernels of each card path and its
-    time), and fuse_blocks / fuse_depth_maps (with discover_blocks) on three
-    of the chain's depth maps."""
-    import contextlib
+def app_steps(net) -> list:
+    """AppearanceNetwork.forward as (name, module or function) steps, in its
+    order: conv_in and its ReLU, each block's shuffle, conv and ReLU, the x2
+    bilinear, conv_mid and its ReLU, conv_out and the sigmoid."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from gof_tpu_torch.model import appearance as app_lib
+
+    steps = [("conv_in", net.conv_in), ("relu conv_in", F.relu)]
+    for i, block in enumerate(net.up):
+        steps += [(f"up.{i} shuffle", functools.partial(app_lib.pixel_shuffle, factor=2)),
+                  (f"up.{i}.conv", block.conv), (f"relu up.{i}", F.relu)]
+    return steps + [("bilinear_x2", app_lib.bilinear_x2_align_corners),
+                    ("conv_mid", net.conv_mid), ("relu conv_mid", F.relu),
+                    ("conv_out", net.conv_out), ("sigmoid", torch.sigmoid)]
+
+
+def app_pass(net, emb, crop, uid: int, upstream, masks=None):
+    """appearance_multiplier step by step (app_steps) on crop's device and
+    dtype, then its backward from `upstream`, the gradient into the
+    multiplier (a tensor, or a function of the multiplier). With `masks`
+    ({ReLU step: bool tensor}) a ReLU passes where its mask is set instead
+    of where its input is positive. Returns (multiplier, {leaf: gradient},
+    [(step, input, output)] with every output's gradient kept)."""
+    from gof_tpu_torch.model import appearance as app_lib
+
+    leaves = {**{f"net.{n}": p for n, p in net.named_parameters()},
+              "emb": emb.detach().clone().requires_grad_(True)}
+    for p in leaves.values():
+        p.grad = None
+    x = app_lib.appearance_input(crop, leaves["emb"], uid)[None]
+    x.retain_grad()
+    acts = []
+    for name, fn in app_steps(net):
+        y = torch.where(masks[name], x, 0) if masks and name in masks else fn(x)
+        y.retain_grad()
+        acts.append((name, x, y))
+        x = y
+    mult = x[0]
+    mult.backward(upstream(mult.detach()) if callable(upstream) else upstream)
+    return mult.detach(), {k: v.grad.detach() for k, v in leaves.items()}, acts
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b|, in float64 on the host."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def relu_flips(acts, ref_acts) -> dict:
+    """{ReLU step: (entries whose mask differs from the reference's, the
+    largest reference |pre-activation| among them in ulps of the layer's
+    largest)}."""
+    out = {}
+    for (name, x, _), (_, xr, _) in zip(acts, ref_acts):
+        if name.startswith("relu"):
+            xr = xr.detach().cpu().double()
+            flip = (x.detach().cpu() > 0) != (xr > 0)
+            ulp = 2.0 ** (np.floor(np.log2(float(xr.abs().max()))) - 23)
+            out[name] = (int(flip.sum()),
+                         float(xr.abs()[flip].max()) / ulp if flip.any() else 0.0)
+    return out
+
+
+def app_reference(net, emb, image, gt, uid: int):
+    """The appearance step in float64 on the host, as the gate holds it:
+    (crop, upstream, app_pass's result) with upstream appearance_l1's
+    gradient into the multiplier, sign(diff) * crop / n."""
     import copy
 
+    from gof_tpu_torch.model import appearance as app_lib
+
+    crop = app_lib.center_crop_32(image.detach().cpu().double())
+    gt_crop = app_lib.center_crop_32(torch.as_tensor(gt).cpu().double())
+    up = {}
+
+    def upstream(mult):
+        up["g"] = (torch.sign(mult * crop - gt_crop) * crop / mult.numel()).detach()
+        return up["g"]
+
+    res = app_pass(copy.deepcopy(net).cpu().double(), emb.cpu().double(), crop, uid, upstream)
+    return crop, up["g"], res
+
+
+def app_hold(net, emb, image, gt, uid: int, label: str, smi: str, device: str = "cuda",
+             keep_ref: bool = False) -> dict:
+    """The appearance step of one (chain state, view) on the card against
+    float64 on the host (app_reference): the multiplier, appearance_l1,
+    and every leaf's gradient with the reference's gradient into the
+    multiplier fed to the card's backward, at the card's own ReLU masks
+    and at the reference's; each ReLU's flips; the card's gradients at its
+    own signs. appearance_l1's gradient into the multiplier is sign(diff) *
+    crop / n, and a ReLU passes where its input is positive: where the
+    render times the multiplier meets the gt (C23), or a pre-activation
+    lies within an ulp of zero (C31), float32 and float64 can take opposite
+    sides, and at a trained state one such pixel or entry moves a weight
+    gradient by more than the gate's bound. Prints one line; returns the
+    readings (with keep_ref, also the reference as "ref")."""
+    from gof_tpu_torch.model import appearance as app_lib
+
+    ref = app_reference(net, emb, image, gt, uid)
+    crop64, up64, (m_ref, g_ref, acts64) = ref
+    gt64 = app_lib.center_crop_32(torch.as_tensor(gt).cpu().double())
+    crop, up, gt_crop = (x.float().to(device) for x in (crop64, up64, gt64))
+    m, g, acts = app_pass(net, emb, crop, uid, up)
+    masks = {n: (x.detach() > 0).to(device) for n, x, _ in acts64 if n.startswith("relu")}
+    g_masks = app_pass(net, emb, crop, uid, up, masks=masks)[1]
+    own = app_pass(net, emb, crop, uid,
+                   lambda mult: torch.sign(mult * crop - gt_crop) * crop / mult.numel())[1]
+    diff, diff64 = (mm.cpu().double() * crop64 - gt64 for mm in (m, m_ref))
+    l1, l1_ref = float(diff.abs().mean()), float(diff64.abs().mean())
+    r = {"merr": float((m.cpu().double() - m_ref).abs().max()), "lerr": abs(l1 - l1_ref) / l1_ref,
+         "grad": {k: rel_err(g[k], g_ref[k]) for k in g_ref},
+         "masks": {k: rel_err(g_masks[k], g_ref[k]) for k in g_ref},
+         "own": {k: rel_err(own[k], g_ref[k]) for k in g_ref},
+         "signs": int(((m * crop - gt_crop).cpu() > 0).ne(diff64 > 0).sum()),
+         "flips": relu_flips(acts, acts64),
+         "emb_rows": (g["emb"].abs().sum(1) > 0).nonzero().flatten().tolist()}
+    w, wm, wo = (max(r[k], key=r[k].get) for k in ("grad", "masks", "own"))
+    print(f"dtu chain, appearance step on the card against float64 ({label}, uid {uid}): "
+          f"multiplier max |err| {r['merr']:.3e} (bound 1e-5), appearance_l1 rel err "
+          f"{r['lerr']:.3e} (bound 1e-5); gradients at the reference's signs, worst of "
+          f"{len(r['grad'])} leaves at the card's own ReLU masks {w} {r['grad'][w]:.3e}, at the "
+          f"reference's masks {wm} {r['masks'][wm]:.3e}; at the card's own signs {wo} "
+          f"{r['own'][wo]:.3e} ({r['signs']} pixels whose sign differs); ReLU flips "
+          + ", ".join(f"{n} {c} ({u:.1f} ulps)" for n, (c, u) in r["flips"].items())
+          + f"; card {smi}")
+    if keep_ref:
+        r["ref"] = ref
+    return r
+
+
+def app_trace(net, emb, ref, uid: int, label: str, smi: str, device: str = "cuda") -> dict:
+    """C31's trace of the card's appearance step against float64 (ref:
+    app_reference's result), printed: along the chain, each step's output
+    and the gradient into it; each ReLU's mask flips on the card and on the
+    host in float32; op by op at the reference's inputs and upstream
+    gradients rounded to float32, each op's forward, input gradient and
+    parameter gradients on the card and on the host in float32. Returns the
+    host's float32 pass's gradients."""
+    import copy
+
+    from gof_tpu_torch.model import appearance as app_lib
+
+    crop, upstream, (_, _, acts64) = ref
+    grads, passes = {}, {}
+    for where, dev in (("card", device), ("cpu f32", "cpu")):
+        _, grads[where], passes[where] = app_pass(copy.deepcopy(net).to(dev), emb.to(dev),
+                                                  crop.float().to(dev), uid,
+                                                  upstream.float().to(dev))
+    card = passes["card"]
+    print(f"  C31 trace ({label}), along the chain, card against float64 (output / gradient "
+          "into it, max |err| / max |ref|): " + "; ".join(
+              f"{n} {rel_err(y, yr):.2e} / {rel_err(y.grad, yr.grad):.2e}"
+              for (n, _, y), (_, _, yr) in zip(card, acts64)))
+    flips = {w: relu_flips(p, acts64) for w, p in passes.items()}
+    print(f"  C31 trace ({label}), ReLU mask flips against float64 (entries, largest "
+          "|pre-activation| in ulps of the layer's max), card / CPU f32: " + "; ".join(
+              f"{n} {flips['card'][n][0]} ({flips['card'][n][1]:.1f}) / "
+              f"{flips['cpu f32'][n][0]} ({flips['cpu f32'][n][1]:.1f})" for n in flips["card"]))
+    nets = {"card": copy.deepcopy(net).to(device), "cpu f32": copy.deepcopy(net).cpu(),
+            "f64": copy.deepcopy(net).cpu().double()}
+    steps = {w: app_steps(m) for w, m in nets.items()}
+    dev = {"card": (device, torch.float32), "cpu f32": ("cpu", torch.float32),
+           "f64": ("cpu", torch.float64)}
+    parts = []
+    # the input: the crop's x32 downsample and the embedding row
+    got = {}
+    for w, (d, dt) in dev.items():
+        e = emb.detach().float().to(d, dt).clone().requires_grad_(True)
+        x0 = app_lib.appearance_input(crop.float().to(d, dt), e, uid)
+        x0.backward(acts64[0][1].grad[0].float().to(d, dt))
+        got[w] = (x0.detach(), e.grad[uid])
+    parts.append("input " + " ".join(
+        f"{k} {rel_err(got['card'][j], got['f64'][j]):.2e}/"
+        f"{rel_err(got['cpu f32'][j], got['f64'][j]):.2e}" for j, k in enumerate(("fwd", "emb"))))
+    for i, (name, x64, y64) in enumerate(acts64):
+        got = {}
+        for w, (d, dt) in dev.items():
+            fn = steps[w][i][1]
+            params = list(fn.parameters()) if isinstance(fn, torch.nn.Module) else []
+            for p in params:
+                p.grad = None
+            x = x64.detach().float().to(d, dt).requires_grad_(True)
+            y = fn(x)
+            y.backward(y64.grad.float().to(d, dt))
+            got[w] = [y.detach(), x.grad] + [p.grad for p in params]
+        errs = [f"{rel_err(c, r):.2e}/{rel_err(h, r):.2e}"
+                for c, h, r in zip(got["card"], got["cpu f32"], got["f64"])]
+        parts.append(f"{name} " + " ".join(
+            f"{k} {e}" for k, e in zip(("fwd", "grad", "weight", "bias"), errs)))
+    print(f"  C31 trace ({label}), op by op at the reference's inputs rounded to f32, max |err| / "
+          f"max |ref| card/CPU f32 against float64: " + "; ".join(parts) + f"; card {smi}")
+    return grads["cpu f32"]
+
+
+def dtu_card_vs_cpu(chain: dict, smi: str) -> None:
+    """The chain's two new device paths held against the port's own CPU
+    path on the same inputs: the appearance step at full width (1237x822,
+    crop 1216x800) with the weights of each chain state of DTU_HOLD_ITERS on
+    three views, against the CPU in float64 (app_hold; at step 1000's first
+    view also C31's trace, app_trace, and the CPU in float32 and the card
+    through cuDNN, which the package turns off, printed beside it, with the
+    kernels of each card path and its time), and fuse_blocks /
+    fuse_depth_maps (with discover_blocks) on three of the chain's depth
+    maps."""
     from torch.profiler import ProfilerActivity, profile
 
     from gof_tpu_torch import config as config_lib
-    from gof_tpu_torch import extract_mesh_tsdf
+    from gof_tpu_torch import extract_mesh_tsdf, train
     from gof_tpu_torch.data import scene as scene_lib
     from gof_tpu_torch.mesh import tsdf as tsdf_lib
     from gof_tpu_torch.model import appearance as app_lib
@@ -1826,12 +2086,24 @@ def dtu_card_vs_cpu(chain: dict, smi: str) -> None:
     cams = [sc.camera(i, device="cuda") for i in infos]
     outs = [render_eval(tp.gauss, gstate, c, cfg, bg).image for c, _ in cams]
 
-    # the appearance network: multiplier, appearance_l1 and the gradients
-    (cam, gt), image = cams[0], outs[0][:3].detach()
-    emb = tp.app_emb.detach()
-    nets = {"cpu64": (copy.deepcopy(tp.app_net).cpu().double(), emb.cpu().double()),
-            "cpu": (copy.deepcopy(tp.app_net).cpu(), emb.cpu()),
-            "card": (tp.app_net, emb), "card_cudnn": (tp.app_net, emb)}
+    # the appearance step at each chain state of DTU_HOLD_ITERS and each of
+    # the three views, held against float64 at the reference's signs (C23)
+    # and ReLU masks (C31; app_hold)
+    holds = {}
+    for it in DTU_HOLD_ITERS:
+        stp, sgs = (tp, gstate) if it == DTU_ITERS else train.load_checkpoint(
+            os.path.join(chain["model"], f"chkpnt{it}.pkl"), "cuda")[::2]
+        for vi, (c, g) in enumerate(cams):
+            image = (outs[vi] if it == DTU_ITERS else render_eval(stp.gauss, sgs, c, cfg, bg)
+                     .image)[:3].detach()
+            holds[(it, vi)] = app_hold(stp.app_net, stp.app_emb.detach(), image, g, c.uid,
+                                       f"step {it}, view {vi}", smi,
+                                       keep_ref=(it, vi) == (DTU_ITERS, 0))
+        del stp, sgs
+    (cam, gt), image, emb = cams[0], outs[0][:3].detach(), tp.app_emb.detach()
+    first = holds[(DTU_ITERS, 0)]
+    crop64, up64, (_, g_ref, _) = first["ref"]
+    g_cpu = app_trace(tp.app_net, emb, first["ref"], cam.uid, f"step {DTU_ITERS}, view 0", smi)
 
     def cudnn(where):
         """cuDNN on for the card_cudnn pass (forward and backward), TF32 off."""
@@ -1839,101 +2111,71 @@ def dtu_card_vs_cpu(chain: dict, smi: str) -> None:
                                            allow_tf32=False)
                 if where == "card_cudnn" else contextlib.nullcontext())
 
-    # appearance_l1's gradient into the multiplier is sign(diff) * crop / n:
-    # where the render times the multiplier meets the gt, two forwards ~1e-7
-    # apart can round to opposite signs, and one such pixel can move
-    # conv_out's gradient by most of the bound. The gradients are therefore
-    # held with the reference's gradient into the multiplier fed to every
-    # backward pass; each one's own L1 gradient is printed beside them.
-    res, upstream = {}, None
-    for where in ("cpu64", "cpu", "card", "card_cudnn"):
-        net, e = nets[where]
-        d, dt = e.device, e.dtype
-        leaves = {**{f"net.{n}": p for n, p in net.named_parameters()},
-                  "emb": e.clone().requires_grad_(True)}
-        for p in leaves.values():
-            p.grad = None
-        with cudnn(where):
-            crop = app_lib.center_crop_32(image.to(d, dt))
-            mult = app_lib.appearance_multiplier(crop, net, leaves["emb"], cam.uid)
-            diff = mult * crop - app_lib.center_crop_32(torch.as_tensor(gt, device=d, dtype=dt))
-            l1 = torch.mean(torch.abs(diff))
-            l1.backward(retain_graph=True)
-            own = {k: v.grad.detach().cpu().clone() for k, v in leaves.items()}
-            if upstream is None:
-                upstream = (torch.sign(diff) * crop / diff.numel()).detach()
-            for p in leaves.values():
-                p.grad = None
-            mult.backward(upstream.to(d, dt))
-        res[where] = (mult.detach().cpu(), float(l1.detach()),
-                      {k: v.grad.detach().cpu() for k, v in leaves.items()}, own,
-                      (diff.detach() > 0).cpu())
-    (m_gpu, l_gpu, g_gpu, o_gpu, s_gpu), (m_ref, l_ref, g_ref, o_ref, s_ref) = (res["card"],
-                                                                                res["cpu64"])
-    g_cpu, g_dnn = res["cpu"][2], res["card_cudnn"][2]
-    merr = float((m_gpu.double() - m_ref).abs().max())
-    lerr = abs(l_gpu - l_ref) / abs(l_ref)
-
-    def rel(a, b):
-        return {k: float((a[k].double() - b[k].double()).abs().max() / b[k].abs().max())
-                for k in b}
-
-    gerr, oerr, cerr, c32 = rel(g_gpu, g_ref), rel(o_gpu, o_ref), rel(g_cpu, g_ref), \
-        rel(g_gpu, g_cpu)
-    worst, oworst = max(gerr, key=gerr.get), max(oerr, key=oerr.get)
-    cworst, c32worst = max(cerr, key=cerr.get), max(c32, key=c32.get)
-    derr = rel(g_dnn, g_ref)
-    dworst = max(derr, key=derr.get)
-    print(f"dtu chain, card against CPU (float64): appearance network at "
-          f"{tuple(image.shape)}, crop {tuple(m_gpu.shape)}, uid {cam.uid}: multiplier max "
-          f"|err| {merr:.3e} (bound 1e-5), appearance_l1 {l_gpu:.7f} / {l_ref:.7f}, rel err "
-          f"{lerr:.3e} (bound 1e-5); gradients of appearance_l1 at the reference's signs, max "
-          f"|err| / max |ref| worst {worst} {gerr[worst]:.3e} (bound 1e-4) over {len(gerr)} "
-          f"leaves; at each one's own signs, worst {oworst} {oerr[oworst]:.3e}, "
-          f"{int((s_gpu != s_ref).sum())} pixels whose sign differs; the CPU in float32 "
-          f"against float64 worst {cworst} {cerr[cworst]:.3e}, the card against it worst "
-          f"{c32worst} {c32[c32worst]:.3e}; card {smi}")
-    print("  per leaf (card at the reference's signs, at its own, CPU float32, card through "
-          "cuDNN): " + ", ".join(f"{k} {gerr[k]:.2e} {oerr[k]:.2e} {cerr[k]:.2e} {derr[k]:.2e}"
-                                 for k in gerr))
+    with cudnn("card_cudnn"):
+        g_dnn = app_pass(tp.app_net, emb, crop64.float().cuda(), cam.uid, up64.float().cuda())[1]
+    derr = {k: rel_err(g_dnn[k], g_ref[k]) for k in g_ref}
+    cerr = {k: rel_err(g_cpu[k], g_ref[k]) for k in g_ref}
+    print(f"  per leaf at step {DTU_ITERS}, view 0 (card at the reference's signs and ReLU masks, "
+          "at its own masks, at its own signs, CPU float32, card through cuDNN): " + ", ".join(
+              f"{k} {first['masks'][k]:.2e} {first['grad'][k]:.2e} {first['own'][k]:.2e} "
+              f"{cerr[k]:.2e} {derr[k]:.2e}" for k in g_ref))
 
     # the appearance forward + backward (appearance_l1, as the step runs it)
     # and SSIM's through the port's convolutions and through cuDNN: CUDA-event
     # time, and the kernels the appearance pass launches
-    net, e = nets["card"]
+    net = tp.app_net
     crop_gt = app_lib.center_crop_32(torch.as_tensor(gt, device="cuda"))
 
-    def app_pass():
+    def l1_pass():
         for p in net.parameters():
             p.grad = None
         crop = app_lib.center_crop_32(image)
-        mult = app_lib.appearance_multiplier(crop, net, e.clone().requires_grad_(True), cam.uid)
+        mult = app_lib.appearance_multiplier(crop, net, emb.clone().requires_grad_(True),
+                                             cam.uid)
         torch.mean(torch.abs(mult * crop - crop_gt)).backward()
 
     def ssim_pass():
         (1.0 - losses.ssim(image.clone().requires_grad_(True), gt_card)).backward()
 
     gt_card = torch.as_tensor(gt, device="cuda")
-    for where in ("card", "card_cudnn"):
+    for where, errs in (("card", first["masks"]), ("card_cudnn", derr)):
         with cudnn(where):
-            ms, ssim_ms = cuda_ms(app_pass, 10, 2), cuda_ms(ssim_pass, 10, 2)
+            ms, ssim_ms = cuda_ms(l1_pass, 10, 2), cuda_ms(ssim_pass, 10, 2)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                app_pass()
+                l1_pass()
                 torch.cuda.synchronize()
         dev = sorted((ev for ev in prof.key_averages()
                       if ev.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda ev: ev.self_device_time_total, reverse=True)
-        leaf, err = (worst, gerr[worst]) if where == "card" else (dworst, derr[dworst])
+        leaf = max(errs, key=errs.get)
         print(f"  appearance forward + backward, {where} (the port's path: {where == 'card'}): "
               f"{ms:.3f} ms (CUDA events, median of 10; SSIM's forward + backward "
               f"{ssim_ms:.3f} ms); worst gradient against float64 "
-              f"{leaf} {err:.3e}; busiest kernels: " + "; ".join(
+              f"{leaf} {errs[leaf]:.3e}; busiest kernels: " + "; ".join(
                   f"{ev.key[:60]} {ev.self_device_time_total / 1e3:.3f} ms" for ev in dev[:5]))
-    if merr > 1e-5 or lerr > 1e-5 or gerr[worst] > 1e-4:
+
+    def worst(key):
+        return max(((pair, leaf, err) for pair, r in holds.items()
+                    for leaf, err in r[key].items()), key=lambda x: x[2])
+
+    at_ref, at_own = worst("masks"), worst("grad")
+    flips = [f for r in holds.values() for f in r["flips"].values()]
+    far = max(u for _, u in flips)
+    merr = max(r["merr"] for r in holds.values())
+    lerr = max(r["lerr"] for r in holds.values())
+    print(f"dtu chain, appearance step held at {len(holds)} (chain step, view) pairs "
+          f"{sorted(holds)}: worst gradient at the reference's signs and ReLU masks "
+          f"{at_ref[0]} {at_ref[1]} {at_ref[2]:.3e} (bound 1e-4), at the card's own masks "
+          f"{at_own[0]} {at_own[1]} {at_own[2]:.3e}; {sum(n for n, _ in flips)} ReLU entries "
+          f"flipped in all, the farthest {far:.2f} ulps of its layer's max (bound 64); "
+          f"multiplier worst {merr:.3e}, appearance_l1 worst {lerr:.3e} (bounds 1e-5); card {smi}")
+    if merr > 1e-5 or lerr > 1e-5 or at_ref[2] > 1e-4 or far > 64:
         raise RuntimeError("the appearance network on the card disagrees with the CPU")
-    emb_rows = (g_gpu["emb"].abs().sum(1) > 0).nonzero().flatten().tolist()
-    if emb_rows != [cam.uid]:
-        raise RuntimeError(f"embedding gradient rows {emb_rows}, not [{cam.uid}]")
+    bad_rows = {pair: r["emb_rows"] for pair, r in holds.items()
+                if r["emb_rows"] != [cams[pair[1]][0].uid]}
+    if bad_rows:
+        raise RuntimeError(f"embedding gradient rows {bad_rows}, not the views' uids")
+    del holds, first
 
     # the fusion on three depth maps, with the chain's sparse and dense settings
     depths = [extract_mesh_tsdf.masked_depth(o[6], o[7], i.alpha) for o, i in zip(outs, infos)]

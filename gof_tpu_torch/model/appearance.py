@@ -220,14 +220,19 @@ def center_crop_32(image: torch.Tensor) -> torch.Tensor:
     return image[:, top:top + H, left:left + W]
 
 
-def appearance_multiplier(crop, net: AppearanceNetwork, embeddings, view_idx: int):
-    """The network's [3, H, W] RGB multiplier for a 32-aligned crop: its
-    x32 downsample beside the view's embedding row, through the CNN."""
+def appearance_input(crop, embeddings, view_idx: int):
+    """The network's [3 + 64, H/32, W/32] input for a 32-aligned crop: its
+    x32 downsample beside the view's embedding row."""
     _, H, W = crop.shape
     down = bilinear_resize_align_corners(crop, H // 32, W // 32)
     emb = embeddings[view_idx]
     emb_map = emb[:, None, None].expand(emb.shape[0], H // 32, W // 32)
-    return net(torch.cat([down, emb_map], dim=0)[None])[0]
+    return torch.cat([down, emb_map], dim=0)
+
+
+def appearance_multiplier(crop, net: AppearanceNetwork, embeddings, view_idx: int):
+    """The network's [3, H, W] RGB multiplier for a 32-aligned crop."""
+    return net(appearance_input(crop, embeddings, view_idx)[None])[0]
 
 
 def appearance_l1(image, gt, net: AppearanceNetwork, embeddings, view_idx: int,

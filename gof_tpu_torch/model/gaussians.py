@@ -328,7 +328,10 @@ def densify_and_prune(params: GaussianParams, state: GaussianState, opt_moments,
     # scale / (0.8 * N) (gaussian_model.py:631-657)
     new_params, new_active, moments, drop1 = place(
         params, active, opt_moments, sampled(noise[0], params.scaling), clone_mask)
-    split_scaling = torch.log(scaling / 1.6)
+    # divided by a tensor: CUDA rounds a division by a Python number as a
+    # product with its reciprocal, and the card's children then part from
+    # the CPU's in the last bit (ROADMAP C16)
+    split_scaling = torch.log(scaling / scaling.new_tensor(1.6))
     new_params, new_active, moments, drop2 = place(
         new_params, new_active, moments, sampled(noise[1], split_scaling), split_mask)
     new_params, new_active, moments, drop3 = place(

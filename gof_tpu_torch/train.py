@@ -978,27 +978,43 @@ class _CheckpointUnpickler(pickle.Unpickler):
         raise pickle.UnpicklingError(f"a checkpoint may not name {module}.{name}")
 
 
+def _migrate_legacy_adam(adam) -> FusedAdamState:
+    """gof_tpu's legacy checkpoint migration (train.py:1231-1244): an older
+    gof_tpu stored Adam's moments as TrainParams trees in a 3-field
+    FusedAdamState. Their gaussian fields flatten into the [NCOL, CAP]
+    layout (flatten_gauss_t); the appearance moments, where either tree
+    holds them, become the (app_net, app_emb) pairs."""
+    def flat(gauss) -> np.ndarray:
+        cap = np.shape(gauss.xyz)[0]
+        return np.concatenate([np.asarray(getattr(gauss, f)).reshape(cap, -1).T
+                               for f in GAUSS_FIELDS], axis=0)
+
+    mu, nu = adam.mu_flat, adam.nu_flat
+    has_app = mu.app_net is not None or mu.app_emb is not None
+    return FusedAdamState(count=adam.count, mu_flat=flat(mu.gauss), nu_flat=flat(nu.gauss),
+                          mu_app=(mu.app_net, mu.app_emb) if has_app else None,
+                          nu_app=(nu.app_net, nu.app_emb) if has_app else None)
+
+
 def load_checkpoint(path: str, device: torch.device | str = "cpu"):
     """Read a checkpoint written by save_checkpoint or by gof_tpu's
-    (train.py:1216-1245). Returns (TrainParams, AdamState, GaussianState,
-    iteration) on `device`, with the appearance network, its embeddings and
-    their moments where the checkpoint holds them (gof_tpu's always do).
-    gof_tpu's legacy migration is not ported."""
+    (train.py:1216-1245), an older gof_tpu's legacy layout included.
+    Returns (TrainParams, AdamState, GaussianState, iteration) on `device`,
+    with the appearance network, its embeddings and their moments where the
+    checkpoint holds them (gof_tpu's always do)."""
     with open(path, "rb") as f:
         blob = _CheckpointUnpickler(f).load()
-    return state_from_blob(blob, device, path)
+    return state_from_blob(blob, device)
 
 
-def state_from_blob(blob: dict, device: torch.device | str = "cpu", path: str = "the state"):
+def state_from_blob(blob: dict, device: torch.device | str = "cpu"):
     """load_checkpoint from an unpickled checkpoint: checkpoint_blob's dict
     or gof_tpu's {"tp", "opt_state", "gstate", "iter"}."""
     if "tp" in blob:
         tp, gstate, adam = blob["tp"], blob["gstate"], blob["opt_state"]
         gauss, app_net, app_emb = tp.gauss, tp.app_net, tp.app_emb
-        if not isinstance(adam.mu_flat, np.ndarray):
-            raise ValueError(f"{path}: a legacy gof_tpu checkpoint (moments stored as "
-                             "TrainParams trees); gof_tpu.train.load_checkpoint migrates it, "
-                             "gof_tpu_torch does not")
+        if isinstance(adam.mu_flat, _GOF_CLASSES[("gof_tpu.train", "TrainParams")]):
+            adam = _migrate_legacy_adam(adam)
     else:
         gauss = _GOF_CLASSES[("gof_tpu.model.gaussians", "GaussianParams")](**blob["gauss"])
         gstate = _GOF_CLASSES[("gof_tpu.model.gaussians", "GaussianState")](**blob["gstate"])

@@ -213,6 +213,97 @@ def test_appearance_l1_value_and_gradients_match():
     np.testing.assert_allclose(tr.numpy(), np.asarray(jtr), atol=1e-5)
 
 
+def gate_case(seed=7):
+    """A seeded appearance step as chip_smoke.py's chain gate holds it: the
+    weights at lecun-normal scale with N(0, 0.05) biases (the DTU chain's
+    network at step 1000 keeps each conv's weight std within 1.2x of its
+    init and its biases under 0.17), a 70x95 render drawn uniformly, and a
+    gt that is the render times the network's multiplier plus N(0, 0.02)
+    noise in the crop, so that appearance_l1's gradient into the
+    multiplier, sign(diff) * crop / n, is mean-zero, as at a trained state.
+    Returns (flax params, embeddings, render, gt, the port's network and
+    embeddings)."""
+    params, emb = flax_weights(seed)
+    net, temb = tapp.app_from_numpy(params, emb)
+    rng = np.random.default_rng(8)
+    img = rng.uniform(size=(3, 70, 95)).astype(np.float32)
+    crop = tapp.center_crop_32(t(img))
+    with torch.no_grad():
+        fit = (tapp.appearance_multiplier(crop, net, temb, 3) * crop).numpy()
+    gt = img.copy()
+    top, left = 70 // 2 - 64 // 2, 95 // 2 - 64 // 2
+    gt[:, top:top + 64, left:left + 64] = fit + rng.normal(0, 0.02, fit.shape)
+    return params, emb, img, gt, net, temb
+
+
+def test_gate_pass_matches_the_network_and_gof_tpu():
+    """chip_smoke.app_pass, the gate's step-by-step pass (ROADMAP C31), is
+    the network's own forward and backward bit for bit; with the float64
+    reference's gradient into the multiplier (app_reference) its gradients
+    lie within BOUND of gof_tpu's appearance_l1 gradients and of float64."""
+    import chip_smoke
+
+    params, emb, img, gt, net, temb = gate_case()
+    crop, up, (_, g64, _) = chip_smoke.app_reference(net, temb, t(img), t(gt), 3)
+    assert abs(float(up.sum())) < 0.05 * float(up.abs().sum())
+    crop, up = crop.float(), up.float()
+    mult, got, acts = chip_smoke.app_pass(net, temb, crop, 3, up)
+    assert [n for n, _, _ in acts] == ["conv_in", "relu conv_in"] + [
+        s for i in range(4) for s in (f"up.{i} shuffle", f"up.{i}.conv", f"relu up.{i}")] + [
+        "bilinear_x2", "conv_mid", "relu conv_mid", "conv_out", "sigmoid"]
+    e = temb.clone().requires_grad_(True)
+    for p in net.parameters():
+        p.grad = None
+    want = tapp.appearance_multiplier(crop, net, e, 3)
+    want.backward(up)
+    assert torch.equal(mult, want.detach())
+    for n, p in net.named_parameters():
+        assert torch.equal(got[f"net.{n}"], p.grad), n
+    assert torch.equal(got["emb"], e.grad)
+
+    def f(p, em):
+        return japp.appearance_l1(jnp.asarray(img), jnp.asarray(gt), p, em, 3)
+
+    gp, ge = jax.grad(f, argnums=(0, 1))(params, jnp.asarray(emb))
+    net_grads_close({k[4:]: v for k, v in got.items() if k != "emb"}, gp)
+    assert rel_err(got["emb"].numpy(), np.asarray(ge)) <= BOUND
+    for k in g64:
+        assert rel_err(got[k].numpy(), g64[k].numpy()) <= BOUND, k
+
+
+def test_gate_holds_a_flipped_relu_at_the_reference_masks():
+    """ROADMAP C31: a ReLU whose pre-activation lies within an ulp of zero
+    can take the other side in float32 than in float64, and with the
+    trained state's cancellation that one entry moves a weight gradient by
+    far more than the gate's 1e-4. Here up.2's bias puts one entry there
+    (stepped by quarter ulps until the CPU's float32 forward flips it):
+    chip_smoke.app_hold reports that flip (1 entry, within 64 ulps of the
+    layer's largest pre-activation), the float32 gradients at their own
+    masks lie over 1e-3 of max off float64, and at the reference's masks
+    within 1e-5 on every leaf."""
+    import chip_smoke
+
+    *_, img, gt, net, temb = gate_case()
+    layer, conv = "relu up.2", net.up[2].conv
+    acts64 = chip_smoke.app_reference(net, temb, t(img), t(gt), 3)[2][2]
+    pre = dict((n, x) for n, x, _ in acts64)[layer][0]
+    at = int(pre.abs().argmin())
+    c = at // (pre.shape[1] * pre.shape[2])
+    ulp = 2.0 ** (np.floor(np.log2(float(pre.abs().max()))) - 23)
+    b0 = float(conv.bias[c])
+    for s in np.arange(-4, 4.25, 0.25):
+        with torch.no_grad():
+            conv.bias[c] = b0 - float(pre.flatten()[at]) + s * ulp
+        r = chip_smoke.app_hold(net, temb, t(img), t(gt), 3, f"bias step {s}", "cpu", "cpu")
+        if r["flips"][layer][0]:
+            break
+    assert r["flips"][layer][0] == 1 and r["flips"][layer][1] <= 64, r["flips"]
+    assert sum(n for n, _ in r["flips"].values()) == 1
+    assert max(r["grad"].values()) > 1e-3
+    assert max(r["masks"].values()) <= 1e-5, r["masks"]
+    assert r["merr"] <= 1e-5 and r["lerr"] <= 1e-5 and r["emb_rows"] == [3]
+
+
 def test_adam_updates_appearance_leaves_like_gof_tpu():
     """Three updates from a carried-across state (count 41, random moments):
     gof_tpu's make_optimizer().update against the port's update +

@@ -33,6 +33,7 @@ from gof_tpu_torch import config as tconfig
 from gof_tpu_torch import render_cli
 from gof_tpu_torch import train as ttrain
 from gof_tpu_torch.data import scene as tscene
+from gof_tpu_torch.model import appearance as tapp
 from gof_tpu_torch.model import gaussians as tgm
 from gof_tpu_torch.utils import losses as tlosses
 from gof_tpu_torch.utils import schedules as tsched
@@ -712,20 +713,169 @@ def test_checkpoint_unpickler_refuses_numpy_functions(tmp_path):
         ttrain.load_checkpoint(str(tmp_path / "bad.pkl"))
 
 
-def test_load_legacy_gof_tpu_checkpoint_refused(tmp_path):
+def legacy_opt_state(count, mu, nu):
+    """An older gof_tpu's optimizer state: Adam's moments as TrainParams
+    trees (numpy leaves) in a 3-field FusedAdamState, as gof_tpu's legacy
+    migration (train.py:1231-1244) reads it."""
+    return jtrain.FusedAdamState(np.int32(count), mu, nu)
+
+
+def assert_loads_like_gof_tpu(path, with_app):
+    """Both packages' load_checkpoint of `path` agree bit for bit: the
+    gaussians, the GaussianState, Adam's count and moments, and the
+    appearance network, embeddings and their moments."""
+    tp, st, gs, it = ttrain.load_checkpoint(path)
+    wtp, wst, wgs, wit = jtrain.load_checkpoint(path)
+    assert it == wit
+    for f in ttrain.GAUSS_FIELDS:
+        got, want = getattr(tp.gauss, f).numpy(), np.asarray(getattr(wtp.gauss, f))
+        assert got.dtype == want.dtype and np.array_equal(got, want), f
+    for f in ttrain.STATE_FIELDS:
+        np.testing.assert_array_equal(getattr(gs, f).numpy(), np.asarray(getattr(wgs, f)))
+    back = ttrain.adam_to_numpy(st)
+    assert back.count == int(wst.count)
+    for m in ("mu_flat", "nu_flat"):
+        got, want = getattr(back, m), np.asarray(getattr(wst, m))
+        assert got.dtype == want.dtype and np.array_equal(got, want), m
+    if not with_app:
+        assert tp.app_net is None and st.mu_app is None and wst.mu_app is None
+        return tp, st, gs
+    pairs = [(tapp.app_to_numpy(tp.app_net, tp.app_emb), (wtp.app_net, wtp.app_emb)),
+             (back.mu_app, wst.mu_app), (back.nu_app, wst.nu_app)]
+    for got, want in pairs:
+        got, want = jax.tree.leaves(got), jax.tree.leaves(want)
+        assert len(got) == len(want) == 15
+        for a, b in zip(got, want):
+            assert np.array_equal(a, np.asarray(b))
+    return tp, st, gs
+
+
+@pytest.mark.parametrize("with_app", [False, True], ids=["gaussians", "appearance"])
+def test_load_legacy_gof_tpu_checkpoint_matches_gof_tpu(tmp_path, with_app):
     """A legacy gof_tpu checkpoint (moments stored as TrainParams trees in a
-    3-field FusedAdamState) fails with a clear error, not inside
-    from_numpy."""
+    3-field FusedAdamState) loads into the port as gof_tpu's migration
+    loads it, every field bit for bit, with and without the appearance
+    state."""
     import pickle
 
+    from gof_tpu.model import appearance as japp
+
     params, state, *_ = random_train_state(15)
-    trees = jtrain.TrainParams(gauss=params, app_net=None, app_emb=None)
-    blob = {"tp": trees, "opt_state": jtrain.FusedAdamState(np.int32(3), trees, trees),
-            "gstate": state, "iter": 9}
+    rng = np.random.default_rng(16)
+    net = emb = None
+    if with_app:
+        net, emb = jax.tree.map(np.asarray, japp.init_appearance(jax.random.PRNGKey(1)))
+
+    def moments(draw):
+        app = jax.tree.map(lambda x: draw(np.shape(x)), (net, emb)) if with_app else (None, None)
+        return jtrain.TrainParams(jgm.GaussianParams(*[draw(np.shape(x)) for x in params]), *app)
+
+    mu = moments(lambda shape: rng.normal(0, 1e-3, shape).astype(np.float32))
+    nu = moments(lambda shape: rng.uniform(0, 1e-6, shape).astype(np.float32))
+    blob = {"tp": jtrain.TrainParams(gauss=params, app_net=net, app_emb=emb),
+            "opt_state": legacy_opt_state(3, mu, nu), "gstate": state, "iter": 9}
     with open(tmp_path / "legacy.pkl", "wb") as f:
         pickle.dump(blob, f)
-    with pytest.raises(ValueError, match="legacy gof_tpu checkpoint"):
-        ttrain.load_checkpoint(str(tmp_path / "legacy.pkl"))
+    tp, st, _ = assert_loads_like_gof_tpu(str(tmp_path / "legacy.pkl"), with_app)
+    assert st.count == 3
+    for f in ttrain.GAUSS_FIELDS:
+        assert torch.equal(getattr(st.nu, f), torch.from_numpy(getattr(nu.gauss, f))), f
+
+
+def test_chip_smoke_writes_legacy_checkpoints_gof_tpu_migrates(tmp_path):
+    """chip_smoke.write_legacy_checkpoint (its resume entry's legacy file on
+    the card) writes, without gof_tpu, a checkpoint that gof_tpu's loader
+    migrates as a legacy one and the port loads bit for bit alike, equal to
+    the state written."""
+    import pickle
+
+    import chip_smoke
+
+    *_, tp, st, gs = random_train_state(17)
+    path = chip_smoke.write_legacy_checkpoint(str(tmp_path / "legacy.pkl"), tp, st, gs, 20)
+    with open(path, "rb") as f:
+        raw = pickle.load(f)
+    assert type(raw["opt_state"]) is jtrain.FusedAdamState and raw["opt_state"].mu_app is None
+    assert type(raw["opt_state"].mu_flat) is jtrain.TrainParams
+    assert type(raw["gstate"]) is jgm.GaussianState
+    got = assert_loads_like_gof_tpu(path, False)
+    assert_same_state((tp, st, gs), got)
+
+
+def test_resume_from_legacy_gof_tpu_checkpoint_matches_gof_tpu(synth_scene, tmp_path):
+    """gof_tpu trains 3 steps with the appearance network and checkpoints;
+    the checkpoint is rewritten in the legacy layout, its active gaussians
+    at gof_tpu's gradient-test scales (ROADMAP C9); both packages load it
+    bit for bit alike and resume one step from it with the flag. Over the
+    active slots, Adam's moments lie within BOUND of their largest and the
+    params within rtol 1e-5 where the step's gradient exceeds 1e-3 of its
+    largest (test_torch_full_run.py::test_resumed_step_matches_gof_tpu);
+    the appearance leaves within 1e-5 and their moments within BOUND."""
+    import pickle
+
+    ck = str(tmp_path / "gof")
+    common = dict(densify_from_iter=100, densify_until_iter=10)
+    model = dict(sh_degree=1, kernel_size=0.1, use_decoupled_appearance=True)
+    pipe = jconfig.PipelineParams(backend="xla", key_capacity=512)
+    jtrain.training(jconfig.ModelParams(source_path=synth_scene, model_path=ck, **model),
+                    jconfig.OptimizationParams(iterations=3, **common), pipe,
+                    test_iterations=set(), save_iterations=set(), checkpoint_iterations={3},
+                    quiet=True)
+    with open(os.path.join(ck, "chkpnt3.pkl"), "rb") as f:
+        blob = pickle.load(f)
+    tp, st = blob["tp"], blob["opt_state"]
+    active = np.asarray(blob["gstate"].active)
+    scaling = np.array(tp.gauss.scaling)
+    scaling[active] = np.log(np.random.default_rng(3).uniform(
+        0.3, 1.0, (int(active.sum()), 3))).astype(np.float32)
+    blob["tp"] = tp._replace(gauss=tp.gauss._replace(scaling=scaling))
+
+    def tree(flat, app):
+        gauss = jax.tree.map(np.asarray, jtrain.unflatten_gauss_t(jnp.asarray(flat), tp.gauss))
+        return jtrain.TrainParams(gauss, *app)
+
+    blob["opt_state"] = legacy_opt_state(st.count, tree(st.mu_flat, st.mu_app),
+                                         tree(st.nu_flat, st.nu_app))
+    path = str(tmp_path / "legacy.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(blob, f)
+    _, st0, _ = assert_loads_like_gof_tpu(path, True)
+    out = str(tmp_path / "gof_resumed")
+    jtrain.training(jconfig.ModelParams(source_path=synth_scene, model_path=out, **model),
+                    jconfig.OptimizationParams(iterations=4, **common), pipe,
+                    test_iterations=set(), save_iterations=set(), checkpoint_iterations={4},
+                    start_checkpoint=path, quiet=True)
+    want_tp, want_st, _, _ = ttrain.load_checkpoint(os.path.join(out, "chkpnt4.pkl"))
+    port = str(tmp_path / "port_resumed")
+    ttrain.main(["-s", synth_scene, "-m", port, "--cpu", "--sh_degree", "1", "--kernel_size",
+                 "0.1", "--use_decoupled_appearance", "--iterations", "4",
+                 "--densify_from_iter", "100", "--densify_until_iter", "10",
+                 "--start_checkpoint", path, "--checkpoint_iterations", "4",
+                 "--test_iterations", "99", "--quiet"])
+    got_tp, got_st, _, it = ttrain.load_checkpoint(os.path.join(port, "chkpnt4.pkl"))
+    assert it == 4 and got_st.count == want_st.count == 4 and st0.count == 3
+    act = torch.from_numpy(active)
+    assert int(act.sum()) > 0
+    for f in ttrain.GAUSS_FIELDS:
+        for m in ("mu", "nu"):
+            got = getattr(getattr(got_st, m), f)[act].numpy()
+            want = getattr(getattr(want_st, m), f)[act].numpy()
+            assert rel_err(got, want) <= BOUND, (m, f, rel_err(got, want))
+        grad = ((getattr(want_st.mu, f)[act].double() - 0.9 * getattr(st0.mu, f)[act].double())
+                / 0.1).numpy()
+        sel = np.abs(grad) > 1e-3 * np.abs(grad).max()
+        if f != "features_rest":  # SH degree 0 at step 4: no rest gradient
+            assert sel.any(), f
+        if sel.any():
+            close(getattr(got_tp.gauss, f)[act].detach().numpy()[sel],
+                  getattr(want_tp.gauss, f)[act].detach().numpy()[sel])
+    got, want = ttrain.app_leaves(got_tp), ttrain.app_leaves(want_tp)
+    for k in want:
+        np.testing.assert_allclose(got[k].detach().numpy(), want[k].detach().numpy(),
+                                   atol=1e-5, err_msg=k)
+        for m in ("mu_app", "nu_app"):
+            assert rel_err(getattr(got_st, m)[k].numpy(),
+                           getattr(want_st, m)[k].numpy()) <= BOUND, (m, k)
 
 
 def test_start_checkpoint_resumes_bit_exact(synth_scene, tmp_path, monkeypatch):
