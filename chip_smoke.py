@@ -5,7 +5,7 @@ its bench once on one CUDA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --full [DIR]   # the 30k-step run alone (full_main)
-    python3 chip_smoke.py --ladder DIR   # the C27 ladder's card runs (ladder_main)
+    python3 chip_smoke.py --ladder DIR [--rungs N ...]   # the C27 ladder's card runs
 
 1. preflight: torch, CUDA, the card's name and power limit, nvcc;
 2. build the CUDA kernels of gof_tpu_torch/csrc with nvcc (sm_90a, one nvcc
@@ -3639,6 +3639,8 @@ FULL_GATES = {"eval PSNR at 30k": (38.18, None), "final active gaussians": (137_
               "TSDF F@0.02": (0.825, None), "marching-tets F@0.02": (0.406, 0.506)}
 # active-count bands for densify's host ms
 DENSIFY_BANDS = (50_000, 100_000, 150_000)
+# the rungs whose schedule --ladder also runs on the full-size scene
+FULL_SIZE_RUNGS = (3,)
 # the ladder of whole trajectories (ROADMAP C27): the procedural scene from
 # the port's writer, cut to size, and a schedule. Rung 0 is
 # tests/test_torch_full_run.py's slow test (PARITY): 300 steps at 96x64, 8
@@ -3650,8 +3652,11 @@ DENSIFY_BANDS = (50_000, 100_000, 150_000)
 # 1500, the regularizers from 1750). Their key capacity, above every run's
 # demand, cuts gof_tpu's interpret step at 96x64 from ~7 s (its default 2M)
 # to under a second. The port's plain blends on the CPU set the sizes (~2 s
-# a step at 6k gaussians, over 30 s at 309x205), so rung 2 runs gof_tpu and
-# the card only.
+# a step at 6k gaussians, over 30 s at 309x205), so rungs 2 and 3 run
+# gof_tpu and the card only. Rung 3 has the full run's shape on rung 2's
+# scene: 4000 steps densifying every 50 in (250, 4000) through the resets at
+# 1000, 2000 and 3000, 20 calls at SH degree 3, the regularizers at the last
+# step; it sets no key capacity (each run passes its own).
 RUNG_SCHEDULE = ["--test_iterations", "99999", "--quiet"]
 RUNGS = {
     0: {"scene": ["--width", "96", "--height", "64", "--views", "8", "--test-views", "2",
@@ -3674,6 +3679,12 @@ RUNGS = {
                  "--opacity_reset_interval", "1500", "--distortion_from_iter", "1750",
                  "--depth_normal_from_iter", "1750", "--key_capacity", "131072",
                  *RUNG_SCHEDULE]},
+    3: {"scene": ["--width", "128", "--height", "85", "--views", "36", "--test-views", "6",
+                  "--points", "2000"],
+        "argv": ["--iterations", "4000", "--densify_from_iter", "250",
+                 "--densification_interval", "50", "--densify_until_iter", "4000",
+                 "--opacity_reset_interval", "1000", "--distortion_from_iter", "4000",
+                 "--depth_normal_from_iter", "4000", *RUNG_SCHEDULE]},
 }
 
 
@@ -4565,8 +4576,11 @@ def rung_scene(rung: int, root: str) -> str:
 
 def trajectory_record(rec: RunRecorder, wall: float) -> dict:
     """A recorded run's densify calls (iteration, size-prune flag,
-    breakdown), opacity resets and wall time, as JSON."""
-    return {"wall": wall, "resets": rec.resets,
+    breakdown), opacity resets, pool growths, keys per step (the most in
+    each 1000-step window and in the run) and wall time, as JSON."""
+    return {"wall": wall, "resets": rec.resets, "grows": rec.grows,
+            "keys_max": max((w["keys_max"] for w in rec.windows), default=0),
+            "keys_windows": [[w["to"], w["keys_max"]] for w in rec.windows],
             "densify": [{"iter": d["iter"], "use_size": d["use_size"], **d["breakdown"]}
                         for d in rec.densify]}
 
@@ -4663,28 +4677,41 @@ def trajectory_finish(traj: dict, smi: str, timeout: float = 600.0) -> None:
         raise RuntimeError(f"trajectory: the card parts from the CPU: {bad[:20]}")
 
 
-def ladder_main(path: str) -> None:
-    """python3 chip_smoke.py --ladder DIR: the ladder's card runs (ROADMAP
-    C27): each rung through full_train on the card drawing the CPU's densify
-    noise (the same noise as the port's CPU runs of the rung), then the
-    full-size procedural scene through SHORT_ARGS (the full_run phase's
-    training, the card's own noise, and stage_gaps at its last checkpoint),
-    in a temporary directory; DIR/ladder_card.json holds each run's
-    trajectory_record."""
+def ladder_main(path: str, rungs=None) -> None:
+    """python3 chip_smoke.py --ladder DIR [--rungs N ...]: the ladder's card
+    runs (ROADMAP C27): each rung named (all by default) through full_train
+    on the card drawing the CPU's densify noise (the same noise as the
+    port's CPU runs of the rung), then the full-size procedural scene
+    through SHORT_ARGS (the full_run phase's training, the card's own noise,
+    and stage_gaps at its last checkpoint) and through each named rung's
+    schedule in FULL_SIZE_RUNGS, in a temporary directory;
+    DIR/ladder_card.json holds each run's trajectory_record, written after
+    every run."""
     smi = preflight()
     build()
     os.makedirs(path, exist_ok=True)
     root = tempfile.mkdtemp(prefix="gof_ladder_")
     out = {"card": smi}
+    rungs = list(RUNGS) if rungs is None else rungs
+
+    def record(key, trained):
+        out[key] = trajectory_record(trained["rec"], trained["wall"])
+        with open(os.path.join(path, "ladder_card.json"), "w") as f:
+            json.dump(out, f, indent=1)
+
     try:
-        for rung in RUNGS:
-            trained = full_train(rung_scene(rung, root), os.path.join(root, f"card_r{rung}"),
-                                 rung_argv(rung), smi, f"ladder rung {rung}", cpu_noise=True)
-            out[f"r{rung}"] = trajectory_record(trained["rec"], trained["wall"])
+        for rung in rungs:
+            record(f"r{rung}", full_train(rung_scene(rung, root),
+                                          os.path.join(root, f"card_r{rung}"), rung_argv(rung),
+                                          smi, f"ladder rung {rung}", cpu_noise=True))
         scene, _ = dtu_scene(root, smi)
         run = os.path.join(root, "full_run")
         trained = full_train(scene, run, SHORT_ARGS, smi, "ladder full_run")
-        out["full_run"] = trajectory_record(trained["rec"], trained["wall"])
+        record("full_run", trained)
+        for rung in (r for r in rungs if r in FULL_SIZE_RUNGS):
+            record(f"full_r{rung}", full_train(scene, os.path.join(root, f"full_r{rung}"),
+                                               rung_argv(rung), smi,
+                                               f"ladder full size, rung {rung}'s schedule"))
         # C29 on the witness's crop and seeded share of the gaussians
         from gof_tpu_torch import train
 
@@ -4696,8 +4723,6 @@ def ladder_main(path: str) -> None:
                    "C29 at the full_run state")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    with open(os.path.join(path, "ladder_card.json"), "w") as f:
-        json.dump(out, f, indent=1)
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4862,6 +4887,8 @@ def main() -> None:
                              "(resumed from its newest checkpoint) or a temporary directory")
     parser.add_argument("--ladder", metavar="DIR",
                         help="run only the C27 ladder's card runs (ladder_main), in DIR")
+    parser.add_argument("--rungs", type=int, nargs="+", choices=sorted(RUNGS), metavar="N",
+                        help="with --ladder, only these rungs (default: all)")
     parser.add_argument("--trajectory-cpu", metavar="DIR", help=argparse.SUPPRESS)
     ns = parser.parse_args()
     if ns.trajectory_cpu:
@@ -4870,8 +4897,10 @@ def main() -> None:
     if ns.full is not None:
         full_main(ns.full or None)
         return
+    if ns.rungs and not ns.ladder:
+        parser.error("--rungs needs --ladder")
     if ns.ladder:
-        ladder_main(ns.ladder)
+        ladder_main(ns.ladder, ns.rungs)
         return
     smi = preflight()
     build()

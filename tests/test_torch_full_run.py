@@ -69,7 +69,7 @@ class Spy:
     def __init__(self, gof_noise: bool = False):
         self.steps, self.densify, self.resets, self.degrees = [], [], [], []
         self.step, self.args, self.counts, self.gof_noise = None, None, [], gof_noise
-        self.breakdown, self.consts = [], None
+        self.breakdown, self.consts, self.builds = [], None, []
 
     @property
     def iteration(self):
@@ -150,10 +150,15 @@ def gof_spies(mp, spy: Spy):
         jtrain.masked_shs
     densify_and_prune = jgm.densify_and_prune
 
+    build_sig = inspect.signature(build)
+
     def built(*a, **k):
         step = build(*a, **k)
         if spy.step is None:
             spy.step = step
+        pipe = build_sig.bind(*a, **k).arguments["pipe"]
+        spy.builds.append({"iter": spy.iteration if spy.steps else 0,
+                           "keys": pipe.key_capacity, "compact": pipe.compact_capacity})
 
         def recorded(*args, **kw):
             if spy.args is None:
@@ -162,9 +167,15 @@ def gof_spies(mp, spy: Spy):
             res = step(*args, **kw)
             jax.block_until_ready(res)
             jax.effects_barrier()
+            # the packed metrics of each step the call ran: a step whose
+            # keys or compact rows overflowed (or, where the row has it, whose
+            # liveness bound was stale) made no update
+            mp = np.atleast_2d(np.asarray(res[3].get("packed_all", res[3].get("packed"))))
+            skip = (mp[:, 3] > 0) | (mp[:, 5] > 0) | ((mp[:, 9] > 0) if mp.shape[1] > 9 else False)
             spy.steps.append({"iter": int(args[4]), "stats": k["with_stats"],
                               "reg": k["with_reg"], "lim": k.get("live_ntiles", 0) or None,
-                              "degree": sorted(set(spy.degrees))})
+                              "degree": sorted(set(spy.degrees)), "keys": int(mp[:, 2].max()),
+                              "skipped": int(skip.sum())})
             return res
 
         return recorded
@@ -219,7 +230,7 @@ def runs(tmp_path_factory):
         ttrain.main(argv + ["-m", str(root / "port")])
     with pytest.MonkeyPatch.context() as mp:
         gof_spies(mp, spies["gof"])
-        jtrain.main(argv + ["-m", str(root / "gof"), "--checkpoint_iterations", "17"])
+        jtrain.main(argv + ["-m", str(root / "gof"), "--checkpoint_iterations", "11", "17"])
     return scene, root, spies
 
 
@@ -287,16 +298,40 @@ def test_ladder_rung0_is_the_slow_tests_run():
     """The C27 ladder's rung 0 (chip_smoke.RUNGS, also the smoke's
     trajectory phase) is test_procedural_scene_densifies_as_gof_tpu's run:
     its scene and PARITY's schedule; every rung's schedule densifies,
-    resets the opacities once, prunes by size after the reset and turns the
-    regularizers on where densification ends."""
+    resets the opacities, prunes by size after the first reset and turns
+    the regularizers on where densification ends; rungs 0-2 reset once and
+    run steps past densification."""
     assert chip_smoke.RUNGS[0]["argv"] + ["--cpu"] == PARITY
     assert chip_smoke.RUNGS[0]["scene"] == ["--width", "96", "--height", "64", "--views", "8",
                                             "--test-views", "2", "--points", "1000"]
     for rung in chip_smoke.RUNGS:
         sched = chip_smoke.run_schedule(chip_smoke.rung_argv(rung))
-        assert len(sched["densify"]) >= 8 and len(sched["reset"]) == 1, rung
+        assert len(sched["densify"]) >= 8 and sched["reset"], rung
         assert sched["size_prune"] and sched["size_prune"][0] > sched["reset"][0], rung
-        assert sched["reg_on"] == sched["until"] < sched["iterations"], rung
+        assert sched["reg_on"] == sched["until"] <= sched["iterations"], rung
+        if rung < 3:
+            assert len(sched["reset"]) == 1 and sched["until"] < sched["iterations"], rung
+
+
+def test_ladder_rung3_runs_the_full_runs_regime():
+    """Rung 3 has the full run's shape (ROADMAP C27): rung 2's scene, at
+    least three opacity resets before densify_until_iter, at least 20
+    densify calls at SH degree 3 (19 of them after the third reset), the
+    size prune on every call after the first reset, and no key capacity of
+    its own (each run sets it); --ladder runs its schedule at full size."""
+    spec = chip_smoke.RUNGS[3]
+    assert spec["scene"] == chip_smoke.RUNGS[2]["scene"]
+    assert "--key_capacity" not in spec["argv"]
+    sched = chip_smoke.run_schedule(chip_smoke.rung_argv(3))
+    resets = [r for r in sched["reset"] if r < sched["until"]]
+    assert len(resets) >= 3, sched["reset"]
+    degree = lambda i: min(i // 1000, sched["sh_degree"])  # noqa: E731
+    at3 = [i for i in sched["densify"] if degree(i) == 3]
+    assert sched["sh_degree"] == 3 and len(at3) >= 20, at3
+    assert len([i for i in at3 if i > resets[2]]) >= 19, at3
+    assert sched["size_prune"] == [i for i in sched["densify"] if i > resets[0]]
+    assert len(sched["densify"]) == 74 and resets == [1000, 2000, 3000]
+    assert 3 in chip_smoke.FULL_SIZE_RUNGS
 
 
 def test_ladder_table_reports_how_far_runs_part(tmp_path):
@@ -326,6 +361,45 @@ def test_ladder_table_reports_how_far_runs_part(tmp_path):
                                "210), at the last by 0.0099"), pairs[0]
     assert not any("r1 card" in r for r in pairs)
     assert sum(" calls; active after calls " in r for r in rows) == 4
+
+
+def test_ladder_table_reads_rung3s_records(tmp_path):
+    """Rung 3's rows in ladder_table: each two runs' parting over the calls
+    after the second reset beside the whole run's; gof_tpu's key capacity
+    as each build had it (growths, right-sizes) and its skipped steps; the
+    card's peak keys per step; and the card's run of rung 3's schedule at
+    full size (full_r3) paired with no CPU run."""
+    import json
+
+    def rec(afters, step=500):
+        return [dict({k: 1 for k in chip_smoke.BREAKDOWN}, iter=step * (i + 1), use_size=i > 0,
+                     before=100, after=a, Q=1e-3, accounted=True) for i, a in enumerate(afters)]
+
+    resets = [1000, 2000]
+    with open(tmp_path / "gof.json", "w") as f:
+        json.dump({"rung": 3, "run": "gof", "gof_tpu": os.path.dirname(jtrain.__file__),
+                   "wall": 1.0, "resets": resets, "keys_max": 700, "skipped": 3,
+                   "builds": [{"iter": 0, "keys": 131072, "compact": 0},
+                              {"iter": 1210, "keys": 196608, "compact": 65536},
+                              {"iter": 2500, "keys": 131072, "compact": 65536}],
+                   "densify": rec([100, 300, 500, 1000, 900])}, f)
+    with open(tmp_path / "card.json", "w") as f:
+        json.dump({"card": "a card",
+                   "r3": {"wall": 2.0, "resets": resets, "keys_max": 650,
+                          "densify": rec([150, 300, 500, 1030, 920])},
+                   "full_r3": {"wall": 3.0, "resets": resets, "keys_max": 9000,
+                               "densify": rec([150, 300, 500, 1030, 920])}}, f)
+    rows = ladder_table([str(tmp_path / n) for n in ("gof.json", "card.json")])
+    pairs = [r for r in rows if " against " in r]
+    assert pairs == ["rung 3 gof (gof_tpu at HEAD) against r3 card (a card): active after each "
+                     "call parts by at most 0.3333 (call 1 of 5, step 500: 100 / 150), at the "
+                     "last by 0.0217; after the second reset (step 2000) by at most 0.0217 "
+                     "(call 5, step 2500: 900 / 920)"], pairs
+    gof = next(r for r in rows if r.startswith("rung 3 gof (gof_tpu at HEAD): 5 calls"))
+    assert gof.endswith("; keys per step at most 700; key capacity 131072, then grew to 196608 "
+                        "at 1210, right-sized to 131072 at 2500; 3 steps skipped"), gof
+    assert any(r.startswith("full_r3 card (a card): 5 calls") and r.endswith(
+        "keys per step at most 9000") for r in rows), rows
 
 
 def relabel(src: str, dst: str, iteration: int, rescale: bool = True) -> str:
@@ -436,6 +510,91 @@ def test_resumed_step_matches_gof_tpu(resumed):
             want = getattr(jtp.gauss, f)[act].detach().double().numpy()[sel]
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max(),
                                        err_msg=f)
+
+
+SH3_AT = 3998  # resumed at SH degree 3 throughout
+SH3_CALLS = (4000, 4050)
+SH3_ARGS = ["--opacity_reset_interval", "1000", "--densification_interval", "50",
+            "--densify_until_iter", str(SH3_CALLS[-1] + 1)]
+# at the checkpoint's trained scales the f32 step's rotation and scaling
+# moments part by ROADMAP C9's cancellation (test_trained_scales_against_
+# float64 holds them against float64), and Adam turns the parted
+# rotation and the near-zero gradients of the SH bands into params that
+# part past the step test's rtol; the other fields are held to it
+SH3_HELD = {"params": ("xyz", "features_dc", "scaling", "opacity"),
+            "moments": ("xyz", "features_dc", "features_rest", "opacity")}
+
+
+def test_densify_after_a_reset_at_sh_degree_3_matches_gof_tpu(runs):
+    """The regime no rung before rung 3 reached (ROADMAP C27): densify at SH
+    degree 3 with the size prune on, before and after an opacity reset.
+    gof_tpu's checkpoint at 11 (before the scaled schedule's reset, at its
+    trained scales: at the gradient-test scales the size prune takes every
+    gaussian), relabelled 3998 and resumed by both loops through 4050 with
+    SH3_ARGS, the port drawing gof_tpu's noise: a densify call (its pool
+    full: it drops placements and grows) and the reset at 4000, then the
+    call at 4050 that prunes what the reset left under the 0.05 opacity
+    (the loop's literal; a call 2 steps after a reset prunes every gaussian,
+    so the calls are rung 3's 50 steps apart). Both calls' densify_breakdown
+    records and active counts equal gof_tpu's (the classic share within 2
+    gaussians and Q within 1%, as test_densify_breakdown_matches_gof_tpu
+    holds them), and so do the active sets at their checkpoints. At the
+    first call's checkpoint, over the gaussians it kept, SH3_HELD's params
+    lie within the step test's rtol 1e-5 of the field's largest and its
+    moments within BOUND of theirs; past it only the counts are held."""
+    scene, root, _ = runs
+    ckpt = relabel(str(root / "gof" / "chkpnt11.pkl"), str(root / "sh3.pkl"), SH3_AT,
+                   rescale=False)
+    argv = ["-s", scene, "--iterations", str(SH3_CALLS[-1]), *SCHEDULE, *SH3_ARGS,
+            "--start_checkpoint", ckpt, "--checkpoint_iterations", *map(str, SH3_CALLS),
+            "--save_iterations", "99999", "--test_iterations", "99999", "--cpu"]
+    spies = {"port": Spy(gof_noise=True), "gof": Spy()}
+    for name, lib, spy_on in (("port", ttrain, port_spies), ("gof", jtrain, gof_spies)):
+        with pytest.MonkeyPatch.context() as mp:
+            spy_on(mp, spies[name])
+            lib.main(argv + ["-m", str(root / f"{name}_sh3")])
+    port, gof = spies["port"], spies["gof"]
+    for name, spy in spies.items():
+        assert spy.densify == [(i, True) for i in SH3_CALLS], (name, spy.densify)
+        assert spy.resets == [SH3_CALLS[0]], name
+        assert {d for s in spy.steps for d in s["degree"]} == {3}, name
+    assert sum(s["skipped"] for s in gof.steps) == 0
+    print(f"active after each call: port {port.counts}, gof_tpu {gof.counts}")
+    assert port.counts == gof.counts
+    split = ("classic", "quantile only")
+    for a, b in zip(port.breakdown, gof.breakdown):
+        print(", ".join(f"{k} {a[k]} / {b[k]}" for k in chip_smoke.BREAKDOWN + ("Q",)))
+        assert a["accounted"] and b["accounted"]
+        assert ({k: a[k] for k in chip_smoke.BREAKDOWN if k not in split}
+                == {k: b[k] for k in chip_smoke.BREAKDOWN if k not in split}), (a, b)
+        assert a["classic"] + a["quantile only"] == b["classic"] + b["quantile only"], (a, b)
+        assert abs(a["classic"] - b["classic"]) <= 2, (a, b)
+        assert a["Q"] == pytest.approx(b["Q"], rel=1e-2), (a, b)
+    first, reset = gof.breakdown
+    assert first["dropped"] > 0 and first["splits"] > 0 and first["clones"] > 0, first
+    assert reset["pruned opacity"] > 0 and reset["after"] > 0, reset
+    active0 = ttrain.load_checkpoint(ckpt)[2].active
+    for it in SH3_CALLS:
+        tp, st, gs, _ = ttrain.load_checkpoint(str(root / "port_sh3" / f"chkpnt{it}.pkl"))
+        jtp, jst, jgs, _ = ttrain.load_checkpoint(str(root / "gof_sh3" / f"chkpnt{it}.pkl"))
+        assert torch.equal(gs.active, jgs.active), it
+        kept = jgs.active.clone()
+        kept[active0.shape[0]:] = False
+        kept[:active0.shape[0]] &= active0
+        for f in ttrain.GAUSS_FIELDS:
+            errs = {}
+            for m, got, want in (("params", getattr(tp.gauss, f), getattr(jtp.gauss, f)),
+                                 ("mu", getattr(st.mu, f), getattr(jst.mu, f)),
+                                 ("nu", getattr(st.nu, f), getattr(jst.nu, f))):
+                got, want = (x[kept].detach().double().numpy() for x in (got, want))
+                errs[m] = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+            print(f"{it} {f} over the kept gaussians, of the largest: " + ", ".join(
+                f"{m} {e:.3e}" for m, e in errs.items()))
+            if it == SH3_CALLS[0]:
+                if f in SH3_HELD["params"]:
+                    assert errs["params"] <= 1e-5, (it, f, errs)
+                if f in SH3_HELD["moments"]:
+                    assert max(errs["mu"], errs["nu"]) <= BOUND, (it, f, errs)
 
 
 # a quantity of the port's f32 step passes where it lies within BOUND of the
@@ -866,6 +1025,8 @@ def ladder_run(rung: int, run: str, out: str, extra: tuple = ()) -> dict:
                   *extra])
     rec = {"rung": rung, "run": run, "gof_tpu": os.path.dirname(jtrain.__file__),
            "wall": time.time() - t0, "steps": len(spy.steps), "resets": spy.resets,
+           "keys_max": max((st.get("keys", 0) for st in spy.steps), default=0),
+           "skipped": sum(st.get("skipped", 0) for st in spy.steps), "builds": spy.builds,
            "densify": [{"iter": it, "use_size": size, **b}
                        for (it, size), b in zip(spy.densify, spy.breakdown)]}
     with open(os.path.join(out, "ladder.json"), "w") as f:
@@ -878,9 +1039,12 @@ def ladder_table(paths: list) -> list:
     chip_smoke.py --ladder's ladder_card.json (the card's runs): per run,
     the active count after the densify calls at 1/4, 1/2, 3/4 and the last,
     the breakdown's totals, the classic and the quantile-only selections as
-    shares of the active counts before the calls, and the wall time; and
-    for each two runs of one rung, how far their active counts part.
-    Returns the rows (also printed)."""
+    shares of the active counts before the calls, the wall time, the peak
+    keys per step where recorded, and gof_tpu's key capacity at each build
+    and its skipped steps; and for each two runs of one rung (or two
+    card runs of one full-size key), how far their active counts part, over
+    all calls and over those after the second reset. Returns the rows
+    (also printed)."""
     import itertools
     import json
 
@@ -893,22 +1057,31 @@ def ladder_table(paths: list) -> list:
             which = "at HEAD" if os.path.samefile(rec["gof_tpu"], here) else (
                 f"from {os.path.dirname(rec['gof_tpu'])}")
             runs.append((f"rung {rec['rung']} {rec['run']}" + (
-                f" (gof_tpu {which})" if rec["run"] == "gof" else ""), rec))
-        else:
-            runs += [(f"{k} card ({rec['card']})", v) for k, v in rec.items() if k != "card"]
+                f" (gof_tpu {which})" if rec["run"] == "gof" else ""), rec["rung"], rec))
+        else:  # r<N>: rung N; full_run, full_r<N>: the full-size scene
+            runs += [(f"{k} card ({rec['card']})", int(k[1:]) if k[1:].isdigit() else k, v)
+                     for k, v in rec.items() if k != "card"]
     rows = []
-    for (name, rec), (other, want) in itertools.combinations(runs, 2):
+    for (name, rung, rec), (other, rung_b, want) in itertools.combinations(runs, 2):
         a, b = rec["densify"], want["densify"]
-        if [c["iter"] for c in a] != [c["iter"] for c in b]:
-            continue  # another rung
-        part = [abs(x["after"] - y["after"]) / y["after"] for x, y in zip(a, b)]
+        if rung != rung_b or [c["iter"] for c in a] != [c["iter"] for c in b]:
+            continue  # another rung or scene
+        part = [abs(x["after"] - y["after"]) / max(y["after"], 1) for x, y in zip(a, b)]
         worst = int(np.argmax(part))
         row = (f"{name} against {other}: active after each call parts by at most "
                f"{part[worst]:.4f} (call {worst + 1} of {len(a)}, step {a[worst]['iter']}: "
                f"{a[worst]['after']} / {b[worst]['after']}), at the last by {part[-1]:.4f}")
+        resets = rec.get("resets", [])
+        if len(resets) >= 2:  # the calls after the second reset
+            late = [i for i, c in enumerate(a) if c["iter"] > resets[1]]
+            if late:
+                w = max(late, key=lambda i: part[i])
+                row += (f"; after the second reset (step {resets[1]}) by at most {part[w]:.4f} "
+                        f"(call {w + 1}, step {a[w]['iter']}: {a[w]['after']} / "
+                        f"{b[w]['after']})")
         print(row)
         rows.append(row)
-    for name, rec in runs:
+    for name, _, rec in runs:
         d = rec["densify"]
         n = len(d)
         at = [d[max(int(round(n * q)) - 1, 0)] for q in (0.25, 0.5, 0.75, 1.0)]
@@ -919,9 +1092,72 @@ def ladder_table(paths: list) -> list:
             f"{k} {v}" for k, v in tot.items()) + f"; classic {tot['classic'] / before:.4f}, "
             f"quantile only {tot['quantile only'] / before:.4f} of the active before; "
             f"all accounted {all(c['accounted'] for c in d)}; wall {rec['wall']:.1f} s")
+        if rec.get("keys_max"):
+            row += f"; keys per step at most {rec['keys_max']}"
+        if rec.get("builds"):  # gof_tpu's loop: its key capacity by build, its skipped steps
+            caps = [(c["iter"], c["keys"]) for c in rec["builds"]]
+            moves = [(it, "grew" if k > k0 else "right-sized", k)
+                     for (_, k0), (it, k) in zip(caps, caps[1:]) if k != k0]
+            row += (f"; key capacity {caps[0][1] if caps else None}, then " + (", ".join(
+                f"{how} to {k} at {it}" for it, how, k in moves) or "unchanged")
+                + f"; {rec['skipped']} steps skipped")
         print(row)
         rows.append(row)
     return rows
+
+
+def ladder_ops(path: str, scene: str) -> dict:
+    """The ladder's narrowing to one operation (ROADMAP C27) at the state of
+    one checkpoint of gof_tpu's, on the CPU: gof_tpu's and the port's
+    reset_opacity on its params, and their densify_and_prune on its params,
+    statistics and moments with the same draws (gof_tpu's, from
+    PRNGKey(0) as its loop's first call takes them), at the loop's
+    thresholds, the size prune on and the scene's extent. Returns (and
+    prints) the largest difference of the reset opacities (of their
+    largest) and how many differ, each package's densify_breakdown record
+    and report, whether the active sets are equal, and the largest
+    difference of each param over them (of the field's largest)."""
+    from gof_tpu import config as jconfig
+    from gof_tpu_torch.data import scene as scene_lib
+
+    jtp, jst, jgs, it = jtrain.load_checkpoint(path)
+    tp, st, gs, _ = ttrain.load_checkpoint(path)
+    opt = jconfig.OptimizationParams()
+    kw = dict(max_grad=opt.densify_grad_threshold, min_opacity=0.05,
+              extent=scene_lib.Scene(scene, "", shuffle=False).cameras_extent,
+              percent_dense=opt.percent_dense)
+    use_size = True  # every call of rung 3 after its first reset
+    out = {"iter": it, "active": int(gs.active.sum())}
+    want = np.asarray(jax.jit(jgm.reset_opacity)(jtp.gauss, jgs.filter_3d).opacity)
+    got = tgm.reset_opacity(tp.gauss, gs.filter_3d).opacity.numpy()
+    act = gs.active.numpy()
+    out["reset"] = (float(np.abs(got - want)[act].max() / np.abs(want[act]).max()),
+                    int((got != want)[act].sum()))
+    _, sub = jax.random.split(jax.random.PRNGKey(0))
+    cap = tp.gauss.xyz.shape[0]
+    noise = tuple(torch.from_numpy(np.array(jax.random.normal(k, (cap, 3))))
+                  for k in jax.random.split(sub, 3))
+    jres = jax.device_get(jax.jit(lambda p, g, o, k: jgm.densify_and_prune(
+        p, g, o, k, *kw.values(), use_size))(jtp.gauss, jgs, jst, sub))
+    res = tgm.densify_and_prune(tp.gauss, gs, st, noise, *kw.values(), use_size)
+    for name, (p, g, r) in (("gof", (jres[0], jres[1], jres[3])),
+                            ("port", (res.params, res.state, res.report))):
+        out[name] = chip_smoke.densify_breakdown(jtp.gauss, jgs, p, g, r, *kw.values(), use_size)
+        out[name]["report"] = [int(x) for x in r]
+    new_act = np.asarray(jres[1].active)
+    out["same active"] = bool((res.state.active.numpy() == new_act).all())
+    out["params"] = {f: float(np.abs(getattr(res.params, f).numpy()[new_act]
+                                     - np.asarray(getattr(jres[0], f))[new_act]).max()
+                              / np.abs(np.asarray(getattr(jres[0], f))[new_act]).max())
+                     for f in ttrain.GAUSS_FIELDS}
+    print(f"{path} (iteration {it}, {out['active']} active): reset_opacity differs by at most "
+          f"{out['reset'][0]:.3e} of the largest, at {out['reset'][1]} gaussians")
+    for name in ("gof", "port"):
+        print(f"  densify_and_prune, {name}: report {out[name]['report']}; " + ", ".join(
+            f"{k} {out[name][k]}" for k in chip_smoke.BREAKDOWN) + f", Q {out[name]['Q']:.6e}")
+    print(f"  the same active set {out['same active']}; params over it, of the largest: "
+          + ", ".join(f"{f} {v:.3e}" for f, v in out["params"].items()))
+    return out
 
 
 if __name__ == "__main__":
@@ -929,20 +1165,30 @@ if __name__ == "__main__":
     #     --rung N --run gof|port_gof_noise|port --out DIR [--threads T]
     #     [--train_args ARG ...]
     # or --table LADDER_JSON [...]: the ladder's table (ladder_table)
+    # or --ops CHECKPOINT [...] --scene DIR: the reset and densify of both
+    #     packages at each checkpoint's state (ladder_ops)
     import argparse
 
     jax.config.update("jax_platforms", "cpu")
-    parser = argparse.ArgumentParser(description="one CPU run of the C27 ladder, or its table")
+    parser = argparse.ArgumentParser(description="one CPU run of the C27 ladder, its table, or "
+                                     "its narrowing at checkpoints")
     parser.add_argument("--rung", type=int)
     parser.add_argument("--run", choices=("gof", "port_gof_noise", "port"))
     parser.add_argument("--out")
     parser.add_argument("--threads", type=int, default=2, help="the port's torch threads")
     parser.add_argument("--table", nargs="+", metavar="LADDER_JSON")
+    parser.add_argument("--ops", nargs="+", metavar="CHECKPOINT")
+    parser.add_argument("--scene", help="with --ops: the checkpoints' scene")
     parser.add_argument("--train_args", nargs=argparse.REMAINDER, default=[],
                         help="train arguments after the rung's (last)")
     ns = parser.parse_args()
     if ns.table:
         ladder_table(ns.table)
+    elif ns.ops:
+        if ns.scene is None:
+            parser.error("--ops needs --scene")
+        for ckpt in ns.ops:
+            ladder_ops(ckpt, ns.scene)
     else:
         if ns.rung is None or ns.run is None or ns.out is None:
             parser.error("--rung, --run and --out are required without --table")
