@@ -57,8 +57,9 @@ its bench once on one CUDA GPU.
    build_train_step (with and without the regularizers) leaving a
    bit-equal state; stale limits (1 chunk) on a translucent copy: live_bad
    equal to the CPU's, the step a no-op that grows the bad tiles' bounds;
-   at view 0 the step's layers with and without the limit (CUDA events),
-   the whole step (host clock) and device busy / idle (torch.profiler), K1,
+   at view 0 the whole step with and without the limit (host clock),
+   device busy / idle (torch.profiler) and each layer (the program's
+   spans), K1,
    K3 and K4 on the compacted list against their plain versions; the xla
    backend and the dense oracle on the card against the CUDA path (images
    and the rasterizer inputs' gradients);
@@ -142,12 +143,13 @@ its bench once on one CUDA GPU.
 11. the bench design point: bench.py's model, look-at camera and seeded
    random ground truth, through the port's build_train_step in bench's two
    phases (statistics on, regularizers off, step 5000; statistics off,
-   regularizers on, step 20000): the median step time, the time of each
-   layer of the step by CUDA events, the device idle share from
-   torch.profiler, and all four kernels held against their plain versions
-   at that view's shapes: K1 in the instance the phase launches (without
-   the regularizers in the densify phase, with them in the regularize
-   phase; as in 5, and equal to the step's own forward), K3 on that
+   regularizers on, step 20000): the median step time, the device idle
+   share and the time of each layer of the program's step from
+   torch.profiler and its spans, and all four kernels held against their
+   plain versions at that view's shapes: K1 in the instance the phase
+   launches (without the regularizers in the densify phase, with them in
+   the regularize phase; as in 5, and equal to the step's own forward), K3
+   on that
    forward's output in the phase's (REG, STATS) instance and the
    one with the statistics flipped (its gaussian-id stream exactly, its
    recomputed T equal to the forward's at every pixel, bit-identical across
@@ -1282,8 +1284,8 @@ def densify_card_vs_cpu(src: str, inputs, smi: str) -> list:
     profile_steps(step, (*busy, gt, DENSIFY_AT[-1], camera, bg))
     # the step's instance: statistics and regularizers on (build_train_step's
     # defaults); the kernels' inputs are one more step's, cut at its layers
-    _, ins, _, _ = step_layers(tp.gauss, gs, st, tx, gt, camera, opt, model_cfg, True, True,
-                               DENSIFY_ITERS + 2, reps=1)
+    ins, _, _ = step_inputs(tp.gauss, gs, st, tx, gt, camera, opt, model_cfg, True, True,
+                            DENSIFY_ITERS + 2)
     if ins["P"] != 2 * cap:
         raise RuntimeError(f"the grown pool's kernel inputs hold {ins['P']} slots")
     print(f"  kernels against their plain versions on the grown pool ({2 * cap} slots):")
@@ -1483,10 +1485,10 @@ def liveness_stale(src: str, state, smi: str, cpu_views=(0, TRAIN_VIEWS - 1)) ->
 
 def liveness_kernels(src: str, state, smi: str, launches) -> list:
     """(d) At view 0 of the trained state, with lim = live_counts +
-    LIVE_MARGIN_CHUNKS: each layer of the step without and with the limit
-    by CUDA events (step_layers), the whole step on the host clock (median
-    of 5, in turns), device busy and idle from torch.profiler; K2 and K1 (on
-    the compacted list) and K3 and K4 (on its backward) against their plain
+    LIVE_MARGIN_CHUNKS: the whole step without and with the limit on the
+    host clock (median of 5, in turns), device busy and idle and each layer
+    from torch.profiler and the program's spans; K2 and K1 (on the
+    compacted list) and K3 and K4 (on its backward) against their plain
     versions. Returns their kernels-line entries."""
     from gof_tpu_torch import config as config_lib
     from gof_tpu_torch import train
@@ -1497,16 +1499,11 @@ def liveness_kernels(src: str, state, smi: str, launches) -> list:
     lim = live_render(st0, cam).live_counts + binning.LIVE_MARGIN_CHUNKS
     step_i, bg = LIVE_ITERS + 1, torch.zeros(3, device="cuda")
     print(f"liveness at view 0 ({cam.width}x{cam.height}), card {smi}:")
-    layers = {}
-    for label, row in (("without the limit", None), ("with the limit", lim)):
-        g, st, s = state_copy(*st0, device="cuda")
-        layers[label], ins, _, _ = step_layers(g.gauss, s, st, tx, gt, cam, opt, model_cfg,
-                                               False, True, step_i, lim=row)
-        print(f"  layers {label} (CUDA events, median of 5, ms): total "
-              f"{sum(layers[label].values()):.3f}; keys {ins['keys']}, blended list "
-              f"{int(ins['b'].num_keys)}, compact rows {ins['demand']}")
-        for name, v in layers[label].items():
-            print(f"    {name}: {v:.3f}")
+    g, st, s = state_copy(*st0, device="cuda")
+    ins, _, _ = step_inputs(g.gauss, s, st, tx, gt, cam, opt, model_cfg, False, True, step_i,
+                            lim=lim)
+    print(f"  with the limit: keys {ins['keys']}, blended list {int(ins['b'].num_keys)}, "
+          f"compact rows {ins['demand']}")
     step = train.build_train_step(opt, model_cfg, config_lib.PipelineParams(), tx,
                                   with_stats=False)
     ms = {"without": [], "with": []}
@@ -3132,14 +3129,14 @@ def bench_state():
     return g, s, cam, torch.from_numpy(gt).cuda()
 
 
-def step_layers(g, s, st, tx, gt, cam, opt, model_cfg, with_stats, with_reg, step_i, reps=5,
-                lim=None):
-    """The train step cut at its layers (build_train_step's operations, the
-    rasterize Function opened up), each between CUDA events; medians over
-    `reps` steps. With a liveness limit `lim` ([NTILES] chunks) the sorted
-    list is compacted (binning.compact_live, its host read included) before
-    the payload gather. Returns (layer ms, the backward kernels' inputs of
-    the last step, the state)."""
+def step_inputs(g, s, st, tx, gt, cam, opt, model_cfg, with_stats, with_reg, step_i, lim=None):
+    """One train step cut at its layers (build_train_step's operations, the
+    rasterize Function opened up), for the kernels' inputs; the layers'
+    times come from the program's own spans (profile_run). With a liveness
+    limit `lim` ([NTILES] chunks) the sorted list is compacted
+    (binning.compact_live) before the payload gather. Returns (the
+    backward kernels' inputs of the step, the optimizer state, the
+    GaussianState)."""
     from gof_tpu_torch import train
     from gof_tpu_torch.model import gaussians as gm
     from gof_tpu_torch.ops import binning, quadrics, tiled_ref
@@ -3150,89 +3147,76 @@ def step_layers(g, s, st, tx, gt, cam, opt, model_cfg, with_stats, with_reg, ste
     ntx, nty = binning.tile_grid(cam.width, cam.height)
     ntiles = ntx * nty
     bg = torch.zeros(3, device="cuda")
-    times = {}
-    for _ in range(reps):
-        evs = []
-
-        def mark(name):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            evs.append((name, e))
-
-        torch.cuda.synchronize()
-        mark("start")
-        leaves = [getattr(g, f).requires_grad_(True) for f in train.GAUSS_FIELDS]
-        scales_f = gm.filtered_scaling(g, s.filter_3d)
-        opac_f = gm.filtered_opacity(g, s.filter_3d)
-        shs = train.masked_shs(g, min(step_i // 1000, sh), sh)
-        pre = quadrics.preprocess(g.xyz, scales_f, g.rotation, shs, sh, cam,
-                                  model_cfg.kernel_size, s.active, opacities=opac_f)
-        mark("preprocess")
-        with torch.no_grad():
-            rects = binning.gaussian_rects(pre.mean2d, pre.radius, pre.valid, ntx, nty,
-                                           radius_xy=pre.radius_xy)
-            b = binning.bin_gaussians(pre.depth, rects, ntx, nty, mean2d=pre.mean2d,
-                                      radius=pre.radius)
-        mark("binning (class layout, K2 expand, sorts; slot-demand read)")
-        if lim is not None:
-            b_full = b
-            b = binning.compact_live(b_full, lim, P)[0]
-            mark("compaction (live prefixes; live-demand read)")
-        coef = pre.coef.detach()
-        op_eff = opac_f * torch.where(pre.valid, coef, torch.zeros_like(coef))
-        with torch.no_grad():
-            payload = rz.build_payload16(pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0, b,
-                                         conic=pre.conic if with_stats else None,
-                                         mean2d=pre.mean2d if with_stats else None)
-            meta = rz._meta_vec(cam.focal_x, cam.focal_y, bg, cam.width, cam.height)
-        mark("payload gather")
-        with torch.no_grad():
-            fout = rz.rasterize_fwd(payload, b, meta, ntx, ntiles, with_reg=with_reg)
-        mark("K1 forward blend")
-        tile_out = fout.detach().requires_grad_(True)
-        image = tiled_ref.assemble_image(tile_out, ntx, nty, cam.width, cam.height)
-        loss = train.train_loss(image[:9], gt, cam, opt, step_i, with_reg)[0]
-        loss.backward(inputs=[tile_out])
-        gout = tile_out.grad.contiguous()
-        mark("loss and its backward")
-        last = fout[ntiles - 1]
-        demand = int(last[rz.CH_CSTART, 0] + last[rz.CH_LIVEC, 0] * rz.CHUNK_SIZE)
-        half = (cam.width / 2.0, cam.height / 2.0)
-        rows, gid = rz.bwd_rows(payload, fout, gout, b, meta, ntx, ntiles, *half,
-                                with_stats=with_stats, with_reg=with_reg,
-                                compact_cap=max(demand, rz.CHUNK_SIZE))
-        mark("K3 backward blend (compact-demand read)")
-        per_g, per_s = rz.reduce_compact_rows(rows, gid, P)
-        mark("K4 reduce (count, scan, fill, reduce)")
-        dM, du0 = rz.quadric_chain(per_g, pre.v2g_M, pre.v2g_u0)
-        torch.autograd.backward([pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0],
-                                [per_g[:, 0:3], per_g[:, 3], dM, du0])
-        mark("quadric chain + preprocess backward")
-        with torch.no_grad():
-            radii = torch.where(pre.valid, pre.radius, torch.zeros_like(pre.radius))
-            cg = per_s if per_s is not None else torch.zeros((P, 3), device="cuda")
-            s = gm.add_densification_stats(s, cg, radii, radii > 0)
-            upd, st = tx.update(gm.GaussianParams(*[x.grad for x in leaves]), st)
-            for x, f in zip(leaves, train.GAUSS_FIELDS):
-                x.add_(getattr(upd, f))
-                x.grad = None
-        mark("Adam + statistics")
-        evs[-1][1].synchronize()
-        for (_, e0), (name, e1) in zip(evs, evs[1:]):
-            times.setdefault(name, []).append(e0.elapsed_time(e1))
+    leaves = [getattr(g, f).requires_grad_(True) for f in train.GAUSS_FIELDS]
+    scales_f = gm.filtered_scaling(g, s.filter_3d)
+    opac_f = gm.filtered_opacity(g, s.filter_3d)
+    shs = train.masked_shs(g, min(step_i // 1000, sh), sh)
+    pre = quadrics.preprocess(g.xyz, scales_f, g.rotation, shs, sh, cam,
+                              model_cfg.kernel_size, s.active, opacities=opac_f)
+    with torch.no_grad():
+        rects = binning.gaussian_rects(pre.mean2d, pre.radius, pre.valid, ntx, nty,
+                                       radius_xy=pre.radius_xy)
+        b = binning.bin_gaussians(pre.depth, rects, ntx, nty, mean2d=pre.mean2d,
+                                  radius=pre.radius)
+    keys = int(b.num_keys)
+    if lim is not None:
+        b = binning.compact_live(b, lim, P)[0]
+    coef = pre.coef.detach()
+    op_eff = opac_f * torch.where(pre.valid, coef, torch.zeros_like(coef))
+    with torch.no_grad():
+        payload = rz.build_payload16(pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0, b,
+                                     conic=pre.conic if with_stats else None,
+                                     mean2d=pre.mean2d if with_stats else None)
+        meta = rz._meta_vec(cam.focal_x, cam.focal_y, bg, cam.width, cam.height)
+        fout = rz.rasterize_fwd(payload, b, meta, ntx, ntiles, with_reg=with_reg)
+    tile_out = fout.detach().requires_grad_(True)
+    image = tiled_ref.assemble_image(tile_out, ntx, nty, cam.width, cam.height)
+    loss = train.train_loss(image[:9], gt, cam, opt, step_i, with_reg)[0]
+    loss.backward(inputs=[tile_out])
+    gout = tile_out.grad.contiguous()
+    last = fout[ntiles - 1]
+    demand = int(last[rz.CH_CSTART, 0] + last[rz.CH_LIVEC, 0] * rz.CHUNK_SIZE)
+    half = (cam.width / 2.0, cam.height / 2.0)
+    rows, gid = rz.bwd_rows(payload, fout, gout, b, meta, ntx, ntiles, *half,
+                            with_stats=with_stats, with_reg=with_reg,
+                            compact_cap=max(demand, rz.CHUNK_SIZE))
+    per_g, per_s = rz.reduce_compact_rows(rows, gid, P)
+    dM, du0 = rz.quadric_chain(per_g, pre.v2g_M, pre.v2g_u0)
+    torch.autograd.backward([pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0],
+                            [per_g[:, 0:3], per_g[:, 3], dM, du0])
+    with torch.no_grad():
+        radii = torch.where(pre.valid, pre.radius, torch.zeros_like(pre.radius))
+        cg = per_s if per_s is not None else torch.zeros((P, 3), device="cuda")
+        s = gm.add_densification_stats(s, cg, radii, radii > 0)
+        upd, st = tx.update(gm.GaussianParams(*[x.grad for x in leaves]), st)
+        for x, f in zip(leaves, train.GAUSS_FIELDS):
+            x.add_(getattr(upd, f))
+            x.grad = None
     ex = binning.class_expansion(pre.depth.detach(), rects, ntiles, pre.mean2d.detach(),
                                  pre.radius.detach())
-    keys = int((b_full if lim is not None else b).num_keys)
     tbl = torch.stack(ex.cols).contiguous()
     gidx = torch.clamp(ex.gidx, 0, P - 1).to(torch.int32).contiguous()
-    with torch.no_grad():  # the last step's payload with and without the statistics columns
+    with torch.no_grad():  # the step's payload with and without the statistics columns
         full = payload if with_stats else rz.build_payload16(
             pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0, b, conic=pre.conic, mean2d=pre.mean2d)
     payloads = {True: full, False: full[:rz.P_COLS].contiguous()}
     ins = dict(payload=payload, payloads=payloads, b=b, meta=meta, ntx=ntx, ntiles=ntiles,
                fout=fout, gout=gout, demand=demand, half=half, P=P, rows=rows, gid=gid,
                expand=(tbl, gidx), keys=keys)
-    return {k: statistics.median(v) for k, v in times.items()}, ins, st, s
+    return ins, st, s
+
+
+def span_layers(n: int) -> dict:
+    """The program's own split of the last n train steps (utils/trace.py's
+    spans, recorded while a profiler ran them): span name -> (device ms a
+    step, self device ms a step, spans a step); empty without them."""
+    from gof_tpu_torch.utils import trace
+
+    sm = trace.summary("step", n)
+    if sm["units"] < n or sm["spans"]["step"]["device_ms"] is None:
+        return {}
+    return {k: (v["device_ms"] / n, v["self_device_ms"] / n, v["count"] / n)
+            for k, v in sm["spans"].items()}
 
 
 def profile_run(run, n: int):
@@ -3259,12 +3243,17 @@ def profile_run(run, n: int):
     for e in sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
         print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms/step x{e.count // n:4d}  "
               f"{e.key[:80]}")
+    layers = span_layers(n)
+    if layers:
+        print("  layers (the program's spans; device ms/step [self], spans/step): " + "; ".join(
+            f"{k} {d:.3f} [{sf:.3f}] x{c:g}" for k, (d, sf, c) in layers.items()))
     return idle, out
 
 
 def profile_steps(step, args, n: int = 3):
     """profile_run over n steps of `step` from args (tp, st, s, gt, step_i,
-    cam, bg). Returns (idle share or None, the state after them)."""
+    cam, bg), with their layers from the program's spans. Returns (idle
+    share or None, the state after them)."""
     tp, st, s, gt, step_i, cam, bg = args
 
     def run():
@@ -3491,12 +3480,8 @@ def bench_phase(label: str, with_stats: bool, with_reg: bool, step_i: int, launc
           f"key slots {int(m['num_keys'])}, compact rows {int(m['compact_demand'])}")
     if not np.isfinite(loss):
         raise RuntimeError("non-finite bench loss")
-    layers, ins, st, s = step_layers(tp.gauss, s, st, tx, gt, cam, opt, model_cfg, with_stats,
-                                     with_reg, step_i)
-    total = sum(layers.values())
-    print(f"  layers (CUDA events, median of 5, ms): total {total:.3f}")
-    for name, v in layers.items():
-        print(f"    {name}: {v:.3f}")
+    ins, st, s = step_inputs(tp.gauss, s, st, tx, gt, cam, opt, model_cfg, with_stats, with_reg,
+                             step_i)
     profile_steps(step, (tp, st, s, gt, step_i, cam, bg))
     return ins
 
@@ -3556,11 +3541,9 @@ def port_bench_phase(smi: str) -> list:
         setup = ctx["setup"]
 
         def hold(tp, st, s, gt, cam, step_i, lim=None):
-            layers, ins, _, _ = step_layers(tp.gauss, s, st, setup.tx, gt, cam, setup.opt,
-                                            setup.model_cfg, ctx["with_stats"], ctx["with_reg"],
-                                            step_i, reps=3, lim=lim)
-            print(f"  layers (CUDA events, median of 3, ms): total {sum(layers.values()):.3f}; "
-                  + "; ".join(f"{n} {v:.3f}" for n, v in layers.items()))
+            ins, _, _ = step_inputs(tp.gauss, s, st, setup.tx, gt, cam, setup.opt,
+                                    setup.model_cfg, ctx["with_stats"], ctx["with_reg"], step_i,
+                                    lim=lim)
             print(f"  kernels against their plain versions at {point}'s shapes "
                   f"({ins['keys']} keys, blended list {int(ins['b'].num_keys)}, "
                   f"{ins['demand']} compact rows):")
@@ -4160,13 +4143,17 @@ def trained_kernels(run: str, trained: dict, label: str, smi: str) -> list:
             row = live_render((tp, st, gs), c).live_counts + binning.LIVE_MARGIN_CHUNKS
             print(f"  {label} {phase}: the run left no cache row; bounds from a render")
         point = f"{label} {phase}"
-        layers, ins, _, _ = step_layers(tp.gauss, gs, st, tx, g, c, opt, cfg, with_stats,
-                                        with_reg, it, reps=3,
-                                        lim=None if row is None else row[:ntiles])
-        print(f"{point} (chkpnt{it}, {int(gs.active.sum())} active of {gs.active.shape[0]}, "
-              f"{ins['keys']} keys, blended list {int(ins['b'].num_keys)}, {ins['demand']} "
-              f"compact rows; card {smi}): layers (CUDA events, median of 3, ms): total "
-              f"{sum(layers.values()):.3f}; " + "; ".join(f"{n} {v:.3f}" for n, v in layers.items()))
+        lim_c = None if row is None else row[:ntiles]
+        print(f"{point} (chkpnt{it}, {int(gs.active.sum())} active of {gs.active.shape[0]}; "
+              f"card {smi}):")
+        step = train.build_train_step(opt, cfg, config_lib.PipelineParams(), tx,
+                                      with_stats=with_stats, with_reg=with_reg)
+        _, (tp, st, gs) = profile_steps(lambda *a: step(*a, lim=lim_c),
+                                        (tp, st, gs, g, it, c, torch.zeros(3, device="cuda")))
+        ins, _, _ = step_inputs(tp.gauss, gs, st, tx, g, c, opt, cfg, with_stats, with_reg, it,
+                                lim=lim_c)
+        print(f"  {ins['keys']} keys, blended list {int(ins['b'].num_keys)}, {ins['demand']} "
+              "compact rows")
         held = train_kernels(ins, point, with_stats, with_reg, launches)
         held[0]["name"] = f"expand ({point})"
         kernels += held

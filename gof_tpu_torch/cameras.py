@@ -15,6 +15,7 @@ import torch
 
 from . import transforms
 from .constants import CAMERA_ZFAR, CAMERA_ZNEAR
+from .utils import trace
 
 
 @dataclass
@@ -32,11 +33,15 @@ class Camera:
     # twice; divide two f32 tensors to round once, as gof_tpu does
     @property
     def focal_x(self) -> torch.Tensor:
-        return self.tan_fovx.new_tensor(float(self.width)) / (2.0 * self.tan_fovx)
+        with trace.copy("focal"):
+            w = self.tan_fovx.new_tensor(float(self.width))
+        return w / (2.0 * self.tan_fovx)
 
     @property
     def focal_y(self) -> torch.Tensor:
-        return self.tan_fovy.new_tensor(float(self.height)) / (2.0 * self.tan_fovy)
+        with trace.copy("focal"):
+            h = self.tan_fovy.new_tensor(float(self.height))
+        return h / (2.0 * self.tan_fovy)
 
     def to(self, device: torch.device | str) -> Camera:
         """This camera with its matrices on `device` (numpy arrays taken as

@@ -33,7 +33,7 @@ from ..ops import binning, integrate, quadrics
 from ..ops import rasterize as rz
 from ..parallel import sharding
 from ..transforms import ndc_to_pixel, project_points, quat_to_rot
-from ..utils import ply
+from ..utils import ply, trace
 from . import tetmesh
 
 # the eight corners of the reference's trimesh box scaled x2: (+-1)^3
@@ -133,6 +133,7 @@ class FieldEvaluator:
             )
         self._replicas = {sharding.as_device(d): {k: v.to(d) for k, v in self.model.items()}
                           for d in [self.device, *self.devices]}
+        self.calls = 0  # alpha() calls made: the id of the next `field_call` unit
 
     @torch.no_grad()
     def view_inputs(self, points: torch.Tensor, camera):
@@ -142,34 +143,46 @@ class FieldEvaluator:
         m = self._replicas[sharding.as_device(points.device)]
         camera = camera.to(points.device)
         ntx, nty = binning.tile_grid(camera.width, camera.height)
-        pre = quadrics.preprocess(m["xyz"], m["scales"], m["rot"],
-                                  m["xyz"].new_zeros((m["xyz"].shape[0], 1, 3)), 0, camera,
-                                  self.kernel_size, m["active"])
-        rects = binning.gaussian_rects(pre.mean2d, pre.radius, pre.valid, ntx, nty,
-                                       radius_xy=pre.radius_xy)
-        b = binning.bin_gaussians(pre.depth, rects, ntx, nty, mean2d=pre.mean2d,
-                                  radius=pre.radius)
-        op_eff = m["op"] * torch.where(pre.valid, pre.coef, torch.zeros_like(pre.coef))
-        payload = rz.build_payload16(pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0, b)
-        return payload, b, integrate.bin_points(points, camera, ntx, nty)
+        with trace.span("preprocess"):
+            pre = quadrics.preprocess(m["xyz"], m["scales"], m["rot"],
+                                      m["xyz"].new_zeros((m["xyz"].shape[0], 1, 3)), 0, camera,
+                                      self.kernel_size, m["active"])
+            rects = binning.gaussian_rects(pre.mean2d, pre.radius, pre.valid, ntx, nty,
+                                           radius_xy=pre.radius_xy)
+        with trace.span("binning"):
+            b = binning.bin_gaussians(pre.depth, rects, ntx, nty, mean2d=pre.mean2d,
+                                      radius=pre.radius)
+        with trace.span("payload"):
+            op_eff = m["op"] * torch.where(pre.valid, pre.coef, torch.zeros_like(pre.coef))
+            payload = rz.build_payload16(pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0, b)
+        with trace.span("point_bins"):
+            pbins = integrate.bin_points(points, camera, ntx, nty)
+        return payload, b, pbins
 
     def _points(self, points) -> torch.Tensor:
         return torch.as_tensor(np.asarray(points, np.float32), device=self.device)
 
     def alpha(self, points: np.ndarray, cameras=None) -> np.ndarray:
         """field(x) = 1 - min over views of (1 - T_view(x))
-        (evaluage_alpha, extract_mesh.py:16-34), as a numpy array."""
+        (evaluage_alpha, extract_mesh.py:16-34), as a numpy array. One
+        `field_call` unit of the program's spans (utils/trace.py), a
+        `field_view` span per camera, tagged with its index."""
         cams = self.cameras if cameras is None else cameras
 
         def shard_alpha(pts: torch.Tensor) -> torch.Tensor:
             n = pts.shape[0]
             final_alpha = torch.ones(n, dtype=torch.float32, device=pts.device)
-            for cam in cams:
-                T = integrate.integrate_transmittance(*self.view_inputs(pts, cam), n)
-                final_alpha = torch.minimum(final_alpha, 1.0 - T)
+            for k, cam in enumerate(cams):
+                with trace.span("field_view", tag=k):
+                    payload, b, pbins = self.view_inputs(pts, cam)
+                    with trace.span("k5"):
+                        T = integrate.integrate_transmittance(payload, b, pbins, n)
+                    final_alpha = torch.minimum(final_alpha, 1.0 - T)
             return 1.0 - final_alpha
 
-        return sharding.sharded_min_transmittance(shard_alpha, self.devices)(points)
+        self.calls += 1
+        with trace.unit("field_call", self.calls - 1, self.device):
+            return sharding.sharded_min_transmittance(shard_alpha, self.devices)(points)
 
     @torch.no_grad()
     def _view_color(self, pts: torch.Tensor, camera):

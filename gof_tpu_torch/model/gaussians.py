@@ -18,6 +18,7 @@ import torch
 from .. import sh as sh_lib
 from ..ops import knn
 from ..transforms import quat_to_rot
+from ..utils import trace
 
 FRUSTUM_NEAR = 0.2
 FILTER_SCALE = 0.2**0.5
@@ -78,6 +79,7 @@ def filtered_opacity(params: GaussianParams, filter_3d: torch.Tensor) -> torch.T
     s2 = torch.exp(params.scaling) ** 2
     det1 = torch.prod(s2, dim=-1)
     det2 = torch.prod(s2 + filter_3d[:, None] ** 2, dim=-1)
+    trace.read_in_backward("prod_zeros", det1, det2)
     return torch.sigmoid(params.opacity) * torch.sqrt(det1 / det2)
 
 

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import torch
 
 from ..constants import TILE_H, TILE_W
+from ..utils import trace
 from . import class_gather
 
 CHUNK_SIZE = 128  # gaussians per window of the blend kernel
@@ -121,7 +122,9 @@ def class_expansion(depth, rects: TileRect, ntiles: int, mean2d=None, radius=Non
     counts = (rects.w * rects.h).to(torch.int64)
 
     sizes = class_sizes(ntiles)
-    sizes_t = torch.tensor(sizes, dtype=torch.int64, device=dev)
+    with trace.copy("class_sizes"):
+        sizes_t = torch.tensor(sizes, dtype=torch.int64, device=dev)
+        queries = torch.tensor(sizes + [sizes[-1] + 1], dtype=torch.int64, device=dev)
     # 1. padded size per gaussian: the smallest class size >= count
     cls = torch.clamp(torch.searchsorted(sizes_t, counts, side="left"), max=len(sizes) - 1)
     padded = torch.where(counts > 0, sizes_t[cls], torch.zeros_like(counts))
@@ -140,12 +143,12 @@ def class_expansion(depth, rects: TileRect, ntiles: int, mean2d=None, radius=Non
                  radius.to(torch.float32).contiguous().view(torch.int32)]
     cols = [v[order] for v in cols]
     gs_pad = padded[order]
-    queries = torch.tensor(sizes + [sizes[-1] + 1], dtype=torch.int64, device=dev)
     gb = torch.searchsorted(gs_pad, queries, side="left")  # [nc+1]
     nslots_c = (gb[1:] - gb[:-1]) * sizes_t
     class_start = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                              torch.cumsum(nslots_c, 0)])
-    num_slots = int(class_start[-1])  # the one host read per view
+    with trace.read("slot_demand"):
+        num_slots = int(class_start[-1])  # the one host read per view
     capacity = max(-(-num_slots // CHUNK_SIZE) * CHUNK_SIZE, CHUNK_SIZE)
 
     # 3. per-slot owner: inside class c (stride S_c), rank = local // S_c
@@ -214,13 +217,13 @@ def bin_gaussians(depth, rects: TileRect, ntx: int, nty: int,
     bounds = torch.searchsorted(
         tile_sorted, torch.arange(ntiles + 1, dtype=torch.int64, device=depth.device),
         side="left")
-    return Binning(
-        slot_to_gaussian=gid_sort[perm].to(torch.int32),
-        bounds=bounds.to(torch.int32),
-        num_keys=num_keys,
-        overflow=torch.zeros((), dtype=torch.bool, device=depth.device),
-        num_slots=torch.tensor(ex.num_slots, device=depth.device),
-    )
+    slot_to_gaussian = gid_sort[perm].to(torch.int32)
+    bounds = bounds.to(torch.int32)
+    overflow = torch.zeros((), dtype=torch.bool, device=depth.device)
+    with trace.copy("num_slots"):
+        num_slots = torch.tensor(ex.num_slots, device=depth.device)
+    return Binning(slot_to_gaussian=slot_to_gaussian, bounds=bounds, num_keys=num_keys,
+                   overflow=overflow, num_slots=num_slots)
 
 
 # ---------------------------------------------------------------------------
@@ -278,14 +281,16 @@ def compact_live(b: Binning, lim_chunks: torch.Tensor, num_gaussians: int):
     lim_keys = torch.minimum(seg_len, lim.to(torch.int64))
     truncated = lim_keys < seg_len
     live_start = torch.cat([seg_len.new_zeros(1), torch.cumsum(lim_keys, 0)])
-    demand = int(live_start[-1])  # the one host read
+    with trace.read("live_demand"):
+        demand = int(live_start[-1])  # the one host read
     lcap = max(-(-demand // CHUNK_SIZE) * CHUNK_SIZE, CHUNK_SIZE)
     j = torch.arange(lcap, dtype=torch.int64, device=dev)
     starts = live_start[:-1]
     off = _expand(seg_start - starts, starts, starts < lcap, lcap)
     src = torch.clamp(j + off, 0, b.slot_to_gaussian.shape[0] - 1)
     gid = torch.where(j < demand, b.slot_to_gaussian[src].to(torch.int64), num_gaussians)
-    live_demand = torch.tensor(demand, dtype=torch.int32, device=dev)
+    with trace.copy("live_demand"):
+        live_demand = torch.tensor(demand, dtype=torch.int32, device=dev)
     bc = Binning(slot_to_gaussian=gid.to(torch.int32), bounds=live_start.to(torch.int32),
                  num_keys=live_demand, overflow=b.overflow, num_slots=b.num_slots)
     return bc, truncated, torch.zeros((), dtype=torch.bool, device=dev), live_demand
@@ -332,7 +337,8 @@ def bin_items_aligned(tile_of_item: torch.Tensor, ntiles: int, block: int) -> Al
     seg_len = bounds[1:] - seg_start
     blocks = -(-seg_len // block)
     pad_start = torch.cumsum(blocks * block, 0) - blocks * block
-    cap_pad = int(blocks.sum()) * block  # the one host read
+    with trace.read("point_bins"):
+        cap_pad = int(blocks.sum()) * block  # the one host read
 
     f = torch.arange(cap_pad, device=dev)
     t = torch.searchsorted(pad_start, f, side="right") - 1

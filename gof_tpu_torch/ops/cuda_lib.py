@@ -27,9 +27,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
+
+from ..utils.trace import LaunchCounter  # noqa: F401  (the wrappers' launch counters)
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 EXACT = ("-fmad=false",)
@@ -87,15 +90,6 @@ _SIGNATURES = {
     # device, off, nch, wg, val, cv, base, bstride, ch, out, stream
     "gof_rld": (ctypes.c_int, _PTR, _LL, _LL, _PTR, _LL, _PTR, _LL, _LL, _PTR, _PTR),
 }
-
-
-class LaunchCounter:
-    """Number of times a wrapper launched its CUDA kernel (never counts the
-    plain CPU version). Reset with `launches = 0`."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
 
 
 def find_nvcc() -> str:
@@ -166,9 +160,17 @@ def build_log() -> str:
     return (BUILD_ROOT / source_hash() / "build.log").read_text()
 
 
+# what the first library() call of this process cost: seconds (the sources'
+# hash, finding or building the library, dlopen) and whether it built
+LOAD = {"seconds": None, "built": None}
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    t0 = time.perf_counter()
+    path = BUILD_ROOT / source_hash() / LIB_NAME
+    built = not path.exists()
+    lib = ctypes.CDLL(str(build() if built else path))
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(args)
@@ -177,6 +179,7 @@ def library() -> ctypes.CDLL:
     lib.gof_error_string.restype = ctypes.c_char_p
     lib.gof_reduce_workspace.argtypes = [_LL, _LL]  # P, R -> int32 words
     lib.gof_reduce_workspace.restype = _LL
+    LOAD.update(seconds=time.perf_counter() - t0, built=built)
     return lib
 
 

@@ -18,6 +18,7 @@ import torch
 from .. import sh as sh_lib
 from ..constants import FRUSTUM_NEAR
 from ..transforms import ndc_to_pixel
+from ..utils import trace
 
 
 def _rot_comps(rotation: torch.Tensor):
@@ -151,7 +152,9 @@ def screen_extent(cov2d: torch.Tensor, coef: torch.Tensor, opacities: torch.Tens
     else:
         nsig = torch.full_like(lambda1, 3.0)
     radius = nsig * torch.sqrt(torch.clamp_min(lambda1, 1e-12))
-    radius_xy = nsig[..., None] * torch.sqrt(torch.clamp_min(cov2d[..., [0, 2]], 1e-12))
+    with trace.copy("index"):  # the list index goes to the device
+        c02 = cov2d[..., [0, 2]]
+    radius_xy = nsig[..., None] * torch.sqrt(torch.clamp_min(c02, 1e-12))
     return radius, radius_xy
 
 

@@ -66,6 +66,7 @@ from ..constants import (
     TILE_W,
     TRANSMITTANCE_EPS,
 )
+from ..utils import trace
 from . import cuda_lib
 from .binning import CHUNK_SIZE, Binning
 
@@ -112,12 +113,13 @@ def build_payload16(rgb, op_eff, M, u0, binning: Binning, conic=None, mean2d=Non
 def _meta_vec(focal_x, focal_y, bg, width, height) -> torch.Tensor:
     """[1, 8] f32: fx, fy, bg rgb, width / 2, height / 2, 0."""
     dev = bg.device
-    vals = [torch.as_tensor(focal_x, dtype=torch.float32, device=dev),
-            torch.as_tensor(focal_y, dtype=torch.float32, device=dev),
-            bg[0].to(torch.float32), bg[1].to(torch.float32), bg[2].to(torch.float32),
-            torch.tensor(width / 2.0, dtype=torch.float32, device=dev),
-            torch.tensor(height / 2.0, dtype=torch.float32, device=dev),
-            torch.zeros((), dtype=torch.float32, device=dev)]
+    with trace.copy("meta"):
+        vals = [torch.as_tensor(focal_x, dtype=torch.float32, device=dev),
+                torch.as_tensor(focal_y, dtype=torch.float32, device=dev),
+                bg[0].to(torch.float32), bg[1].to(torch.float32), bg[2].to(torch.float32),
+                torch.tensor(width / 2.0, dtype=torch.float32, device=dev),
+                torch.tensor(height / 2.0, dtype=torch.float32, device=dev),
+                torch.zeros((), dtype=torch.float32, device=dev)]
     return torch.stack(vals)[None, :]
 
 
@@ -619,11 +621,13 @@ class RasterizeFn(torch.autograd.Function):
                 focal_y, bg, binning: Binning):
         P = rgb.shape[0]
         mv = _meta_vec(focal_x, focal_y, bg, meta.width, meta.height)
-        payload = build_payload16(rgb, op_eff, M, u0, binning,
-                                  conic=conic if meta.with_stats else None,
-                                  mean2d=mean2d if meta.with_stats else None)
-        out = rasterize_fwd(payload, binning, mv, meta.ntx, meta.ntx * meta.nty,
-                            with_reg=meta.with_reg)
+        with trace.span("payload"):
+            payload = build_payload16(rgb, op_eff, M, u0, binning,
+                                      conic=conic if meta.with_stats else None,
+                                      mean2d=mean2d if meta.with_stats else None)
+        with trace.span("k1"):
+            out = rasterize_fwd(payload, binning, mv, meta.ntx, meta.ntx * meta.nty,
+                                with_reg=meta.with_reg)
         ctx.meta, ctx.binning, ctx.P = meta, binning, P
         ctx.save_for_backward(payload, out, mv, M, u0)
         return out
@@ -634,13 +638,17 @@ class RasterizeFn(torch.autograd.Function):
         meta, P = ctx.meta, ctx.P
         ntiles = meta.ntx * meta.nty
         last = fout[ntiles - 1]
-        demand = int(last[CH_CSTART, 0] + last[CH_LIVEC, 0] * CHUNK_SIZE)  # host read
-        rows, gidc = bwd_rows(
-            payload, fout, gout.contiguous(), ctx.binning, mv, meta.ntx, ntiles,
-            meta.width / 2.0, meta.height / 2.0, with_stats=meta.with_stats,
-            with_reg=meta.with_reg, compact_cap=max(demand, CHUNK_SIZE))
-        per_g, per_s = reduce_compact_rows(rows, gidc, P)
-        dM, du0 = quadric_chain(per_g, M, u0)
+        with trace.read("compact_demand"):
+            demand = int(last[CH_CSTART, 0] + last[CH_LIVEC, 0] * CHUNK_SIZE)  # host read
+        with trace.span("k3"):
+            rows, gidc = bwd_rows(
+                payload, fout, gout.contiguous(), ctx.binning, mv, meta.ntx, ntiles,
+                meta.width / 2.0, meta.height / 2.0, with_stats=meta.with_stats,
+                with_reg=meta.with_reg, compact_cap=max(demand, CHUNK_SIZE))
+        with trace.span("k4"):
+            per_g, per_s = reduce_compact_rows(rows, gidc, P)
+        with trace.span("chain"):
+            dM, du0 = quadric_chain(per_g, M, u0)
         dcarrier = per_s if per_s is not None else torch.zeros((P, 3), device=M.device)
         return (None, per_g[:, 0:3], per_g[:, 3], dM, du0, None, None, dcarrier,
                 None, None, None, None)

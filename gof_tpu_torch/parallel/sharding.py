@@ -42,6 +42,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import trace
+
 TIMEOUT = timedelta(minutes=10)
 # far points padding a point set to a multiple of the shard count; their
 # values are cut off (gof_tpu mesh/extract.py:206-213)
@@ -169,9 +171,13 @@ def sharded_min_transmittance(eval_fn: Callable, devices: Sequence) -> Callable:
         pad = (-n) % len(devices)
         if pad:
             pts = np.concatenate([pts, np.full((pad, 3), FAR, np.float32)])
-        outs = [eval_fn(torch.as_tensor(shard_leading(pts, len(devices), r), device=d))
-                for r, d in enumerate(devices)]
-        return np.concatenate([o.cpu().numpy() for o in outs])[:n]
+        outs = []
+        for r, d in enumerate(devices):
+            with trace.copy("points"):
+                shard = torch.as_tensor(shard_leading(pts, len(devices), r), device=d)
+            outs.append(eval_fn(shard))
+        with trace.read("result"):
+            return np.concatenate([o.cpu().numpy() for o in outs])[:n]
 
     return run
 

@@ -30,16 +30,22 @@ def render_eval(gauss, gstate, camera, model_cfg, bg, backend: str = "pallas"):
     (the model directory's pipeline setting in the CLIs). Buffers are sized
     to each view's demand, so there is no overflow to retry. The
     densification statistics feed only the backward, so their payload
-    columns are left out. Returns the RenderOut."""
+    columns are left out. Returns the RenderOut. One `view` unit of the
+    program's spans (utils/trace.py), id the camera's uid."""
     from .model import gaussians as gm
     from .ops import render as render_lib
+    from .utils import trace
 
-    return render_lib.render(
-        camera, gauss.xyz, gm.filtered_scaling(gauss, gstate.filter_3d), gauss.rotation,
-        gm.filtered_opacity(gauss, gstate.filter_3d), gm.get_features(gauss),
-        model_cfg.sh_degree, model_cfg.kernel_size, bg, active_mask=gstate.active,
-        with_stats=False, backend=backend,
-    )
+    with trace.unit("view", camera.uid, gauss.xyz):
+        with trace.span("preprocess"):
+            scales = gm.filtered_scaling(gauss, gstate.filter_3d)
+            opacities = gm.filtered_opacity(gauss, gstate.filter_3d)
+            shs = gm.get_features(gauss)
+        return render_lib.render(
+            camera, gauss.xyz, scales, gauss.rotation, opacities, shs, model_cfg.sh_degree,
+            model_cfg.kernel_size, bg, active_mask=gstate.active, with_stats=False,
+            backend=backend,
+        )
 
 
 def render_set(scene, gauss, gstate, model_cfg, bg, split: str, cams, iteration: int, device,

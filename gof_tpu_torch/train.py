@@ -28,7 +28,8 @@ pool (grow_capacity), then the 3D filter is recomputed. Checkpoints
 (chkpnt{iter}.pkl, plain dicts of numpy arrays; load_checkpoint also reads
 gof_tpu's), --start_checkpoint, --debug's fail-time npz dump,
 --debug_image_interval grids (utils/vis.py), --profile_dir (a torch.profiler
-trace) and the TensorBoard scalars follow gof_tpu.
+trace of the first PROFILE_STEPS iterations, with the program's spans) and
+the TensorBoard scalars follow gof_tpu.
 
 Temporal liveness culling (gof_tpu train.py:833-850): from the first step
 past densify_until_iter on the pallas backend, each training camera's row
@@ -53,6 +54,7 @@ import os
 import pickle
 import random
 import time
+import warnings
 from collections import namedtuple
 from dataclasses import dataclass, fields, replace
 from typing import NamedTuple
@@ -69,10 +71,11 @@ from .model import gaussians as gm
 from .ops import binning as binning_lib
 from .ops import render as render_lib
 from .ops.blend import pixel_rays
-from .utils import hostio, losses, schedules
+from .utils import hostio, losses, schedules, trace
 
 GAUSS_FIELDS = tuple(f.name for f in fields(gm.GaussianParams))
 STATE_FIELDS = tuple(f.name for f in fields(gm.GaussianState))
+PROFILE_STEPS = 20  # iterations --profile_dir traces
 
 # gof_tpu's optimizer state on the host: count and the [NCOL, CAP] moment
 # buffers whose row blocks follow GaussianParams' field order (each leaf
@@ -155,7 +158,8 @@ class Adam:
         return (-lr) * (m2 / bc1) / (torch.sqrt(v2 / bc2) + self.eps), m2, v2
 
     def _bias_corrections(self, count: int, dev):
-        cf = torch.tensor(float(count), dtype=torch.float32, device=dev)
+        with trace.copy("adam_count"):
+            cf = torch.tensor(float(count), dtype=torch.float32, device=dev)
         return 1.0 - torch.pow(self.b1, cf), 1.0 - torch.pow(self.b2, cf)
 
     def update(self, grads: gm.GaussianParams, state: AdamState):
@@ -165,11 +169,12 @@ class Adam:
         count_inc = state.count + 1
         bc1, bc2 = self._bias_corrections(count_inc, dev)
         lrs = self.group_lrs(state.count)
+        with trace.copy("adam_lr"):
+            lrs = {f: torch.as_tensor(lrs[f], dtype=torch.float32).to(dev) for f in GAUSS_FIELDS}
         upd, mu, nu = {}, {}, {}
         for f in GAUSS_FIELDS:
-            lr = torch.as_tensor(lrs[f], dtype=torch.float32).to(dev)
             upd[f], mu[f], nu[f] = self._leaf(getattr(grads, f), getattr(state.mu, f),
-                                              getattr(state.nu, f), lr, bc1, bc2)
+                                              getattr(state.nu, f), lrs[f], bc1, bc2)
         return (gm.GaussianParams(**upd),
                 replace(state, count=count_inc, mu=gm.GaussianParams(**mu),
                         nu=gm.GaussianParams(**nu)))
@@ -181,8 +186,11 @@ class Adam:
         state)."""
         dev = grads["emb"].device
         bc1, bc2 = self._bias_corrections(state.count, dev)
-        lr_net = torch.tensor(self.opt.appearance_network_lr, dtype=torch.float32, device=dev)
-        lr_emb = torch.tensor(self.opt.appearance_embeddings_lr, dtype=torch.float32, device=dev)
+        with trace.copy("adam_lr"):
+            lr_net = torch.tensor(self.opt.appearance_network_lr, dtype=torch.float32,
+                                  device=dev)
+            lr_emb = torch.tensor(self.opt.appearance_embeddings_lr, dtype=torch.float32,
+                                  device=dev)
         upd, mu, nu = {}, {}, {}
         for k, g in grads.items():
             upd[k], mu[k], nu[k] = self._leaf(g, state.mu_app[k], state.nu_app[k],
@@ -396,22 +404,30 @@ def view_grad(tp: TrainParams, gstate: gm.GaussianState, gt: torch.Tensor, step:
         x.requires_grad_(True)
     active_degree = min(int(step) // 1000, sh_degree)
     carrier = torch.zeros((g.xyz.shape[0], 3), device=g.xyz.device, requires_grad=True)
-    scales_f = gm.filtered_scaling(g, gstate.filter_3d)
-    opac_f = gm.filtered_opacity(g, gstate.filter_3d)
-    shs = masked_shs(g, active_degree, sh_degree)
+    with trace.span("preprocess"):
+        scales_f = gm.filtered_scaling(g, gstate.filter_3d)
+        opac_f = gm.filtered_opacity(g, gstate.filter_3d)
+        shs = masked_shs(g, active_degree, sh_degree)
     out = render_lib.render(camera, g.xyz, scales_f, g.rotation, opac_f, shs, sh_degree,
                             model_cfg.kernel_size, bg, carrier=carrier,
                             active_mask=gstate.active, with_stats=with_stats, with_reg=with_reg,
                             backend=backend, live_limit_chunks=lim)
-    loss, l1, ssim_val, distortion_loss, depth_normal_loss = train_loss(
-        out.image, gt, camera, opt, step, with_reg, (tp.app_net, tp.app_emb) if app else None)
-    psnr = losses.psnr(out.image[:3].detach(), gt)
-    terms = torch.stack([loss, l1, ssim_val, distortion_loss, depth_normal_loss, psnr]).detach()
+    with trace.span("loss"):
+        loss, l1, ssim_val, distortion_loss, depth_normal_loss = train_loss(
+            out.image, gt, camera, opt, step, with_reg,
+            (tp.app_net, tp.app_emb) if app else None)
+        psnr = losses.psnr(out.image[:3].detach(), gt)
+        terms = torch.stack([loss, l1, ssim_val, distortion_loss, depth_normal_loss,
+                             psnr]).detach()
     # a stale liveness bound cut an unsaturated tile: skip the update
-    live_inv = lim is not None and bool(out.live_bad.any())  # the one host read
+    live_inv = False
+    if lim is not None:
+        with trace.read("live_bad"):
+            live_inv = bool(out.live_bad.any())  # the one host read
     if live_inv:
         return ViewGrad(out, terms, None, {}, None, True)
-    loss.backward()
+    with trace.span("backward"):
+        loss.backward()
     cgrad = carrier.grad if carrier.grad is not None else torch.zeros_like(carrier)
     return ViewGrad(out, terms, [x.grad for x in leaves], {k: x.grad for k, x in app.items()},
                     cgrad, False)
@@ -460,6 +476,10 @@ def build_train_step(opt: config_lib.OptimizationParams, model_cfg: config_lib.M
     def step_fn(tp: TrainParams, opt_state: AdamState, gstate: gm.GaussianState,
                 gt: torch.Tensor, step: int, camera: cameras_lib.Camera, bg: torch.Tensor,
                 lim: torch.Tensor | None = None):
+        with trace.unit("step", int(step), gt):
+            return one_step(tp, opt_state, gstate, gt, step, camera, bg, lim)
+
+    def one_step(tp, opt_state, gstate, gt, step, camera, bg, lim):
         if lim is not None and group is not None:
             raise ValueError("liveness culling needs dp == 1")
         ntx, nty = binning_lib.tile_grid(camera.width, camera.height)
@@ -474,25 +494,27 @@ def build_train_step(opt: config_lib.OptimizationParams, model_cfg: config_lib.M
             if v.live_inv:
                 stat_new = gstate
             elif group is None:
-                stat_new = gm.add_densification_stats(gstate, v.carrier_grad, out.radii,
-                                                      out.visibility)
+                with trace.span("stats"):
+                    stat_new = gm.add_densification_stats(gstate, v.carrier_grad, out.radii,
+                                                          out.visibility)
             else:
                 grads, app_grads, terms, counts, stat_new = _dp_grad_step(
                     group, grads, app_grads, terms, counts, v.carrier_grad, out, gstate)
             if not v.live_inv:
-                updates, opt_state = tx.update(gm.GaussianParams(*grads), opt_state)
-                for f in GAUSS_FIELDS:
-                    x = getattr(tp.gauss, f)
-                    x.add_(getattr(updates, f))
-                    x.grad = None
-                carried = app_leaves(tp)
-                if carried:
-                    app_upd, opt_state = tx.update_app(
-                        {k: app_grads[k] if use_app else torch.zeros_like(x)
-                         for k, x in carried.items()}, opt_state)
-                    for k, x in carried.items():
-                        x.add_(app_upd[k])
+                with trace.span("adam"):
+                    updates, opt_state = tx.update(gm.GaussianParams(*grads), opt_state)
+                    for f in GAUSS_FIELDS:
+                        x = getattr(tp.gauss, f)
+                        x.add_(getattr(updates, f))
                         x.grad = None
+                    carried = app_leaves(tp)
+                    if carried:
+                        app_upd, opt_state = tx.update_app(
+                            {k: app_grads[k] if use_app else torch.zeros_like(x)
+                             for k, x in carried.items()}, opt_state)
+                        for k, x in carried.items():
+                            x.add_(app_upd[k])
+                            x.grad = None
             loss, l1, ssim_val, distortion_loss, depth_normal_loss, psnr = terms.unbind()
             metrics = {"l1": l1, "ssim": ssim_val, "distortion": distortion_loss,
                        "depth_normal": depth_normal_loss, "num_keys": counts["num_keys"],
@@ -501,11 +523,13 @@ def build_train_step(opt: config_lib.OptimizationParams, model_cfg: config_lib.M
                        "compact_overflow": counts["compact_overflow"], "loss": loss,
                        "step_next": int(step) + 1}
             fl = torch.float32
+            with trace.copy("skip_flag"):
+                skipped = psnr.new_tensor(float(v.live_inv))
             metrics["packed"] = torch.stack([
                 loss, psnr, counts["num_keys"].to(fl), counts["key_overflow"].to(fl),
                 counts["compact_demand"].to(fl), counts["compact_overflow"].to(fl),
                 gm.num_active(stat_new).to(fl), counts["live_demand"].to(fl),
-                counts["live_overflow"].to(fl), psnr.new_tensor(float(v.live_inv))])
+                counts["live_overflow"].to(fl), skipped])
             if lim is not None:
                 # the next visit's bounds: the walked prefix plus margin;
                 # exponential growth where the bound proved stale
@@ -747,10 +771,7 @@ def _train_loop(group, device: torch.device, model_cfg, opt, pipe, test_iteratio
     pending = []  # unread packed metrics, read every 10 iterations
     prof = contextlib.nullcontext()
     if profile_dir and rank0:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
+        prof = profiler(profile_dir, device)
     t_start = time.time()
     iteration = first_iter
     with open(log_path if rank0 else os.devnull, "a") as logf, prof, \
@@ -864,10 +885,30 @@ def _train_loop(group, device: torch.device, model_cfg, opt, pipe, test_iteratio
                 save_checkpoint(model_cfg.model_path, iteration, tp, opt_state, gstate)
             if group is not None and rank0_writes:
                 group.barrier()
-    if profile_dir and rank0:
+            if profile_dir and rank0:
+                prof.step()
+    return tp, opt_state, gstate
+
+
+def profiler(profile_dir: str, device: torch.device):
+    """--profile_dir's torch.profiler: the first PROFILE_STEPS iterations
+    from the start or resume point (a late window: resume from a
+    checkpoint), their spans included (utils/trace.py). When the window
+    closes, or the run ends inside it, it writes trace.json (the profiler's
+    chrome trace) and spans.jsonl (trace.export) to profile_dir."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+
+    def ready(prof):
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-    return tp, opt_state, gstate
+        trace.export(os.path.join(profile_dir, "spans.jsonl"))
+
+    with warnings.catch_warnings():  # every step of the window counts: no warm-up step
+        warnings.filterwarnings("ignore", "Profiler won't be using warmup")
+        sched = torch.profiler.schedule(wait=0, warmup=0, active=PROFILE_STEPS, repeat=1)
+    return torch.profiler.profile(activities=acts, schedule=sched, on_trace_ready=ready)
 
 
 def _make_tb_writer(model_path: str):

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import trace
+
 
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(pred - gt))
@@ -29,7 +31,8 @@ _WIN = _gaussian_window()
 def _blur(x: torch.Tensor) -> torch.Tensor:
     """Separable 11-tap Gaussian blur with zero SAME padding; x: [C, H, W]."""
     C = x.shape[0]
-    w = torch.as_tensor(_WIN, device=x.device, dtype=x.dtype)
+    with trace.copy("ssim_window"):
+        w = torch.as_tensor(_WIN, device=x.device, dtype=x.dtype)
     k = len(_WIN)
     y = F.conv2d(x[None], w.view(1, 1, k, 1).expand(C, 1, k, 1), padding=(k // 2, 0), groups=C)
     y = F.conv2d(y, w.view(1, 1, 1, k).expand(C, 1, 1, k), padding=(0, k // 2), groups=C)

@@ -530,9 +530,17 @@ def test_train_debug_images_match_gof_tpu_grid(loop_run):
 
 
 def test_train_profile_dir_writes_a_trace(loop_run):
+    """--profile_dir traces the run's first 20 iterations (all 18 here),
+    the program's spans among the profiler's events, and writes them to
+    spans.jsonl beside trace.json."""
     trace = json.load(open(os.path.join(loop_run[1], "trace.json")))
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("aten::" in n for n in names)
+    assert {"step", "k1", "adam"} <= names
+    with open(os.path.join(loop_run[1], "spans.jsonl")) as f:
+        spans = [json.loads(line) for line in f]
+    steps = sorted(s["uid"] for s in spans if s["name"] == "step" and s["kind"] == "step")
+    assert steps == list(range(1, 19))
 
 
 def test_train_writes_tensorboard_scalars(loop_run):
