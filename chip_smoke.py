@@ -4,6 +4,7 @@ paths, its DTU/TNT chain, its parallel paths, its gather/scatter probes and
 its bench once on one CUDA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --serve   # steps 1-5 alone (serve_main)
     python3 chip_smoke.py --full [DIR]   # the 30k-step run alone (full_main)
     python3 chip_smoke.py --ladder DIR [--rungs N ...]   # the C27 ladder's card runs
 
@@ -20,7 +21,10 @@ its bench once on one CUDA GPU.
    over that run are checked, and a small scene's CUDA render is held
    against the plain CPU path;
 5. hold the forward kernels against their plain PyTorch versions on the
-   card, at the shapes of one of those views (K1 in the serving path's
+   card, at the shapes of one of those views (the preprocess kernel on the
+   served model's leaves and on a 3M-gaussian model with nonzero SH bands
+   1-3, in the render's and the field's forms: integer outputs equal,
+   floats within PRE_ULPS ulps; K1 in the serving path's
    regularizer instance: T, median depth, MEDIDX, LIVEC and CSTART
    bit-exact, the other channels within ATOL / RTOL, bit-identical across
    launches), and time both with CUDA events; time each layer of that
@@ -228,6 +232,7 @@ import numpy as np
 import torch
 
 N_GAUSSIANS = 100_000
+PRE_BIG = 3_000_000  # the preprocess kernel's check at the render cell's model size
 WIDTH, HEIGHT = 1237, 822
 N_VIEWS = 4
 SEED = 1
@@ -420,9 +425,9 @@ def serve(model: str, n_views: int, device: str):
     from PIL import Image
 
     from gof_tpu_torch import render_cli
-    from gof_tpu_torch.ops import class_gather, rasterize
+    from gof_tpu_torch.ops import class_gather, preprocess, rasterize
 
-    counters = (class_gather.EXPAND, rasterize.FWD)
+    counters = (preprocess.PREPROCESS, class_gather.EXPAND, rasterize.FWD)
     for k in counters:
         k.launches = 0
     argv = ["-m", model, "--skip_train"] + (["--cpu"] if device == "cpu" else [])
@@ -451,15 +456,15 @@ def serve(model: str, n_views: int, device: str):
 
 
 def view_inputs(model: str, device: str, reps: int = 5):
-    """Everything the kernels see for test view 0 — the binning and its
-    class-expansion inputs, payload and meta vector — plus the full render.
-    On CUDA, also the device time of each layer of the render: the stages
-    of ops/render.py run `reps` times between CUDA events (medians)."""
+    """Everything the kernels see for test view 0 — the model's leaves and
+    camera, the binning and its class-expansion inputs, payload and meta
+    vector — plus the full render. On CUDA, also the device time of each
+    layer of the render: the stages of ops/render.py run `reps` times
+    between CUDA events (medians)."""
     from gof_tpu_torch import config as config_lib
     from gof_tpu_torch import render_cli
     from gof_tpu_torch.data import scene as scene_lib
-    from gof_tpu_torch.model import gaussians as gm
-    from gof_tpu_torch.ops import binning, quadrics, tiled_ref
+    from gof_tpu_torch.ops import binning, preprocess, tiled_ref
     from gof_tpu_torch.ops import rasterize as rz
 
     cfg, _, _ = config_lib.load_cfg(model)
@@ -472,18 +477,15 @@ def view_inputs(model: str, device: str, reps: int = 5):
     ntx, nty = binning.tile_grid(cam.width, cam.height)
 
     def stages():
-        scales = gm.filtered_scaling(g, s.filter_3d)
-        opac = gm.filtered_opacity(g, s.filter_3d)
-        pre = quadrics.preprocess(g.xyz, scales, g.rotation, gm.get_features(g), 3, cam,
-                                  cfg.kernel_size, s.active, opacities=opac)
-        yield "preprocess", pre
-        rects = binning.gaussian_rects(pre.mean2d, pre.radius, pre.valid, ntx, nty,
-                                       radius_xy=pre.radius_xy)
+        vp = preprocess.preprocess_view(cam, g.xyz, None, g.rotation, None, None, 3,
+                                        cfg.kernel_size, s.active,
+                                        leaves=preprocess.Leaves.of(g, s))
+        yield "preprocess (filters, SH colour, quadrics, rects, op_eff)", vp
+        pre, rects = vp.pre, vp.rects
         b = binning.bin_gaussians(pre.depth, rects, ntx, nty, mean2d=pre.mean2d,
                                   radius=pre.radius)
         yield "binning (class layout, K2 expand, sorts)", (rects, b)
-        op_eff = opac * torch.where(pre.valid, pre.coef, torch.zeros_like(pre.coef))
-        payload = rz.build_payload16(pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0, b)
+        payload = rz.build_payload16(pre.rgb, vp.op_eff, pre.v2g_M, pre.v2g_u0, b)
         meta = rz._meta_vec(cam.focal_x, cam.focal_y, bg, cam.width, cam.height)
         yield "payload gather", (payload, meta)
         tile_out = rz.rasterize_fwd(payload, b, meta, ntx, ntx * nty)
@@ -514,7 +516,7 @@ def view_inputs(model: str, device: str, reps: int = 5):
               f"ms): total {total:.3f}")
         for name, v in times.items():
             print(f"  {name}: {statistics.median(v):.3f}")
-    pre = res["preprocess"]
+    pre = res["preprocess (filters, SH colour, quadrics, rects, op_eff)"].pre
     rects, b = res["binning (class layout, K2 expand, sorts)"]
     payload, meta = res["payload gather"]
     print(f"view 0: {int(b.num_keys)} keys in {int(b.num_slots)} class-padded slots, "
@@ -523,7 +525,8 @@ def view_inputs(model: str, device: str, reps: int = 5):
     P = pre.depth.shape[0]
     tbl = torch.stack(ex.cols).contiguous()
     gidx = torch.clamp(ex.gidx, 0, P - 1).to(torch.int32).contiguous()
-    return out, (tbl, gidx), (payload, b, meta, ntx, ntx * nty)
+    return (out, (tbl, gidx), (payload, b, meta, ntx, ntx * nty),
+            (g, s, cam, cfg.kernel_size))
 
 
 def check_render(out, width: int, height: int) -> None:
@@ -711,6 +714,106 @@ def bound(entry: dict, nbytes: float, ops: float = 0.0, library_ms=None) -> dict
           f"{nbytes / 2**20:.1f} MiB, {ops:.3e} f32 operations), library call "
           f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}")
     return entry
+
+
+# the preprocess kernel's float outputs against its plain version on the
+# same CUDA tensors (tests/test_torch_cuda.py's bound); its integer outputs
+# (valid, the rects) must be equal
+PRE_ULPS = 4
+# bytes the preprocess kernel must move per gaussian: it reads xyz 12,
+# rotation 16, scales 12, opacity 4 and active 1 (and the 3D filter 4, the SH
+# coefficients 12 each where given) and writes valid 1, depth 4, mean2d 8,
+# conic 12, coef 4, radius 4, radius_xy 8, rgb 12, M 36, u0 12, the rect's
+# four ints 16 and op_eff 4
+PRE_READ_BYTES, PRE_FILTER_BYTES, PRE_COEFF_BYTES, PRE_WRITE_BYTES = 45, 4, 12, 121
+
+
+def pre_mismatch(got, want) -> tuple:
+    """(integer outputs that differ, the float outputs' largest distance in
+    ulps of the larger magnitude, NaN placements that differ) of two
+    preprocess_view results."""
+    ints = int((got.pre.valid != want.pre.valid).sum())
+    ints += sum(int((getattr(got.rects, n) != getattr(want.rects, n)).sum())
+                for n in ("x0", "y0", "w", "h"))
+    ulps, nans = 0.0, 0
+    names = ("depth", "mean2d", "conic", "coef", "radius", "radius_xy", "rgb", "v2g_M",
+             "v2g_u0")
+    pairs = [(getattr(got.pre, n), getattr(want.pre, n)) for n in names]
+    for g, w in pairs + [(got.op_eff, want.op_eff)]:
+        g, w = g.flatten(), w.detach().flatten()
+        nan = torch.isnan(w)
+        nans += int((torch.isnan(g) != nan).sum())
+        g, w = g[~nan], w[~nan]
+        big = torch.maximum(g.abs(), w.abs())
+        ulp = (torch.nextafter(big, torch.full_like(big, float("inf"))) - big).double()
+        d = ((g.double() - w.double()).abs() / ulp)[g != w]
+        d = torch.nan_to_num(d, nan=float("inf"))  # an infinity against a finite value
+        ulps = max(ulps, float(d.max()) if d.numel() else 0.0)
+    return ints, ulps, nans
+
+
+def check_preprocess(pre_in, launches, label: str) -> list:
+    """The preprocess kernel (csrc/preprocess.cu) on one view of a model, in
+    the render's form (the model's leaves: the 3D filter folded in, the two
+    SH tables at degree 3) and the field's (filtered scales and opacities,
+    no table, the radius at 3 sigma), each held against its plain version on
+    the same CUDA tensors (ints equal, floats within PRE_ULPS ulps, equal
+    across launches) and timed beside it. Returns their kernels-line
+    entries, with the launches of the serving run."""
+    from gof_tpu_torch.model import gaussians as gm
+    from gof_tpu_torch.ops import preprocess
+
+    g, s, cam, kernel_size = pre_in
+    P = g.xyz.shape[0]
+    leaves = preprocess.Leaves.of(g, s)
+    forms = {
+        "render": ((cam, g.xyz, None, g.rotation, None, None, 3, kernel_size, s.active),
+                   dict(leaves=leaves),
+                   PRE_READ_BYTES + PRE_FILTER_BYTES + 16 * PRE_COEFF_BYTES),
+        "field": ((cam, g.xyz, gm.filtered_scaling(g, s.filter_3d), g.rotation,
+                   gm.filtered_opacity(g, s.filter_3d), None, 0, kernel_size, s.active),
+                  dict(tight_radius=False), PRE_READ_BYTES),
+    }
+    entries = []
+    for form, (args, kw, read_bytes) in forms.items():
+        with torch.no_grad():
+            got = preprocess.preprocess_view_cuda(*args, **kw)
+            again = preprocess.preprocess_view_cuda(*args, **kw)
+            want = preprocess.preprocess_view_reference(*args, **kw)
+        torch.cuda.synchronize()
+        ints, ulps, nans = pre_mismatch(got, want)
+        same = pre_mismatch(got, again) == (0, 0.0, 0)
+        name = f"preprocess ({form}, {label})"
+        print(f"{name}: {P} gaussians at {cam.width}x{cam.height}, {int(got.pre.valid.sum())} "
+              f"valid; integer outputs differing {ints}, NaN placements differing {nans}, "
+              f"largest float distance {ulps:.1f} ulps (bound {PRE_ULPS}); bit-identical "
+              f"across launches {same}")
+        if ints or nans or ulps > PRE_ULPS or not same:
+            raise RuntimeError(f"{name} disagrees with its plain version")
+        with torch.no_grad():
+            ms = cuda_ms(lambda: preprocess.preprocess_view_cuda(*args, **kw), 20)
+            plain_ms = cuda_ms(lambda: preprocess.preprocess_view_reference(*args, **kw), 5)
+        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        entries.append(bound({"name": name, "route": "cuda",
+                              "source": "gof_tpu_torch/csrc/preprocess.cu",
+                              "replaces": "gof_tpu/ops/quadrics.py (preprocess)",
+                              "launches": launches["preprocess"], "max_ulps": ulps,
+                              "ms": ms, "plain_ms": plain_ms},
+                             P * (read_bytes + PRE_WRITE_BYTES)))
+    return entries
+
+
+def sh_model(n: int, seed: int, device: str = "cuda"):
+    """bench.py's scene of n gaussians with what a trained model has and its
+    recipe lacks: SH bands 1-3 N(0, 0.2) and a 3D filter spread over
+    [1e-4, 0.05], drawn from a generator seeded `seed`."""
+    from gof_tpu_torch.model import gaussians as gm
+
+    rng = np.random.default_rng(seed)
+    params, state = make_model(n, seed)
+    params.features_rest = rng.normal(0, 0.2, params.features_rest.shape).astype(np.float32)
+    state.filter_3d = rng.uniform(1e-4, 0.05, n).astype(np.float32)
+    return gm.from_numpy(params, state, device)
 
 
 def check_kernels(expand_in, raster_in, launches, with_reg: bool, phase: str,
@@ -4865,6 +4968,42 @@ def full_main(path: str | None) -> None:
                                              "count": torch.cuda.device_count()}}))
 
 
+def serve_phase(root: str):
+    """Steps 3-5: the serving model in `root`, the render CLI over its test
+    views, and the forward kernels held against their plain versions at one
+    view's shapes (the preprocess kernel also on a 3M model with SH bands
+    1-3). Returns (model directory, per-view stats, kernels-line entries)."""
+    t0 = time.perf_counter()
+    model = write_inputs(root, N_GAUSSIANS, WIDTH, HEIGHT, N_VIEWS)
+    print(f"model: {N_GAUSSIANS} gaussians, {N_VIEWS} views at {WIDTH}x{HEIGHT} "
+          f"written in {time.perf_counter() - t0:.1f} s")
+    stats, launches = serve(model, N_VIEWS, "cuda")
+    out, expand_in, raster_in, pre_in = view_inputs(model, "cuda")
+    check_render(out, WIDTH, HEIGHT)
+    check_small_scene()
+    kernels = check_preprocess(pre_in, launches, "serve")
+    g3m, s3m = sh_model(PRE_BIG, SEED)
+    kernels += check_preprocess((g3m, s3m, pre_in[2], pre_in[3]), launches, "3M, SH bands 1-3")
+    del g3m, s3m, pre_in
+    kernels.append(check_kernels(expand_in, raster_in, launches, True, "serve")[1])
+    profile_renders(model, N_VIEWS)
+    return model, stats, kernels
+
+
+def serve_main() -> None:
+    """--serve: steps 1-5 alone."""
+    smi = preflight()
+    build()
+    root = tempfile.mkdtemp(prefix="gof_chip_smoke_")
+    try:
+        _, stats, kernels = serve_phase(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"render ms per view: {[s['ms'] for s in stats]}")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+
+
 def main() -> None:
     import argparse
 
@@ -4876,8 +5015,14 @@ def main() -> None:
                         help="run only the C27 ladder's card runs (ladder_main), in DIR")
     parser.add_argument("--rungs", type=int, nargs="+", choices=sorted(RUNGS), metavar="N",
                         help="with --ladder, only these rungs (default: all)")
+    parser.add_argument("--serve", action="store_true",
+                        help="run only steps 1-5: the build, the serving run and the forward "
+                             "kernels' checks")
     parser.add_argument("--trajectory-cpu", metavar="DIR", help=argparse.SUPPRESS)
     ns = parser.parse_args()
+    if ns.serve:
+        serve_main()
+        return
     if ns.trajectory_cpu:
         trajectory_cpu(ns.trajectory_cpu)
         return
@@ -4896,16 +5041,7 @@ def main() -> None:
     try:
         traj = trajectory_start(root)
         trajectory_card(traj, smi)
-        t0 = time.perf_counter()
-        model = write_inputs(root, N_GAUSSIANS, WIDTH, HEIGHT, N_VIEWS)
-        print(f"model: {N_GAUSSIANS} gaussians, {N_VIEWS} views at {WIDTH}x{HEIGHT} "
-              f"written in {time.perf_counter() - t0:.1f} s")
-        stats, serve_launches = serve(model, N_VIEWS, "cuda")
-        out, expand_in, raster_in = view_inputs(model, "cuda")
-        check_render(out, WIDTH, HEIGHT)
-        check_small_scene()
-        serve_fwd = check_kernels(expand_in, raster_in, serve_launches, True, "serve")[1]
-        profile_renders(model, N_VIEWS)
+        model, stats, serve_kernels = serve_phase(root)
 
         t0 = time.perf_counter()
         src, xyz0 = write_train_scene(root, N_GAUSSIANS, WIDTH, HEIGHT)
@@ -4961,7 +5097,7 @@ def main() -> None:
         shutil.rmtree(root, ignore_errors=True)
     print(f"render ms per view: {[s['ms'] for s in stats]}")
     print(json.dumps({"kernels": kernels + grown_kernels + live_kernels
-                      + [serve_fwd, *integrate_kernels] + probe_kernels + bench_kernels
+                      + serve_kernels + integrate_kernels + probe_kernels + bench_kernels
                       + full_kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

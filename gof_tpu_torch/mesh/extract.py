@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..model import gaussians as gm
-from ..ops import binning, integrate, quadrics
+from ..ops import binning, integrate, preprocess
 from ..ops import rasterize as rz
 from ..parallel import sharding
 from ..transforms import ndc_to_pixel, project_points, quat_to_rot
@@ -106,9 +106,9 @@ def delaunay(points: np.ndarray, cache_path: str | None = None) -> np.ndarray:
 class FieldEvaluator:
     """min-over-views opacity field of a model on its device.
 
-    Each view runs preprocess without opacities (so the screen radius is not
-    opacity-tightened), tile binning (K2), the payload gather, point binning
-    and the integrate kernel (K5). `devices` (gof_tpu's `mesh`,
+    Each view runs the preprocess (ops/preprocess.py) with the screen radius
+    kept at 3 sigma (not opacity-tightened), tile binning (K2), the payload
+    gather, point binning and the integrate kernel (K5). `devices` (gof_tpu's `mesh`,
     `extract_mesh --shard N`): the model is replicated on each, the points
     are split over them (parallel.sharding.sharded_min_transmittance) and
     every shard runs each view's whole chain on its device; a device may
@@ -129,8 +129,9 @@ class FieldEvaluator:
             self.model = dict(
                 xyz=params.xyz, scales=gm.filtered_scaling(params, state.filter_3d),
                 rot=params.rotation, op=gm.filtered_opacity(params, state.filter_3d),
-                active=state.active, shs=gm.get_features(params),
+                active=state.active,
             )
+        self.leaves = preprocess.Leaves.of(params, state)  # the colours' render
         self._replicas = {sharding.as_device(d): {k: v.to(d) for k, v in self.model.items()}
                           for d in [self.device, *self.devices]}
         self.calls = 0  # alpha() calls made: the id of the next `field_call` unit
@@ -144,17 +145,15 @@ class FieldEvaluator:
         camera = camera.to(points.device)
         ntx, nty = binning.tile_grid(camera.width, camera.height)
         with trace.span("preprocess"):
-            pre = quadrics.preprocess(m["xyz"], m["scales"], m["rot"],
-                                      m["xyz"].new_zeros((m["xyz"].shape[0], 1, 3)), 0, camera,
-                                      self.kernel_size, m["active"])
-            rects = binning.gaussian_rects(pre.mean2d, pre.radius, pre.valid, ntx, nty,
-                                           radius_xy=pre.radius_xy)
+            vp = preprocess.preprocess_view(camera, m["xyz"], m["scales"], m["rot"], m["op"],
+                                            None, 0, self.kernel_size, m["active"],
+                                            tight_radius=False)
+            pre = vp.pre
         with trace.span("binning"):
-            b = binning.bin_gaussians(pre.depth, rects, ntx, nty, mean2d=pre.mean2d,
+            b = binning.bin_gaussians(pre.depth, vp.rects, ntx, nty, mean2d=pre.mean2d,
                                       radius=pre.radius)
         with trace.span("payload"):
-            op_eff = m["op"] * torch.where(pre.valid, pre.coef, torch.zeros_like(pre.coef))
-            payload = rz.build_payload16(pre.rgb, op_eff, pre.v2g_M, pre.v2g_u0, b)
+            payload = rz.build_payload16(pre.rgb, vp.op_eff, pre.v2g_M, pre.v2g_u0, b)
         with trace.span("point_bins"):
             pbins = integrate.bin_points(points, camera, ntx, nty)
         return payload, b, pbins
@@ -193,9 +192,9 @@ class FieldEvaluator:
         from ..ops import render as render_lib
 
         m = self.model
-        out = render_lib.render(camera, m["xyz"], m["scales"], m["rot"], m["op"], m["shs"],
-                                self.sh_degree, self.kernel_size, self.bg,
-                                active_mask=m["active"], with_stats=False, with_reg=False)
+        out = render_lib.render(camera, m["xyz"], None, m["rot"], None, None, self.sh_degree,
+                                self.kernel_size, self.bg, active_mask=m["active"],
+                                with_stats=False, with_reg=False, leaves=self.leaves)
         W, H = camera.width, camera.height
         ndc = project_points(pts, camera.full_proj)
         px = ndc_to_pixel(ndc[:, 0], W)

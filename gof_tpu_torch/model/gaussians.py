@@ -70,17 +70,28 @@ def get_features(params: GaussianParams) -> torch.Tensor:
 
 def filtered_scaling(params: GaussianParams, filter_3d: torch.Tensor) -> torch.Tensor:
     """sqrt(s^2 + f^2) (gaussian_model.py:156-162)."""
-    s2 = torch.exp(params.scaling) ** 2
-    return torch.sqrt(s2 + filter_3d[:, None] ** 2)
+    return filtered_scaling_of(params.scaling, filter_3d)
 
 
 def filtered_opacity(params: GaussianParams, filter_3d: torch.Tensor) -> torch.Tensor:
     """opacity * sqrt(det(s^2) / det(s^2 + f^2)) (gaussian_model.py:183-194)."""
-    s2 = torch.exp(params.scaling) ** 2
+    return filtered_opacity_of(params.opacity, params.scaling, filter_3d)
+
+
+def filtered_scaling_of(log_scaling: torch.Tensor, filter_3d: torch.Tensor) -> torch.Tensor:
+    """filtered_scaling of the leaf itself."""
+    s2 = torch.exp(log_scaling) ** 2
+    return torch.sqrt(s2 + filter_3d[:, None] ** 2)
+
+
+def filtered_opacity_of(opacity_logit: torch.Tensor, log_scaling: torch.Tensor,
+                        filter_3d: torch.Tensor) -> torch.Tensor:
+    """filtered_opacity of the leaves themselves."""
+    s2 = torch.exp(log_scaling) ** 2
     det1 = torch.prod(s2, dim=-1)
     det2 = torch.prod(s2 + filter_3d[:, None] ** 2, dim=-1)
     trace.read_in_backward("prod_zeros", det1, det2)
-    return torch.sigmoid(params.opacity) * torch.sqrt(det1 / det2)
+    return torch.sigmoid(opacity_logit) * torch.sqrt(det1 / det2)
 
 
 def from_numpy(params, state, device: torch.device | str = "cpu"):

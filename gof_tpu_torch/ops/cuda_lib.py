@@ -40,6 +40,7 @@ CONTRACT = ("-fmad=true",)
 SOURCES = {  # each source and its own nvcc flags
     "expand.cu": EXACT, "rasterize_fwd.cu": CONTRACT, "rasterize_bwd.cu": CONTRACT,
     "reduce.cu": EXACT, "integrate.cu": EXACT, "gather_probes.cu": EXACT,
+    "preprocess.cu": EXACT,
 }
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "gof_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -71,6 +72,8 @@ _SIGNATURES = {
     # stream
     "gof_integrate": (ctypes.c_int, _PTR, ctypes.c_longlong, _PTR, _PTR, ctypes.c_int, _PTR,
                       ctypes.c_longlong, _PTR, ctypes.c_longlong, _PTR, _PTR),
+    # device, &Args (ops/preprocess.py::_Args), stream
+    "gof_preprocess": (ctypes.c_int, _PTR, _PTR),
     # the gather/scatter probes (gather_probes.cu)
     # device, idx, n, table, page, w, out, stream
     "gof_take_gather": (ctypes.c_int, _PTR, _LL, _PTR, _LL, _LL, _PTR, _PTR),

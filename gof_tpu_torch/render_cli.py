@@ -31,20 +31,18 @@ def render_eval(gauss, gstate, camera, model_cfg, bg, backend: str = "pallas"):
     to each view's demand, so there is no overflow to retry. The
     densification statistics feed only the backward, so their payload
     columns are left out. Returns the RenderOut. One `view` unit of the
-    program's spans (utils/trace.py), id the camera's uid."""
-    from .model import gaussians as gm
+    program's spans (utils/trace.py), id the camera's uid. The model's
+    leaves go to the render as they are: its preprocess applies the 3D
+    filter and reads the two SH tables where they lie."""
+    from .ops import preprocess
     from .ops import render as render_lib
     from .utils import trace
 
     with trace.unit("view", camera.uid, gauss.xyz):
-        with trace.span("preprocess"):
-            scales = gm.filtered_scaling(gauss, gstate.filter_3d)
-            opacities = gm.filtered_opacity(gauss, gstate.filter_3d)
-            shs = gm.get_features(gauss)
         return render_lib.render(
-            camera, gauss.xyz, scales, gauss.rotation, opacities, shs, model_cfg.sh_degree,
+            camera, gauss.xyz, None, gauss.rotation, None, None, model_cfg.sh_degree,
             model_cfg.kernel_size, bg, active_mask=gstate.active, with_stats=False,
-            backend=backend,
+            backend=backend, leaves=preprocess.Leaves.of(gauss, gstate),
         )
 
 

@@ -1129,3 +1129,167 @@ def test_probe_entry_points_on_the_card(dev):
     out = mxu_gather_probe.main(["--ch", "256", "--wg", "512", "--nch", "16", "--cap", "100000",
                                  "--presort", "50000"])
     assert all(r["exact"] for r in out["kernels"].values()) and out["sort_ordered"]
+
+
+# ---------------------------------------------------------------------------
+# The preprocess kernel (csrc/preprocess.cu)
+# ---------------------------------------------------------------------------
+
+PRE_ULPS = 4  # float outputs: the kernel rounds each operation as the plain version
+
+
+def pre_leaves(dev, n, seed=11):
+    """A model's leaves in front of the look-at camera of `scene`, with the
+    preprocess's edge cases in its first slots: inactive slots, gaussians
+    behind the near plane, zero and C9-small scales (a degenerate
+    covariance), a zero quaternion, and means on and past the 1.3 tan(fov)
+    clamp of the EWA Jacobian."""
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(1.5, 9, n)
+    x = rng.uniform(-1, 1, n) * z * 0.35
+    y = rng.uniform(-1, 1, n) * z * 0.25
+    log_s = np.log(rng.uniform(0.3, 1.0, (n, 3)) * 0.3)
+    rot = rng.normal(size=(n, 4))
+    active = rng.random(n) > 0.1
+    edge = np.arange(min(n, 64))
+    kind = edge % 8
+    z[edge[kind == 1]] = rng.uniform(-1.0, 0.2, (kind == 1).sum())  # behind the near plane
+    log_s[edge[kind == 2]] = -np.inf  # zero scales: exp gives 0
+    log_s[edge[kind == 3]] = np.log(1e-6)  # C9's small scales
+    rot[edge[kind == 4]] = 0.0  # zero quaternion
+    tan = np.tan(0.8 / 2)  # look_at_camera's fovx
+    for k, r in ((5, 1.3), (6, 1.3 * (1 + 1e-6)), (7, 3.0)):  # on and past the clamp
+        sel = edge[kind == k]
+        x[sel] = z[sel] * tan * r * np.where(sel % 2 == 0, 1.0, -1.0)
+    active[edge[kind == 0]] = False
+    f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)  # noqa: E731
+    return dict(
+        xyz=f(np.stack([x, y, z], -1)), log_s=f(log_s), rot=f(rot),
+        logit=f(np.log(1 / rng.uniform(0.3, 0.95, n) - 1) * -1),
+        filter_3d=f(rng.uniform(1e-4, 0.05, n)), dc=f(rng.normal(0, 0.5, (n, 1, 3))),
+        rest=f(rng.normal(0, 0.5, (n, 15, 3))), active=torch.tensor(active, device=dev))
+
+
+def assert_pre_matches(got, want):
+    """Integer outputs equal; float outputs within PRE_ULPS ulps (NaN where
+    the plain version has NaN)."""
+    for name in ("valid",):
+        assert torch.equal(getattr(got.pre, name), getattr(want.pre, name)), name
+    for name in ("x0", "y0", "w", "h"):
+        assert torch.equal(getattr(got.rects, name), getattr(want.rects, name)), name
+    floats = {n: (getattr(got.pre, n), getattr(want.pre, n))
+              for n in ("depth", "mean2d", "conic", "coef", "radius", "radius_xy", "rgb",
+                        "v2g_M", "v2g_u0")}
+    floats["op_eff"] = (got.op_eff, want.op_eff)
+    for name, (g, w) in floats.items():
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32, name
+        g, w = g.cpu().numpy(), w.detach().cpu().numpy()
+        nan = np.isnan(w)
+        assert np.array_equal(np.isnan(g), nan), name
+        g, w = g[~nan], w[~nan]
+        ulp = np.spacing(np.maximum(np.abs(g), np.abs(w)).astype(np.float32))
+        bad = ~((g == w) | (np.abs(g.astype(np.float64) - w) <= PRE_ULPS * ulp))
+        assert not bad.any(), (name, int(bad.sum()), g[bad][:5], w[bad][:5])
+
+
+@pytest.mark.parametrize("n", [1, 1000, 300_001])
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+@pytest.mark.parametrize("filtered", [True, False])
+def test_preprocess_kernel_matches_plain(dev, n, degree, filtered):
+    """The kernel against its plain version on the same CUDA tensors: the
+    leaves with the 3D filter folded in and the two SH tables, or filtered
+    scales and opacities with one concatenated table."""
+    from gof_tpu_torch.model import gaussians as gm
+    from gof_tpu_torch.ops import preprocess as pp
+
+    m = pre_leaves(dev, n)
+    c = cameras.look_at_camera(eye=(0.1, 0.05, 0.0), target=(0, 0, 5.0), width=237, height=131,
+                               device=dev)
+    if filtered:
+        args = (m["xyz"], None, m["rot"], None, None, degree, 0.1, m["active"])
+        kw = dict(leaves=pp.Leaves(m["log_s"], m["logit"], m["filter_3d"], m["dc"], m["rest"]))
+    else:
+        scales = gm.filtered_scaling_of(m["log_s"], m["filter_3d"])
+        op = gm.filtered_opacity_of(m["logit"], m["log_s"], m["filter_3d"])
+        args = (m["xyz"], scales, m["rot"], op, torch.cat([m["dc"], m["rest"]], 1), degree, 0.1,
+                m["active"])
+        kw = {}
+    before = pp.PREPROCESS.launches
+    got = pp.preprocess_view(c, *args, **kw)
+    assert pp.PREPROCESS.launches == before + 1
+    assert_pre_matches(got, pp.preprocess_view_reference(c, *args, **kw))
+    assert_pre_matches(pp.preprocess_view(c, *args, **kw), got)  # and across launches
+
+
+@pytest.mark.parametrize("kernel_size", [0.1, 0.0])
+def test_preprocess_kernel_field_form_and_degenerate_covariances(dev, kernel_size):
+    """The field's call (no SH table, degree 0, the radius kept at 3 sigma)
+    and, with no dilation, zero scales whose 2D covariance has det 0."""
+    from gof_tpu_torch.model import gaussians as gm
+    from gof_tpu_torch.ops import preprocess as pp
+
+    m = pre_leaves(dev, 5000)
+    c = cameras.look_at_camera(eye=(0.1, 0.05, 0.0), target=(0, 0, 5.0), width=160, height=96,
+                               device=dev)
+    scales = gm.filtered_scaling_of(m["log_s"], m["filter_3d"] * 0)  # zero scales stay 0
+    op = gm.filtered_opacity_of(m["logit"], m["log_s"], m["filter_3d"])
+    args = (c, m["xyz"], scales, m["rot"], op, None, 0, kernel_size, m["active"])
+    got = pp.preprocess_view(*args, tight_radius=False)
+    want = pp.preprocess_view_reference(*args, tight_radius=False)
+    assert_pre_matches(got, want)
+    assert bool((got.pre.rgb == 0.5).all())
+    if kernel_size == 0.0:
+        assert not bool(got.pre.valid[2:64:8].any())  # det 0: not valid
+
+
+@pytest.mark.parametrize("size", [(160, 96), (237, 131)])
+def test_render_eval_cuda_matches_the_grad_path(dev, size):
+    """render_eval (the kernel) against the render of the same leaves with
+    autograd recording (the plain preprocess), on the card."""
+    from gof_tpu_torch import config, render_cli
+    from gof_tpu_torch.model import gaussians as gm
+    from gof_tpu_torch.ops import preprocess as pp
+
+    (xyz, scales, rots, op, shs), cam = scene(2000, *size)
+    n = xyz.shape[0]
+    params = gm.GaussianParams(xyz=xyz.to(dev), features_dc=shs[:, :1].to(dev),
+                               features_rest=shs[:, 1:].contiguous().to(dev),
+                               scaling=torch.log(scales).to(dev), rotation=rots.to(dev),
+                               opacity=torch.logit(op).to(dev))
+    z = torch.zeros(n, device=dev)
+    state = gm.GaussianState(active=torch.ones(n, dtype=torch.bool, device=dev),
+                             filter_3d=z + 1e-3, max_radii2d=z, grad_accum=z,
+                             grad_abs_accum=z, denom=z)
+    c = cameras.look_at_camera(**cam, device=dev)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    before = pp.PREPROCESS.launches
+    got = render_cli.render_eval(params, state, c,
+                                 config.ModelParams(sh_degree=3, kernel_size=0.1), bg)
+    assert pp.PREPROCESS.launches == before + 1
+    xyz, log_s, rot, logit, dc, rest = [
+        t.clone().requires_grad_(True) for t in (params.xyz, params.scaling, params.rotation,
+                                                 params.opacity, params.features_dc,
+                                                 params.features_rest)]
+    want = render.render(c, xyz, None, rot, None, None, 3, 0.1, bg, active_mask=state.active,
+                         with_stats=False,
+                         leaves=pp.Leaves(log_s, logit, state.filter_3d, dc, rest))
+    assert pp.PREPROCESS.launches == before + 1  # autograd recorded: the plain version
+    np.testing.assert_allclose(got.image.cpu().numpy(), want.image.detach().cpu().numpy(),
+                               atol=ATOL, rtol=RTOL)
+    assert torch.equal(got.radii, want.radii) and int(got.num_keys) == int(want.num_keys)
+
+
+def test_field_alpha_unchanged_by_the_preprocess_kernel(dev, monkeypatch):
+    """FieldEvaluator.alpha with the kernel against its plain preprocess on
+    the card, within K5's bound (test_integrate_kernel_matches_plain)."""
+    from gof_tpu_torch.ops import preprocess as pp
+
+    ev, p, _, _ = field_inputs(dev)
+    pts = p.cpu().numpy()
+    before = pp.PREPROCESS.launches
+    got = ev.alpha(pts)
+    assert pp.PREPROCESS.launches == before + 1
+    monkeypatch.setattr(pp, "uses_kernel", lambda *t: False)
+    want = ev.alpha(pts)
+    assert pp.PREPROCESS.launches == before + 1
+    assert float(np.abs(got - want).max()) <= 1e-6

@@ -63,6 +63,7 @@ from gof_tpu_torch.constants import TRANSMITTANCE_EPS
 from gof_tpu_torch import train as ttrain
 from gof_tpu_torch.model import gaussians as tgm
 from gof_tpu_torch.ops import binning as tb
+from gof_tpu_torch.ops import quadrics as tq
 from gof_tpu_torch.ops import render as trender
 
 from make_synthetic_scene import make_scene
@@ -250,8 +251,7 @@ def test_warm_limits_keep_the_render(dense_case, case):
         return
     ntx, nty = tb.tile_grid(cam["width"], cam["height"])
     m, s, r, o, sh = map(t, arrays)
-    pre = trender.quadrics.preprocess(m, s, r, sh, 0, tcam.look_at_camera(**cam), 0.1,
-                                      opacities=o)
+    pre = tq.preprocess(m, s, r, sh, 0, tcam.look_at_camera(**cam), 0.1, opacities=o)
     rects = tb.gaussian_rects(pre.mean2d, pre.radius, pre.valid, ntx, nty,
                               radius_xy=pre.radius_xy)
     b = tb.bin_gaussians(pre.depth, rects, ntx, nty, mean2d=pre.mean2d, radius=pre.radius)

@@ -276,9 +276,10 @@ def test_field_call_has_a_view_span_per_camera(tmp_path):
 
 
 def test_render_eval_is_a_view_unit(tmp_path):
-    """render_cli.render_eval is one view unit (id the camera's uid):
-    preprocess (the filtered scales, opacities and features), then the
-    render's spans without compaction; export writes them as JSON lines."""
+    """render_cli.render_eval is one view unit (id the camera's uid): the
+    render's spans without compaction, its preprocess holding the 3D filter
+    and the SH colour of the model's leaves; export writes them as JSON
+    lines."""
     params, state, cam, _ = scene(40)
     with cpu_profile():
         before = trace._count["spans"]
@@ -286,7 +287,7 @@ def test_render_eval_is_a_view_unit(tmp_path):
                                torch.zeros(3))
     spans = new_spans(before)
     t = tree(spans)
-    assert t["view"] == ["preprocess", "preprocess", "binning", "payload", "k1", "assemble"]
+    assert t["view"] == ["preprocess", "binning", "payload", "k1", "assemble"]
     assert [s.uid for s in spans if s.name == "view"] == [cam.uid]
     path = tmp_path / "spans.jsonl"
     n = trace.export(str(path))
